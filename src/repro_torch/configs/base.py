@@ -1,0 +1,86 @@
+"""Model configuration: ``ModelConfig``, ``LayerSpec`` and the registry.
+
+Port of ``repro.configs.base`` with the fields the serving main path
+reads, or checks to refuse what is not ported yet.  An architecture is a *period* of layers repeated
+``n_periods`` times; the port keeps one parameter dict per layer.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+from ..core.sc_layers import SC_OFF, SCQuantConfig
+
+__all__ = ["LayerSpec", "ModelConfig", "register_arch", "get_arch"]
+
+
+@dataclass(frozen=True)
+class LayerSpec:
+    """One layer within the repeating period."""
+    mixer: str = "attn"        # attn (the only mixer ported so far)
+    ffn: str = "dense"         # dense (the only ffn ported so far)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0             # 0 -> d_model // n_heads
+    period: tuple[LayerSpec, ...] = (LayerSpec(),)
+    norm: str = "rmsnorm"
+    ffn_act: str = "silu"
+    ffn_gated: bool = True
+    rope_theta: float = 10000.0
+    rope_fraction: float = 1.0
+    causal: bool = True
+    qk_norm: bool = False
+    tie_embeddings: bool = False
+    logit_softcap: float = 0.0
+    quant: SCQuantConfig = SC_OFF
+    dtype: str = "bfloat16"
+    vocab_pad_multiple: int = 256
+
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    @property
+    def n_periods(self) -> int:
+        if self.n_layers % len(self.period):
+            raise ValueError(f"{self.name}: n_layers {self.n_layers} is not "
+                             f"a multiple of the period {len(self.period)}")
+        return self.n_layers // len(self.period)
+
+    @property
+    def padded_vocab(self) -> int:
+        m = self.vocab_pad_multiple
+        return (self.vocab_size + m - 1) // m * m
+
+    @property
+    def is_encoder(self) -> bool:
+        return not self.causal
+
+    def scaled(self, **kw) -> "ModelConfig":
+        """Reduced copy for smoke tests."""
+        return replace(self, **kw)
+
+
+_ARCH_REGISTRY: dict[str, ModelConfig] = {}
+
+
+def register_arch(cfg: ModelConfig) -> ModelConfig:
+    _ARCH_REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name not in _ARCH_REGISTRY:
+        # importing the configs package populates the registry
+        from .. import configs  # noqa: F401
+    return _ARCH_REGISTRY[name]

@@ -1,0 +1,71 @@
+"""Kernel dispatch: the tensor's device picks the kernel or its plain version.
+
+Port of ``repro.kernels.dispatch`` with one rule in place of backend
+knobs: a CUDA tensor goes to the hand-written CUDA kernel (which launches
+or raises), a CPU tensor goes to the kernel's plain PyTorch version.
+There is no scope, no environment variable and no row threshold that
+would send a CUDA tensor to the plain version.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.bsn import ApproxBSNSpec, spec_stages
+from . import ref
+from .approx_bsn import approx_bsn_cuda, approx_bsn_plain
+from .paged_attention import paged_attn_decode_cuda, paged_attn_prefill_cuda
+
+__all__ = ["approx_bsn", "paged_attn_decode", "paged_attn_prefill"]
+
+
+def approx_bsn(counts: torch.Tensor, spec: ApproxBSNSpec) -> torch.Tensor:
+    """Approximate-BSN accumulation of ``(..., width)`` popcounts ->
+    ``(...,)`` int32 output popcounts; the represented value is
+    ``spec.scale * (out - spec.out_bsl // 2)``."""
+    if counts.shape[-1] != spec.width:
+        raise ValueError(f"expected trailing dim {spec.width}, got "
+                         f"{tuple(counts.shape)}")
+    batch = counts.shape[:-1]
+    rows = math.prod(batch)
+    x2 = counts.reshape(rows, spec.width).to(torch.int32)
+    kw = dict(in_bsl=spec.in_bsl, stages=spec_stages(spec))
+    if counts.is_cuda:
+        out = approx_bsn_cuda(x2.contiguous(), **kw)
+    else:
+        out = approx_bsn_plain(x2, **kw)
+    return out.reshape(batch)
+
+
+def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, page_tables: torch.Tensor,
+                      lengths: torch.Tensor, *, kv_format: str = "fp",
+                      kv_aux: dict | None = None) -> torch.Tensor:
+    """Batched one-token paged decode, (S, Hkv, G, D) -> (S, Hkv, G, D);
+    compressed pools pass ``k_scale``/``v_scale`` (+ sc ``k_resid``/
+    ``v_resid``) in ``kv_aux``."""
+    aux = kv_aux or {}
+    if q.is_cuda:
+        return paged_attn_decode_cuda(q, k_pages, v_pages, page_tables,
+                                      lengths, kv_format=kv_format, **aux)
+    return ref.paged_attn_decode_ref(q, k_pages, v_pages, page_tables,
+                                     lengths, kv_format=kv_format,
+                                     kv_aux=aux)
+
+
+def paged_attn_prefill(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_tables: torch.Tensor,
+                       start: int, *, kv_format: str = "fp",
+                       kv_aux: dict | None = None) -> torch.Tensor:
+    """One chunk of paged prefill, (G, C, Hkv, Gq, D) at positions
+    ``[start, start + C)`` against every page written so far, causal."""
+    aux = kv_aux or {}
+    if q.is_cuda:
+        return paged_attn_prefill_cuda(q, k_pages, v_pages, page_tables,
+                                       start=start, kv_format=kv_format,
+                                       **aux)
+    return ref.paged_attn_prefill_ref(q, k_pages, v_pages, page_tables,
+                                      start, kv_format=kv_format,
+                                      kv_aux=aux)

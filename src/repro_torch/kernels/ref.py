@@ -1,0 +1,96 @@
+"""Plain PyTorch versions of the paged-attention kernels.
+
+Port of the paged half of ``repro.kernels.ref``: gather each slot's page
+window, dequantize it, mask and softmax.  These are what the CPU runs and
+what ``chip_smoke.py`` holds the CUDA kernels against on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..core.kv_quant import kv_dequant
+
+__all__ = ["gather_pages", "gather_pages_dequant", "paged_attn_decode_ref",
+           "paged_attn_prefill_ref"]
+
+
+def gather_pages(pages: torch.Tensor,
+                 page_tables: torch.Tensor) -> torch.Tensor:
+    """(N, page, ...) pool + (S, maxp) tables -> (S, maxp*page, ...)."""
+    S, maxp = page_tables.shape
+    page = pages.shape[1]
+    g = pages[page_tables.reshape(-1).long()]
+    return g.reshape(S, maxp * page, *pages.shape[2:])
+
+
+def gather_pages_dequant(pages: torch.Tensor, page_tables: torch.Tensor, *,
+                         kv_format: str = "fp",
+                         scale: torch.Tensor | None = None,
+                         resid: torch.Tensor | None = None) -> torch.Tensor:
+    """Gather then dequantize a compressed pool window (gather commutes
+    with the elementwise dequant)."""
+    g = gather_pages(pages, page_tables)
+    if kv_format == "fp":
+        return g
+    sg = gather_pages(scale, page_tables)
+    rg = gather_pages(resid, page_tables) if kv_format == "sc" else None
+    return kv_dequant(g, sg, rg, fmt=kv_format)
+
+
+def _window(k_pages, v_pages, page_tables, kv_format, kv_aux):
+    aux = kv_aux or {}
+    kg = gather_pages_dequant(k_pages, page_tables, kv_format=kv_format,
+                              scale=aux.get("k_scale"),
+                              resid=aux.get("k_resid"))
+    vg = gather_pages_dequant(v_pages, page_tables, kv_format=kv_format,
+                              scale=aux.get("v_scale"),
+                              resid=aux.get("v_resid"))
+    return kg.to(torch.float32), vg.to(torch.float32)
+
+
+def paged_attn_decode_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                          v_pages: torch.Tensor, page_tables: torch.Tensor,
+                          lengths: torch.Tensor, *, kv_format: str = "fp",
+                          kv_aux: dict | None = None) -> torch.Tensor:
+    """One-token paged decode.  q: (S, Hkv, G, D); pools (N, page, Hkv, D)
+    already holding the new token at ``lengths``; tables (S, maxp);
+    positions ``t <= lengths[s]`` are live.  Returns (S, Hkv, G, D) in
+    q.dtype."""
+    D = q.shape[-1]
+    kg, vg = _window(k_pages, v_pages, page_tables, kv_format, kv_aux)
+    T = kg.shape[1]
+    logits = torch.einsum("shgd,sthd->shgt", q.to(torch.float32),
+                          kg) / math.sqrt(D)
+    valid = (torch.arange(T, device=q.device)[None, :]
+             <= lengths[:, None])                          # (S, T)
+    logits = torch.where(valid[:, None, None, :], logits,
+                         torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("shgt,sthd->shgd", w, vg)
+    return o.to(q.dtype)
+
+
+def paged_attn_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_tables: torch.Tensor,
+                           start: int, *, kv_format: str = "fp",
+                           kv_aux: dict | None = None) -> torch.Tensor:
+    """Chunk ``[start, start + C)`` of G requests against every page written
+    so far, causal.  q: (G, C, Hkv, Gq, D); tables (G, maxp).  Returns
+    (G, C, Hkv, Gq, D) in q.dtype."""
+    G, C, Hkv, Gq, D = q.shape
+    page = k_pages.shape[1]
+    seen = page_tables[:, :(start + C) // page]
+    kg, vg = _window(k_pages, v_pages, seen, kv_format, kv_aux)
+    T = kg.shape[1]
+    logits = torch.einsum("sqhgd,sthd->shgqt", q.to(torch.float32),
+                          kg) / math.sqrt(D)
+    causal = (torch.arange(T, device=q.device)[None, :]
+              <= (start + torch.arange(C, device=q.device))[:, None])
+    logits = torch.where(causal[None, None, None], logits,
+                         torch.tensor(-1e30, device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("shgqt,sthd->sqhgd", w, vg)
+    return o.to(q.dtype)

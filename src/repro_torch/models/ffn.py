@@ -1,0 +1,30 @@
+"""Gated dense FFN (SwiGLU), SC-quantized.  Port of ``repro.models.ffn``:
+the three projections go through ``dense_apply``; the gate multiply stays
+in the residual (high-precision) domain."""
+
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from .common import ACT_FNS, dense_apply, dense_init
+
+__all__ = ["ffn_init", "ffn_apply"]
+
+
+def ffn_init(cfg: ModelConfig, *, generator: torch.Generator,
+             device: torch.device) -> dict:
+    if not cfg.ffn_gated:
+        raise NotImplementedError("only the gated FFN is ported yet")
+    dt = getattr(torch, cfg.dtype)
+    kw = dict(generator=generator, device=device, dtype=dt)
+    return {"w_gate": dense_init(cfg.d_model, cfg.d_ff, cfg.quant, **kw),
+            "w_up": dense_init(cfg.d_model, cfg.d_ff, cfg.quant, **kw),
+            "w_down": dense_init(cfg.d_ff, cfg.d_model, cfg.quant, **kw)}
+
+
+def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    act = ACT_FNS[cfg.ffn_act]
+    h = act(dense_apply(p["w_gate"], x, cfg.quant)) \
+        * dense_apply(p["w_up"], x, cfg.quant)
+    return dense_apply(p["w_down"], h, cfg.quant)

@@ -1,0 +1,183 @@
+"""Decoder LM over the paged serving cache (attention + dense FFN layers).
+
+Port of the serving half of ``repro.models.transformer``: parameter init
+in the reference's shapes, the paged cache, one batched decode step and
+the chunked paged prefill.  The reference stacks layers over a leading
+``n_periods`` axis and scans them; the port keeps one parameter dict and
+one pool dict per layer and loops over them in Python.
+
+High-precision residual (paper §III): under ``sc_qat`` (the ``qat``
+serving datapath) the residual stream re-quantizes at ``resid_bsl`` after
+every add with the learned scales ``alpha_r1`` / ``alpha_r2``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..core.kv_quant import check_kv_format
+from ..core.quant import lsq_fake_quant
+from ..device import resolve_device
+from . import attention, ffn
+from .common import dense_apply, dense_init, norm_apply
+
+__all__ = ["init_params", "init_paged_cache", "paged_decode_step",
+           "paged_prefill"]
+
+
+def _check_ported(cfg: ModelConfig) -> None:
+    for spec in cfg.period:
+        if (spec.mixer, spec.ffn) != ("attn", "dense"):
+            raise NotImplementedError(
+                f"{cfg.name}: layer {spec} is not ported yet (attention + "
+                f"dense FFN only)")
+    if cfg.is_encoder or cfg.logit_softcap or cfg.tie_embeddings:
+        raise NotImplementedError(f"{cfg.name}: not ported yet")
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device: str | torch.device | None = None) -> dict:
+    """Random parameters in the reference's shapes and initialisation
+    (``dense_init`` / ``embed_init``); ``generator`` must live on
+    ``device`` (default ``cuda``)."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    dt = getattr(torch, cfg.dtype)
+    kw = dict(generator=generator, device=dev)
+    table = torch.randn((cfg.padded_vocab, cfg.d_model), dtype=torch.float32,
+                        **kw) * (1.0 / math.sqrt(cfg.d_model))
+    layers = []
+    for _ in range(cfg.n_layers):
+        lp = {"norm1": {"scale": torch.ones(cfg.d_model, device=dev)},
+              "mixer": attention.attn_init(cfg, **kw),
+              "norm2": {"scale": torch.ones(cfg.d_model, device=dev)},
+              "ffn": ffn.ffn_init(cfg, **kw)}
+        if cfg.quant.enabled:
+            lp["alpha_r1"] = torch.tensor(0.05, device=dev)
+            lp["alpha_r2"] = torch.tensor(0.05, device=dev)
+        layers.append(lp)
+    return {"embed": {"table": table.to(dt)},
+            "layers": layers,
+            "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)},
+            "lm_head": dense_init(cfg.d_model, cfg.padded_vocab, cfg.quant,
+                                  dtype=dt, **kw)}
+
+
+def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
+                     page_size: int, kv_format: str = "fp",
+                     device: str | torch.device | None = None) -> dict:
+    """Zeroed page pools per attention layer: ``(num_pages, page, Hkv, Dh)``
+    in the model dtype for fp, int8 codes plus ``(num_pages, page, Hkv)``
+    f32 scales for int8, and int8 residual pools too for sc.  All-zero
+    pools dequantize to exact zeros in every format.  ``max_slots`` sizes
+    per-slot state rows, which attention-only models do not have."""
+    del max_slots
+    check_kv_format(kv_format)
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
+    kv_dt = getattr(torch, cfg.dtype) if kv_format == "fp" else torch.int8
+    layers = []
+    for _ in range(cfg.n_layers):
+        e = {"k_pages": torch.zeros(shape, dtype=kv_dt, device=dev),
+             "v_pages": torch.zeros(shape, dtype=kv_dt, device=dev)}
+        if kv_format != "fp":
+            e["k_scale"] = torch.zeros(shape[:3], device=dev)
+            e["v_scale"] = torch.zeros(shape[:3], device=dev)
+        if kv_format == "sc":
+            e["k_resid"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+            e["v_resid"] = torch.zeros(shape, dtype=torch.int8, device=dev)
+        layers.append(e)
+    return {"layers": layers}
+
+
+def _residual_add(x, dx, lp, name, cfg: ModelConfig):
+    y = x + dx
+    if cfg.quant.enabled and cfg.quant.mode == "sc_qat":
+        y = lsq_fake_quant(y, lp[name], -cfg.quant.resid_half,
+                           cfg.quant.resid_half)
+    return y
+
+
+def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig, mixer):
+    """norm -> attention (``mixer(h)``) -> residual -> norm -> FFN ->
+    residual."""
+    h = norm_apply(lp["norm1"], x, cfg.norm)
+    x = _residual_add(x, mixer(h), lp, "alpha_r1", cfg)
+    h2 = norm_apply(lp["norm2"], x, cfg.norm)
+    return _residual_add(x, ffn.ffn_apply(lp["ffn"], h2, cfg), lp,
+                         "alpha_r2", cfg)
+
+
+def _vocab_bias(cfg: ModelConfig, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """-1e9 on the padded vocab slots."""
+    iota = torch.arange(cfg.padded_vocab, device=device)
+    return torch.where(iota < cfg.vocab_size, 0.0, -1e9).to(dtype)
+
+
+def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    x = norm_apply(params["final_norm"], x, cfg.norm)
+    logits = dense_apply(params["lm_head"], x, cfg.quant)
+    return logits + _vocab_bias(cfg, logits.dtype, logits.device)
+
+
+def paged_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                      slot_ids: torch.Tensor, page_tables: torch.Tensor,
+                      lengths: torch.Tensor, cfg: ModelConfig):
+    """One batched decode step: every lane advances one token.
+
+    tokens / slot_ids / lengths: (S,) int32; page_tables: (S, maxp) int32.
+    Padded lanes carry length 0 and trash-page tables.  ``slot_ids`` places
+    per-slot state rows, which attention-only models do not have.  The
+    pools update in place.  Returns (logits (S, V), cache).
+    """
+    del slot_ids
+    x = params["embed"]["table"][tokens.long()][:, None, :]      # (S, 1, D)
+    for lp, pools in zip(params["layers"], cache["layers"]):
+        cst = dict(pools, page_tables=page_tables)
+        x = _apply_layer(lp, x, cfg, lambda h, cst=cst, lp=lp:
+                         attention.attn_decode_paged(
+                             lp["mixer"], h, cfg, cst, lengths)[0])
+    return _logits(params, x, cfg)[:, 0], cache
+
+
+def paged_prefill(params: dict, cache: dict, tokens: torch.Tensor,
+                  page_tables: torch.Tensor, prompt_lens: torch.Tensor,
+                  cfg: ModelConfig, *, chunk: int,
+                  slot_ids: torch.Tensor | None = None):
+    """Batched chunked prefill into the decode cache layout.
+
+    tokens: (G, L) right-padded prompts, L a multiple of ``chunk`` and
+    ``chunk`` a multiple of the page size; page_tables: (G, width) with
+    width >= L / page (padding = trash page); prompt_lens: (G,).  Each
+    chunk runs every layer, scattering its K/V as whole pages and
+    attending over the pages written so far.  Returns (logits of each
+    request's last prompt token (G, V), cache).
+    """
+    del slot_ids
+    G, L = tokens.shape
+    if L % chunk:
+        raise ValueError(f"prompt bucket {L} is not a multiple of the "
+                         f"chunk {chunk}")
+    table = params["embed"]["table"]
+    h_last = torch.zeros((G, cfg.d_model), dtype=table.dtype,
+                         device=table.device)
+    for c in range(L // chunk):
+        start = c * chunk
+        x = table[tokens[:, start:start + chunk].long()]         # (G, C, D)
+        for lp, pools in zip(params["layers"], cache["layers"]):
+            cst = dict(pools, page_tables=page_tables)
+            x = _apply_layer(lp, x, cfg, lambda h, cst=cst, lp=lp, s=start:
+                             attention.attn_prefill_paged(
+                                 lp["mixer"], h, cfg, cst, s)[0])
+        # keep the hidden state of each request's last real token
+        last = prompt_lens.long() - 1 - start
+        rows = torch.gather(x, 1, last.clamp(0, chunk - 1)[:, None, None]
+                            .expand(G, 1, cfg.d_model))[:, 0]
+        hit = ((last >= 0) & (last < chunk))[:, None]
+        h_last = torch.where(hit, rows, h_last)
+    return _logits(params, h_last[:, None, :], cfg)[:, 0], cache
