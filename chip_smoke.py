@@ -24,6 +24,8 @@ Run from the repository root::
 Phase 4 also profiles one decode step per datapath (torch.profiler):
 device busy time, the device's idle share, and the PyTorch ops that take
 the device time, written to ``chiprun_out/profile_*.txt``.
+It also times one decode step's float products (``matmul_rows``,
+float64) against a bf16 ``torch.matmul`` on the same operands.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the per-kernel JSON summary.  Details go to
@@ -315,10 +317,16 @@ PATH_KERNELS = {"qat": ("paged_attn_decode", "paged_attn_prefill"),
                                   "approx_bsn")}
 
 
-def profile_decode_step(torch, eng, label):
+def _dev_us(e):
+    return getattr(e, "self_device_time_total", None) \
+        or getattr(e, "self_cuda_time_total", 0)
+
+
+def profile_decode_step(torch, eng, label, step_ms):
     """One decode step under torch.profiler: device time by kernel, and
-    the device's busy share of the step (host wall time includes the
-    profiler's own overhead)."""
+    the device's idle share of the step, both against the profiled wall
+    time (which the profiler's own host work inflates) and against
+    ``step_ms``, the same engine's unprofiled mean decode step."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -328,32 +336,93 @@ def profile_decode_step(torch, eng, label):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) \
-            or getattr(e, "self_cuda_time_total", 0)
-
     # busy = the kernels themselves; the top list names the PyTorch ops
     # (host-side events) that launched them
     cuda = torch.autograd.DeviceType.CUDA
-    busy_ms = sum(dev_us(e) for e in events if e.device_type == cuda) / 1e3
-    rows = sorted(((dev_us(e), e.key, e.count) for e in events
-                   if e.device_type != cuda and dev_us(e) > 0),
+    busy_ms = sum(_dev_us(e) for e in events if e.device_type == cuda) / 1e3
+    rows = sorted(((_dev_us(e), e.key, e.count) for e in events
+                   if e.device_type != cuda and _dev_us(e) > 0),
                   reverse=True)
     (OUT_DIR / f"profile_{label}.txt").write_text(events.table(
         sort_by="self_cuda_time_total", row_limit=40))
     top = [dict(name=k, ms=us / 1e3, calls=n) for us, k, n in rows[:10]]
-    ours_ms = sum(dev_us(e) for e in events if e.device_type == cuda and any(
+    ours_ms = sum(_dev_us(e) for e in events if e.device_type == cuda and any(
         k in e.key for k in ("decode_kernel", "prefill_kernel",
                              "approx_bsn_kernel"))) / 1e3
+    idle = 1 - busy_ms / wall_ms
+    idle_unprofiled = 1 - busy_ms / step_ms
     log(f"profile {label}: step wall_ms={wall_ms:.1f} device_busy_ms="
-        f"{busy_ms:.1f} idle_share={1 - busy_ms / wall_ms:.3f} "
-        f"port_kernels_ms={ours_ms:.2f} top ops: "
+        f"{busy_ms:.1f} idle_share={idle:.3f} (vs unprofiled step "
+        f"{step_ms:.1f} ms: {idle_unprofiled:.3f}) port_kernels_ms="
+        f"{ours_ms:.2f} top ops: "
         + "; ".join(f"{t['name']} {t['ms']:.2f} ms x{t['calls']}"
                     for t in top[:6]))
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms, port_kernels_ms=ours_ms,
-                top=top)
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle,
+                idle_share_unprofiled=idle_unprofiled,
+                port_kernels_ms=ours_ms, top=top)
+
+
+def _dense_weights(tree):
+    """Every projection weight ``w`` under ``tree`` (a params subtree)."""
+    if isinstance(tree, dict):
+        if "w" in tree:
+            return [tree["w"]]
+        return [w for v in tree.values() for w in _dense_weights(v)]
+    if isinstance(tree, list):
+        return [w for v in tree for w in _dense_weights(v)]
+    return []
+
+
+def device_ms(torch, fn):
+    """Device busy ms of one call of ``fn``: the kernels' own time under
+    torch.profiler, free of the host's launch gaps."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type == cuda) / 1e3
+
+
+def product_cost(torch, dev, params, cfg, rows=4):
+    """Device ms of one decode step's float products at ``rows`` lanes,
+    every layer's own weights in turn: ``models.common.matmul_rows`` (the
+    qat and unquantized path: float64 casts for batch invariance) against
+    one bf16 ``torch.matmul`` on the same operands (a yardstick, not
+    batch-invariant), and the time to read the bf16 weights once."""
+    from repro_torch.models.common import matmul_rows
+    gen = torch.Generator(dev).manual_seed(SEED)
+    ws = [w for lp in params["layers"] for w in _dense_weights(lp)]
+    ws.append(params["lm_head"]["w"])
+    xs = [torch.randn((rows, w.shape[0]), generator=gen, device=dev)
+          .to(w.dtype) for w in ws]
+
+    def step(product):
+        for x, w in zip(xs, ws):
+            product(x, w)
+
+    step(matmul_rows)                       # warm up both
+    step(torch.matmul)
+    res = dict(rows=rows, matmul_rows_ms=device_ms(
+                   torch, lambda: step(matmul_rows)),
+               bf16_matmul_ms=device_ms(torch, lambda: step(torch.matmul)),
+               weight_read_bound_ms=sum(w.numel() * w.element_size()
+                                        for w in ws) / HBM_BPS * 1e3,
+               # one large product: CUDA events over repeated calls
+               lm_head_matmul_rows_ms=time_ms(
+                   lambda: matmul_rows(xs[-1], ws[-1])),
+               lm_head_bf16_matmul_ms=time_ms(
+                   lambda: torch.matmul(xs[-1], ws[-1])))
+    log(f"float products of one decode step at {rows} lanes (device ms): "
+        f"matmul_rows (float64) {res['matmul_rows_ms']:.2f}, bf16 "
+        f"torch.matmul {res['bf16_matmul_ms']:.2f}, bf16 weight read bound "
+        f"{res['weight_read_bound_ms']:.2f}; lm_head alone "
+        f"{res['lm_head_matmul_rows_ms']:.3f} / "
+        f"{res['lm_head_bf16_matmul_ms']:.3f}")
+    return res
 
 
 def serve(torch, dev, layers):
@@ -439,9 +508,10 @@ def serve(torch, dev, layers):
         eng = engine(datapath, fmt)         # profile a fresh third step
         eng.step()
         eng.step()
-        res["profile"] = profile_decode_step(torch, eng, f"{datapath}_{fmt}")
+        res["profile"] = profile_decode_step(torch, eng, f"{datapath}_{fmt}",
+                                             res["decode_ms_per_step"])
         del eng
-    return results, totals
+    return results, totals, product_cost(torch, dev, params, cfg)
 
 
 def tiny_card_equals_cpu(torch, dev):
@@ -526,7 +596,7 @@ def main() -> int:
     pre = check_prefill(torch, dev, gen)
 
     # phase 4: the main path at full width, then the tiny card==cpu check
-    serving, launches = serve(torch, dev, args.layers)
+    serving, launches, products = serve(torch, dev, args.layers)
     tiny_card_equals_cpu(torch, dev)
 
     def entry(name, source, replaces, cases, main):
@@ -550,7 +620,8 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": res.seconds,
          "approx_bsn": bsn, "paged_attn_decode": dec,
-         "paged_attn_prefill": pre, "serving": serving, **summary},
+         "paged_attn_prefill": pre, "serving": serving,
+         "float_products": products, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

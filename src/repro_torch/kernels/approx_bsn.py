@@ -20,7 +20,6 @@ __all__ = ["MAX_STAGES", "validate_stages", "approx_bsn_plain",
 Stages = tuple[tuple[int, int, int], ...]
 
 MAX_STAGES = 8                  # csrc/approx_bsn.cu's fixed argument size
-_SMEM_LIMIT = 227 * 1024
 
 
 def validate_stages(width: int, in_bsl: int, stages: Stages) -> int:
@@ -79,14 +78,6 @@ def approx_bsn_cuda(counts: torch.Tensor, *, in_bsl: int,
                          f"got {len(stages)}")
     rows, width = counts.shape
     validate_stages(width, in_bsl, stages)
-    widths, n = [], width
-    for group, _, _ in stages:
-        n //= group
-        widths.append(n)
-    smem = 4 * (widths[0] + (widths[1] if len(widths) > 1 else 0))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"stage buffers need {smem} bytes of shared "
-                         f"memory, above the {_SMEM_LIMIT} a block has")
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} rows exceed one launch's grid")
     out = torch.empty((rows,), dtype=torch.int32, device=counts.device)

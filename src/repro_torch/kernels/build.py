@@ -11,8 +11,10 @@ falls back to the plain PyTorch versions.  Importing this module touches
 neither the compiler nor the card.
 
 :func:`launch` is the one place a kernel is started: it calls the C entry
-point (which returns ``cudaGetLastError()`` after its launch), raises on a
-non-zero code, and adds one to that kernel's count in :data:`LAUNCHES`.
+point (which returns ``cudaGetLastError()`` after its launch, or refuses
+arguments its kernel cannot take, such as a shared-memory layout above
+what a block has), raises on a non-zero code with the entry point's
+message, and adds one to that kernel's count in :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -158,7 +160,7 @@ def launch(kernel: str, entry: str, *args) -> None:
     rc = getattr(lib, entry)(*args)
     if rc != 0:
         msg = lib.repro_kernels_error_string(rc).decode()
-        raise RuntimeError(f"{kernel}: CUDA launch failed ({rc}: {msg})")
+        raise RuntimeError(f"{kernel}: launch failed ({rc}: {msg})")
     LAUNCHES[kernel] += 1
 
 

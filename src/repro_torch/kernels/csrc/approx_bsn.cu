@@ -107,7 +107,8 @@ extern "C" int approx_bsn_launch(const void* counts, void* out, int rows,
                                  int width, int in_bsl, const int* stages,
                                  int n_stages, void* stream) {
   if (n_stages < 1 || n_stages > MAX_STAGES || rows < 1 || width < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return refuse("approx_bsn: takes 1..%d stages and positive rows and "
+                  "width", MAX_STAGES);
   Stages st{};
   st.n = n_stages;
   int bsl = in_bsl, n = width;
@@ -126,7 +127,7 @@ extern "C" int approx_bsn_launch(const void* counts, void* out, int rows,
   st.buf0 = sizes[0];
   st.buf1 = n_stages > 1 ? sizes[1] : 0;
   const size_t smem = static_cast<size_t>(st.buf0 + st.buf1) * sizeof(int);
-  int rc = prepare_smem(approx_bsn_kernel, smem);
+  int rc = prepare_smem(approx_bsn_kernel, smem, "approx_bsn");
   if (rc) return rc;
   approx_bsn_kernel<<<rows, THREADS, smem,
                       static_cast<cudaStream_t>(stream)>>>(

@@ -52,11 +52,22 @@ __device__ __forceinline__ float kv_value(const void* pool,
   }
 }
 
-// Raise a kernel's dynamic shared-memory cap when it needs more than the
-// default 48 KB; returns the CUDA error code (0 on success).
+// Record why an entry point refuses its arguments (printf-style, read by
+// repro_kernels_error_string) and return cudaErrorInvalidValue (errors.cu).
+int refuse(const char* fmt, ...) __attribute__((format(printf, 1, 2)));
+
+// Dynamic shared memory one H100 block can have.
+constexpr size_t SMEM_CAP = 227 * 1024;
+
+// Raise kernel `name`'s dynamic shared-memory cap when it needs more than
+// the default 48 KB, or refuse a layout above SMEM_CAP; returns the CUDA
+// error code (0 on success).
 template <typename Kernel>
-inline int prepare_smem(Kernel kernel, size_t bytes) {
-  if (bytes > 227 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+inline int prepare_smem(Kernel kernel, size_t bytes, const char* name) {
+  if (bytes > SMEM_CAP) {
+    return refuse("%s needs %zu bytes of shared memory per block, above "
+                  "the %zu a block can have", name, bytes, SMEM_CAP);
+  }
   if (bytes > 48 * 1024) {
     return static_cast<int>(cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -91,7 +91,8 @@ __device__ __forceinline__ void softmax_step(
 }
 
 // shared-memory floats: q + acc (rows*D each), K page (page*(D+1)),
-// V page (page*D), logits tile (rows*page), m/l/corr (rows each)
+// V page (page*D), logits tile (rows*page), m/l/corr (rows each).  The
+// launch refuses a layout above SMEM_CAP (prepare_smem), naming the bytes.
 inline size_t smem_bytes(int rows, int page, int D) {
   return sizeof(float) * (2 * static_cast<size_t>(rows) * D +
                           static_cast<size_t>(page) * (2 * D + 1) +
@@ -217,7 +218,8 @@ int decode_typed(const void* q, const void* kp, const void* vp,
                  void* out, int S, int Hkv, int G, int D, int page, int maxp,
                  cudaStream_t stream) {
   const size_t smem = smem_bytes(G, page, D);
-  int rc = prepare_smem(decode_kernel<QT, KIND>, smem);
+  int rc = prepare_smem(decode_kernel<QT, KIND>, smem,
+                        "paged_attn_decode");
   if (rc) return rc;
   const dim3 grid(S, Hkv);
   decode_kernel<QT, KIND><<<grid, THREADS, smem, stream>>>(
@@ -236,7 +238,8 @@ int prefill_typed(const void* q, const void* kp, const void* vp,
                   int C, int Hkv, int Gq, int D, int page, int width,
                   int start, int bq, cudaStream_t stream) {
   const size_t smem = smem_bytes(bq, page, D);
-  int rc = prepare_smem(prefill_kernel<QT, KIND>, smem);
+  int rc = prepare_smem(prefill_kernel<QT, KIND>, smem,
+                        "paged_attn_prefill");
   if (rc) return rc;
   const dim3 grid(G * Hkv * Gq, (C + bq - 1) / bq);
   prefill_kernel<QT, KIND><<<grid, THREADS, smem, stream>>>(
@@ -257,12 +260,12 @@ int dispatch(int q_dtype, int kv_kind, Args... args) {
     case KV_BF16: return F<QT, KV_BF16>::run(args...);          \
     case KV_INT8: return F<QT, KV_INT8>::run(args...);          \
     case KV_SC: return F<QT, KV_SC>::run(args...);              \
-    default: return static_cast<int>(cudaErrorInvalidValue);    \
+    default: return refuse("unknown KV kind %d", kv_kind);      \
   }
   if (q_dtype == Q_F32) { REPRO_KV_CASES(float) }
   if (q_dtype == Q_BF16) { REPRO_KV_CASES(__nv_bfloat16) }
 #undef REPRO_KV_CASES
-  return static_cast<int>(cudaErrorInvalidValue);
+  return refuse("unknown q dtype %d", q_dtype);
 }
 
 template <typename QT, int KIND>
@@ -287,7 +290,8 @@ extern "C" int paged_attn_decode_launch(
     int S, int Hkv, int G, int D, int page, int maxp, int q_dtype,
     int kv_kind, void* stream) {
   if (S < 1 || Hkv < 1 || G < 1 || D < 1 || page < 1 || maxp < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return refuse("paged_attn_decode: S, Hkv, G, D, page and maxp must be "
+                  "positive");
   return dispatch<Decode>(q_dtype, kv_kind, q, k_pages, v_pages, k_scale,
                           v_scale, k_resid, v_resid, tables, lengths, out, S,
                           Hkv, G, D, page, maxp,
@@ -303,7 +307,8 @@ extern "C" int paged_attn_prefill_launch(
   if (G < 1 || C < 1 || Hkv < 1 || Gq < 1 || D < 1 || page < 1 ||
       block_q < 1 || C % page || start % page ||
       (start + C) / page > width)
-    return static_cast<int>(cudaErrorInvalidValue);
+    return refuse("paged_attn_prefill: sizes must be positive, C and start "
+                  "multiples of page, and width >= (start + C) / page");
   return dispatch<Prefill>(q_dtype, kv_kind, q, k_pages, v_pages, k_scale,
                            v_scale, k_resid, v_resid, tables, out, G, C, Hkv,
                            Gq, D, page, width, start, block_q,

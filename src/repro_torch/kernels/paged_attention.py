@@ -20,7 +20,6 @@ __all__ = ["paged_attn_decode_cuda", "paged_attn_prefill_cuda"]
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FP_KINDS = {torch.float32: 0, torch.bfloat16: 1}
-_SMEM_LIMIT = 227 * 1024
 
 
 def _ptr(t: torch.Tensor | None) -> int | None:
@@ -72,11 +71,6 @@ def _pools(q, kv_format, k_pages, v_pages, k_scale, v_scale, k_resid,
     return kind
 
 
-def _smem_bytes(rows: int, page: int, D: int) -> int:
-    # csrc/paged_attention.cu smem_bytes()
-    return 4 * (2 * rows * D + page * (2 * D + 1) + rows * page + 3 * rows)
-
-
 def paged_attn_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, page_tables: torch.Tensor,
                            lengths: torch.Tensor, *, kv_format: str = "fp",
@@ -106,9 +100,6 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     maxp = page_tables.shape[1]
     _check("page_tables", page_tables, torch.int32, (S, maxp), q.device)
     _check("lengths", lengths, torch.int32, (S,), q.device)
-    if _smem_bytes(G, page, D) > _SMEM_LIMIT:
-        raise ValueError("G, page and D need more shared memory than a "
-                         "block has")
     out = torch.empty_like(q)
     if S == 0 or maxp == 0:
         return out.zero_()
@@ -155,9 +146,6 @@ def paged_attn_prefill_cuda(q: torch.Tensor, k_pages: torch.Tensor,
                          f"{(start + C) // page} pages seen so far")
     _check("page_tables", page_tables, torch.int32, (G, width), q.device)
     bq = max(1, min(block_q, C))
-    if _smem_bytes(bq, page, D) > _SMEM_LIMIT:
-        raise ValueError("block_q, page and D need more shared memory than "
-                         "a block has")
     out = torch.empty_like(q)
     if G == 0 or C == 0:
         return out

@@ -10,8 +10,11 @@ request the tokens it gets alone (``sequential_generate``), so a row's
 result may not depend on how many rows share a call.  The integer
 datapaths are exact; the float row reductions here (the QAT/plain
 product and RMSNorm's mean square) accumulate in float64 and round once
-to the working dtype, so the order the library picks for a given batch
-size cannot move the rounded result.
+to the working dtype.  That makes the result very likely, not certain,
+to be independent of the batch: the library may still sum in another
+order for another row count, and a float64 difference flips the rounding
+of a value that sits on a rounding tie.  It costs bandwidth as well:
+every call writes and re-reads a float64 copy of the weight.
 """
 
 from __future__ import annotations
@@ -53,8 +56,9 @@ def dense_init(d_in: int, d_out: int, quant: SCQuantConfig, *,
 
 
 def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` accumulated in float64, rounded once to ``x.dtype``; each
-    row's result is independent of the other rows in the call."""
+    """``x @ w`` accumulated in float64, rounded once to ``x.dtype``, so
+    that a row's result almost always ignores the other rows in the call
+    (see the module docstring)."""
     return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(x.dtype)
 
 

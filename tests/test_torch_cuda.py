@@ -118,3 +118,21 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="int32"):
         approx_bsn_cuda(torch.zeros((2, 16), device=cuda), in_bsl=8,
                         stages=((16, 0, 1),))
+
+
+def test_launch_refuses_layouts_above_the_shared_memory_cap(cuda):
+    """The C side owns each kernel's shared-memory layout: a layout above
+    a block's cap is refused at launch with the kernel and the bytes."""
+    build.reset_launches()
+    q = torch.zeros((1, 1, 16, 1024), device=cuda)
+    pages = torch.zeros((2, 64, 1, 1024), device=cuda)
+    tables = torch.ones((1, 1), dtype=torch.int32, device=cuda)
+    lengths = torch.zeros((1,), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError,
+                       match=r"paged_attn_decode needs \d+ bytes of shared"):
+        paged_attn_decode_cuda(q, pages, pages, tables, lengths)
+    counts = torch.zeros((1, 2 ** 17), dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError,
+                       match=r"approx_bsn needs 524292 bytes of shared"):
+        approx_bsn_cuda(counts, in_bsl=8, stages=((1, 0, 1), (2 ** 17, 0, 1)))
+    assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
