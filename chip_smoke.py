@@ -6,15 +6,25 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
 
 1. the card: torch's device name and ``nvidia-smi``'s name / power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
-3. hold each kernel against its plain PyTorch version at serving shapes
-   (BSN bit-exact; attention within a stated tolerance for fp / int8 /
-   sc pools, ragged lengths and poisoned trash pages), with kernel /
-   plain / library-yardstick times and a roofline bound;
+3. hold each kernel against its plain PyTorch version at the shapes its
+   path gives it (the BSN adders, the ternary matmul with and without
+   its SI epilogue, and the sort bit-exact; attention within a stated
+   tolerance for fp / int8 / sc pools, ragged lengths and poisoned trash
+   pages), with kernel / plain / library-yardstick times and a roofline
+   bound;
 4. serve full-width granite-3-2b (bf16, random weights from a seed)
-   through ``ServeEngine`` on qat x fp, sc_int x int8 and
-   sc_int_approx x sc: every kernel on the path must have launched, the
-   batched tokens must equal ``sequential_generate``'s, and a tiny
-   float32 config must give the same tokens on the card as on the CPU.
+   through ``ServeEngine`` on qat x fp, sc_int x int8 (every projection
+   through the ternary matmul kernel) and sc_int_approx x sc: every
+   kernel on the path must have launched, the batched tokens must equal
+   ``sequential_generate``'s, and a tiny float32 config must give the
+   same tokens on the card as on the CPU;
+5. the SC integer datapath at published width: the paper's TNN
+   (784-256-256-10, seeded random QAT parameters) exported and fed a
+   batch of 256 through the fused-SI ternary matmul, the exact BSN's
+   bit-level circuit (the sort kernel) over a full granite projection,
+   and the temporal adder on full-width ``w_up``; each kernel of the path
+   must have launched and every integer must agree with its plain
+   version and with the exact integer path.
 
 Run from the repository root::
 
@@ -45,15 +55,23 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM published peaks (dense): HBM3 bytes/s; bf16 tensor-core and
-# fp32 CUDA-core operations/s
+# H100 SXM published peaks (dense): HBM3 bytes/s; bf16 and int8
+# tensor-core and fp32 CUDA-core operations/s (the CUDA-core rate also
+# stands for the integer adds and compares of the BSN kernels)
 HBM_BPS = 3.35e12
 BF16_OPS = 989e12
+INT8_OPS = 1979e12
 FP32_OPS = 67e12
 
 ATTN_ATOL = 1e-2        # bf16 outputs: one bf16 ulp at |o| <= 2 is 7.8e-3
 SEED = 0
 NEW_TOKENS = 12
+ACT_BSL = 8
+
+# granite-3-2b's projections at full width, (K, N)
+GRANITE_PROJ = {"q/o": (2048, 2048), "k/v": (2048, 512),
+                "gate/up": (2048, 8192), "down": (8192, 2048),
+                "lm_head": (2048, 49408)}
 
 
 def log(*a):
@@ -127,6 +145,176 @@ def check_approx_bsn(torch, dev, gen):
                        approx_bsn_plain(counts, in_bsl=8, stages=stages)):
         raise AssertionError("approx_bsn multi-stage: kernel != plain")
     log("approx_bsn multi-stage (16,2,4)(8,4,3)(16,0,2): bit-exact")
+    return cases
+
+
+def _levels(torch, gen, dev, shape):
+    return torch.randint(-ACT_BSL // 2, ACT_BSL // 2 + 1, shape,
+                         generator=gen, device=dev, dtype=torch.int8)
+
+
+def _ternary(torch, gen, dev, shape):
+    return torch.randint(-1, 2, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+def device_ms_per_call(torch, fn, calls=10):
+    """Device time of one call of ``fn`` (its kernels' own time under
+    torch.profiler, averaged over ``calls``): at decode shapes a call's
+    host work (Python checks, the ctypes call) outlasts its kernel, so
+    CUDA events around back-to-back calls would time the host."""
+    fn()
+    return device_ms(torch, lambda: [fn() for _ in range(calls)]) / calls
+
+
+def _int_mm_ms(torch, x, w):
+    """``torch._int_mm`` where it takes the shape (it refuses M <= 16 and
+    K, N not multiples of 8), else None."""
+    try:
+        torch._int_mm(x, w)
+    except RuntimeError:
+        return None
+    return device_ms_per_call(torch, lambda: torch._int_mm(x, w))
+
+
+def check_ternary_matmul(torch, dev, gen):
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+
+    def stopgap(x, w):          # the float32 product it replaces
+        return torch.round(torch.matmul(x.to(torch.float32),
+                                        w.to(torch.float32))).to(torch.int32)
+
+    shapes = [(f"decode {k}", 4, *GRANITE_PROJ[k], 0) for k in GRANITE_PROJ]
+    shapes += [(f"prefill {k}", 256, *GRANITE_PROJ[k], 0)
+               for k in GRANITE_PROJ]
+    shapes += [("decode q/o SI", 4, 2048, 2048, 8),
+               ("TNN layer SI", 256, 256, 256, 8),
+               ("ragged", 5, 1001, 1003, 0), ("ragged SI", 5, 1001, 1003, 8)]
+    cases = []
+    for label, m, k, n, out_bsl in shapes:
+        x = _levels(torch, gen, dev, (m, k))
+        w = _ternary(torch, gen, dev, (k, n))
+        t = None
+        if out_bsl:
+            t = torch.sort(torch.randint(-k, k + 1, (n, out_bsl),
+                                         generator=gen, device=dev,
+                                         dtype=torch.int32), dim=-1).values
+        run = ops.ternary_matmul if label.startswith("ragged") \
+            else ternary_matmul_cuda
+        got = run(x, w, t)
+        want = ternary_matmul_ref(x, w, t)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"ternary_matmul {label}: kernel != plain")
+        ms = device_ms_per_call(torch, lambda: run(x, w, t))
+        call_ms = time_ms(lambda: run(x, w, t))
+        plain_ms = device_ms_per_call(torch,
+                                      lambda: ternary_matmul_ref(x, w, t))
+        lib_ms = None if t is not None else _int_mm_ms(torch, x, w)
+        stop_ms = None if t is not None else device_ms_per_call(
+            torch, lambda: stopgap(x, w))
+        nbytes = m * k + k * n + 4 * m * n + 4 * n * out_bsl
+        b_ms, b_by = bound(nbytes, 2 * m * n * k + m * n * out_bsl,
+                           INT8_OPS)
+        cases.append(dict(label=label, M=m, K=k, N=n, out_bsl=out_bsl,
+                          max_abs_err=0, ms=ms, call_ms=call_ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          stopgap_ms=stop_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"ternary_matmul {label}: M={m} K={k} N={n} out_bsl={out_bsl} "
+            f"bit-exact device ms={ms:.4f} (per call with the host "
+            f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms(_int_mm)="
+            f"{lib_ms} stopgap_ms={stop_ms} bound_ms={b_ms:.4f} ({b_by})")
+    return cases
+
+
+def check_temporal(torch, dev, gen):
+    from repro_torch.core.bsn import default_approx_spec, spec_stages
+    from repro_torch.kernels.approx_bsn import (approx_bsn_temporal_cuda,
+                                                approx_bsn_temporal_plain)
+    cases = []
+    # (label, rows, width, cycles): w_up at 4 decode slots, K = 2048
+    # folded onto a 256-wide adder over 8 cycles; and 2 cycles of 1024
+    for label, rows, width, cycles in (("w_up 4 slots T8", 4 * 8192, 256, 8),
+                                       ("w_up 4 slots T2", 4 * 8192, 1024,
+                                        2)):
+        spec = default_approx_spec(width, ACT_BSL)
+        x = _levels(torch, gen, dev, (rows, 1)).to(torch.int32)
+        w = _ternary(torch, gen, dev, (1, width * cycles)).to(torch.int32)
+        counts = (x * w + ACT_BSL // 2).contiguous()
+        kw = dict(in_bsl=ACT_BSL, stages=spec_stages(spec), cycles=cycles)
+        got = approx_bsn_temporal_cuda(counts, **kw)
+        want = approx_bsn_temporal_plain(counts, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"approx_bsn_temporal {label}: kernel != "
+                                 f"plain")
+        ms = time_ms(lambda: approx_bsn_temporal_cuda(counts, **kw))
+        plain_ms = time_ms(lambda: approx_bsn_temporal_plain(counts, **kw),
+                           iters=5)
+        total = cycles * width
+        b_ms, b_by = bound(rows * total * 4 + rows * 4, rows * total,
+                           FP32_OPS)
+        cases.append(dict(label=label, rows=rows, width=width,
+                          cycles=cycles, stages=list(kw["stages"]),
+                          max_abs_err=0, ms=ms, plain_ms=plain_ms,
+                          library_ms=None, bound_ms=b_ms, bound_by=b_by))
+        log(f"approx_bsn_temporal {label}: rows={rows} width={width} "
+            f"cycles={cycles} bit-exact ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={b_ms:.4f}")
+    return cases
+
+
+def _exact_bsn_bits(torch, x_q, w_int):
+    """The exact BSN's input for every (token, output channel): the K
+    ternary products as thermometer codes, ``(T, N, K, act_bsl)`` int8."""
+    from repro_torch.core.coding import encode_thermometer
+    from repro_torch.core.multiplier import ternary_scale_bits
+    bits = encode_thermometer(x_q, ACT_BSL)              # (T, K, L)
+    return ternary_scale_bits(w_int.t(), bits[:, None])
+
+
+def sort_bound(nbytes, rows, length):
+    levels = length.bit_length() - 1
+    exchanges = rows * (length // 2) * levels * (levels + 1) // 2
+    return bound(nbytes, 2 * exchanges, FP32_OPS)
+
+
+def check_bsn_sort(torch, dev, gen):
+    from repro_torch.kernels.bsn_sort import bsn_sort_cuda, bsn_sort_plain
+    cases = []
+    # the exact BSN of q_proj at 4 tokens: one row per (token, channel) of
+    # K * act_bsl = 16384 bits (phase 5 checks its popcounts against the
+    # integer path); then the other dtypes the sort takes
+    k, n = GRANITE_PROJ["q/o"]
+    x_q = _levels(torch, gen, dev, (4, k))
+    w = _ternary(torch, gen, dev, (k, n))
+    bits = _exact_bsn_bits(torch, x_q, w).reshape(4 * n, k * ACT_BSL)
+    rows_i32 = torch.randint(-2 ** 31, 2 ** 31 - 1, (4096, 1024),
+                             generator=gen, device=dev, dtype=torch.int32)
+    rows_f32 = torch.randn((4096, 1024), generator=gen, device=dev)
+    for label, x in (("exact BSN q_proj 4 tokens", bits),
+                     ("int32 4096 x 1024", rows_i32),
+                     ("float32 4096 x 1024", rows_f32)):
+        got = bsn_sort_cuda(x)
+        want = bsn_sort_plain(x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"bsn_sort {label}: kernel != plain")
+        ms = time_ms(lambda: bsn_sort_cuda(x))
+        plain_ms = time_ms(lambda: bsn_sort_plain(x), iters=3, warmup=1)
+        lib_ms = time_ms(lambda: torch.sort(x, dim=-1, descending=True))
+        rows, length = x.shape
+        b_ms, b_by = sort_bound(2 * x.numel() * x.element_size(), rows,
+                                length)
+        cases.append(dict(label=label, rows=rows, L=length,
+                          dtype=str(x.dtype), max_abs_err=0, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms,
+                          bound_ms=b_ms, bound_by=b_by))
+        log(f"bsn_sort {label}: bit-exact ms={ms:.4f} plain_ms={plain_ms:.4f}"
+            f" library_ms(torch.sort)={lib_ms:.4f} bound_ms={b_ms:.4f} "
+            f"({b_by})")
     return cases
 
 
@@ -312,7 +500,8 @@ def check_prefill(torch, dev, gen):
 
 PAIRS = (("qat", "fp"), ("sc_int", "int8"), ("sc_int_approx", "sc"))
 PATH_KERNELS = {"qat": ("paged_attn_decode", "paged_attn_prefill"),
-                "sc_int": ("paged_attn_decode", "paged_attn_prefill"),
+                "sc_int": ("paged_attn_decode", "paged_attn_prefill",
+                           "ternary_matmul"),
                 "sc_int_approx": ("paged_attn_decode", "paged_attn_prefill",
                                   "approx_bsn")}
 
@@ -348,7 +537,8 @@ def profile_decode_step(torch, eng, label, step_ms):
     top = [dict(name=k, ms=us / 1e3, calls=n) for us, k, n in rows[:10]]
     ours_ms = sum(_dev_us(e) for e in events if e.device_type == cuda and any(
         k in e.key for k in ("decode_kernel", "prefill_kernel",
-                             "approx_bsn_kernel"))) / 1e3
+                             "approx_bsn_kernel", "ternary_matmul_kernel",
+                             "bsn_sort_kernel"))) / 1e3
     idle = 1 - busy_ms / wall_ms
     idle_unprofiled = 1 - busy_ms / step_ms
     log(f"profile {label}: step wall_ms={wall_ms:.1f} device_busy_ms="
@@ -542,6 +732,152 @@ def tiny_card_equals_cpu(torch, dev):
         log(f"tiny {datapath}x{fmt}: card tokens == cpu tokens")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the SC integer datapath at published width
+# ---------------------------------------------------------------------------
+
+SC_PATH_KERNELS = ("ternary_matmul", "bsn_sort", "approx_bsn_temporal")
+
+
+def _tnn_params(torch, dev):
+    """Seeded random QAT parameters of the paper's TNN (784-256-256-10),
+    at the scales of its QAT init; no trained weights are in the repo."""
+    gen = torch.Generator(dev).manual_seed(SEED)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return {"w_in": randn(784, 256) / 28.0,
+            "blocks": [{"w": randn(256, 256) / 16.0,
+                        "alpha_w": torch.tensor(0.05, device=dev),
+                        "alpha_a": torch.tensor(0.5, device=dev)}
+                       for _ in range(2)],
+            "w_out": randn(256, 10) / 16.0}, randn(256, 784)
+
+
+def tnn_forward(torch, layers, params, x):
+    """The exported TNN: float frontend, the SC integer core (the ternary
+    matmul with the SI ReLU fused; q codes between layers), float head."""
+    from repro_torch.core.coding import quantize_levels
+    from repro_torch.core.sc_layers import sc_linear_int
+    h = torch.relu(x @ params["w_in"])
+    x_q = quantize_levels(h, layers[0]["alpha_a"], ACT_BSL).to(torch.int8)
+    inputs = []
+    for layer in layers:
+        inputs.append(x_q)
+        x_q = sc_linear_int(layer, x_q).to(torch.int8)
+    h = x_q.to(torch.float32) * layers[-1]["alpha_a"]
+    return h @ params["w_out"], inputs, x_q
+
+
+def sc_pipeline(torch, dev):
+    """Drive the SC integer datapath end to end on the card and check it by
+    its own means: plain versions, the unfused epilogue, the exact integer
+    path and the QAT view."""
+    from repro_torch.core import si
+    from repro_torch.core.bsn import ApproxBSNSpec, StageSpec, exact_bsn_bits
+    from repro_torch.core.sc_layers import (SCQuantConfig, _si_epilogue,
+                                            export_sc_linear, sc_linear_int,
+                                            sc_linear_int_approx,
+                                            sc_linear_qat)
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    cfg = SCQuantConfig(mode="sc_int", act_bsl=ACT_BSL)
+    gen = torch.Generator(dev).manual_seed(SEED + 1)
+    torch.cuda.synchronize()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+
+    # the TNN, exported, a batch of 256 through the fused-SI kernel
+    params, x = _tnn_params(torch, dev)
+    layers = [export_sc_linear(blk, cfg, act_fn=si.relu_fn, out_bsl=ACT_BSL,
+                               alpha_out=float(blk["alpha_a"]))
+              for blk in params["blocks"]]
+    logits, inputs, codes = tnn_forward(torch, layers, params, x)
+    sums0 = sc_linear_int({"w_int": layers[0]["w_int"]}, inputs[0])
+    y_qat = sc_linear_qat(params["blocks"][0],
+                          inputs[0].to(torch.float32) * 0.5, cfg)
+
+    # the exact BSN's circuit over q_proj at 4 tokens, with the SI taps
+    k, n = GRANITE_PROJ["q/o"]
+    x_q = _levels(torch, gen, dev, (4, k))
+    w_q = _ternary(torch, gen, dev, (k, n))
+    sorted_bits = exact_bsn_bits(_exact_bsn_bits(torch, x_q, w_q))
+    sum_max = k * ACT_BSL // 2
+    t = si.si_thresholds(si.relu_fn, 2 * sum_max, ACT_BSL,
+                         alpha_in=0.5 * 0.05, alpha_out=0.5)
+    q_int = {"w_int": w_q, "thresholds": t[None], "sum_max": sum_max}
+    sums_q = sc_linear_int({"w_int": w_q}, x_q)
+    si_q = sc_linear_int(q_int, x_q)
+    si_bits = si.apply_si_bits(sorted_bits, t)
+
+    # the temporal adder on full-width w_up at 4 tokens: K = 2048 over 8
+    # cycles of a 256-wide adder, default and exact (no clip, stride 1)
+    k_up, n_up = GRANITE_PROJ["gate/up"]
+    cycles = 8
+    xu = _levels(torch, gen, dev, (4, k_up))
+    wu = {"w_int": _ternary(torch, gen, dev, (k_up, n_up))}
+    approx_t = sc_linear_int_approx(wu, xu, ACT_BSL, cycles=cycles)
+    exact_spec = ApproxBSNSpec(width=k_up // cycles, in_bsl=ACT_BSL,
+                               stages=(StageSpec(k_up // cycles),))
+    exact_t = sc_linear_int_approx(wu, xu, ACT_BSL, exact_spec,
+                                   cycles=cycles)
+    sums_up = sc_linear_int(wu, xu)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+
+    missing = [k for k in SC_PATH_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"SC datapath: kernels never launched: "
+                             f"{missing}")
+    # checks (their plain-version launches come after the counts are read)
+    for i, (layer, xin) in enumerate(zip(layers, inputs)):
+        t_q = (torch.as_tensor(layer["thresholds"], device=dev)
+               - layer["sum_max"]).to(torch.int32).expand(256, ACT_BSL)
+        out = codes if i == len(layers) - 1 else inputs[i + 1]
+        plain = ternary_matmul_ref(xin, layer["w_int"], t_q)
+        unfused = _si_epilogue(layer, ternary_matmul_ref(xin,
+                                                         layer["w_int"]))
+        if not (torch.equal(out.to(torch.int32), plain)
+                and torch.equal(plain, unfused)):
+            raise AssertionError(f"TNN layer {i}: kernel q codes != plain")
+    if not torch.equal(sums0, ternary_matmul_ref(inputs[0],
+                                                 layers[0]["w_int"])):
+        raise AssertionError("TNN layer 0: kernel sums != plain")
+    qat_err = (y_qat - sums0.to(torch.float32) * 0.5 * 0.05).abs().max()
+    if not (logits.shape == (256, 10) and torch.isfinite(logits).all()
+            and qat_err.item() <= 1e-4):
+        raise AssertionError(f"TNN: logits {tuple(logits.shape)} or QAT "
+                             f"view off by {qat_err.item()}")
+    pop = torch.sum(sorted_bits, dim=-1, dtype=torch.int32)
+    if not torch.equal(pop - sum_max, sums_q):
+        raise AssertionError("exact BSN circuit != ternary_matmul sums")
+    si_pop = torch.sum(si_bits, dim=-1, dtype=torch.int32) - ACT_BSL // 2
+    if not (torch.equal(si_pop, si_q)
+            and torch.equal(si_q, _si_epilogue(q_int, sums_q))):
+        raise AssertionError("SI taps != fused SI epilogue")
+    if not torch.equal(exact_t, sums_up):
+        raise AssertionError("temporal adder with the exact spec != "
+                             "ternary_matmul sums")
+    if not (approx_t.shape == (4, n_up) and
+            (approx_t - sums_up).abs().max().item() <= k_up * ACT_BSL):
+        raise AssertionError("temporal adder output out of range")
+    res = dict(seconds=seconds, launches=launches,
+               tnn_batch=256, tnn_codes_range=[int(codes.min()),
+                                               int(codes.max())],
+               tnn_qat_max_abs_err=qat_err.item(),
+               temporal_max_abs_dev_from_exact=(approx_t - sums_up).abs()
+               .max().item())
+    log(f"SC datapath: TNN 784-256-256-10 batch 256 q codes == plain "
+        f"(fused SI == unfused), QAT view within {qat_err.item():.2g}; "
+        f"exact BSN circuit == ternary_matmul over q_proj (4 x 2048 rows "
+        f"of 16384 bits), SI taps == fused SI; temporal adder (w_up, 8 "
+        f"cycles) exact spec == ternary_matmul, default spec max |dev| "
+        f"{res['temporal_max_abs_dev_from_exact']}; {seconds:.2f} s; "
+        f"launches={launches}")
+    return res
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -592,12 +928,20 @@ def main() -> int:
     # phase 3: each kernel against its plain version
     gen = torch.Generator(dev).manual_seed(SEED)
     bsn = check_approx_bsn(torch, dev, gen)
+    tmp = check_temporal(torch, dev, gen)
     dec = check_decode(torch, dev, gen)
     pre = check_prefill(torch, dev, gen)
+    tmm = check_ternary_matmul(torch, dev, gen)
+    srt = check_bsn_sort(torch, dev, gen)
 
     # phase 4: the main path at full width, then the tiny card==cpu check
     serving, launches, products = serve(torch, dev, args.layers)
     tiny_card_equals_cpu(torch, dev)
+
+    # phase 5: the SC integer datapath
+    sc = sc_pipeline(torch, dev)
+    for k, v in sc["launches"].items():
+        launches[k] += v
 
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
@@ -612,16 +956,25 @@ def main() -> int:
     summary = {"kernels": [
         entry("approx_bsn", csrc + "approx_bsn.cu",
               "src/repro/kernels/approx_bsn.py:170", bsn, "lm_head block"),
+        entry("approx_bsn_temporal", csrc + "approx_bsn.cu",
+              "src/repro/kernels/approx_bsn.py:187", tmp, "w_up 4 slots T8"),
         entry("paged_attn_decode", csrc + "paged_attention.cu",
               "src/repro/kernels/paged_attention.py:238", dec, "fp"),
         entry("paged_attn_prefill", csrc + "paged_attention.cu",
               "src/repro/kernels/paged_attention.py:414", pre, "fp"),
+        entry("ternary_matmul", csrc + "ternary_matmul.cu",
+              "src/repro/kernels/ternary_matmul.py:81", tmm,
+              "decode lm_head"),
+        entry("bsn_sort", csrc + "bsn_sort.cu",
+              "src/repro/kernels/bsn_sort.py:54", srt,
+              "exact BSN q_proj 4 tokens"),
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": res.seconds,
-         "approx_bsn": bsn, "paged_attn_decode": dec,
-         "paged_attn_prefill": pre, "serving": serving,
-         "float_products": products, **summary},
+         "approx_bsn": bsn, "approx_bsn_temporal": tmp,
+         "paged_attn_decode": dec, "paged_attn_prefill": pre,
+         "ternary_matmul": tmm, "bsn_sort": srt, "serving": serving,
+         "sc_datapath": sc, "float_products": products, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,18 @@
-"""Approximate progressive-sorting BSN adder (paper §IV-B, Fig 10b).
+"""Bitonic Sorting Network adders (paper §II-B, §IV).
 
-Port of the count-domain half of ``repro.core.bsn``: the design-space
-specs, :func:`default_approx_spec` and the count-domain oracle
-:func:`approx_bsn_counts`.  Stage ``i`` groups ``g_i`` partial codes,
-sorts them (in the count domain: sums them), clips ``c_i`` bits off each
-tail and keeps one of every ``s_i`` bits.  The CUDA kernel that runs the
-pipeline on the card is ``repro_torch.kernels.approx_bsn``; the serving
-path reaches it through ``kernels.dispatch.approx_bsn``.
+Port of ``repro.core.bsn``.  The exact adder (Fig 3b) concatenates the
+thermometer bitstreams of all addends and bitonic-sorts them: the sorted
+vector's popcount is the exact sum.  The approximate spatial adder
+(Fig 10b) is a progressive-sorting pipeline: stage ``i`` groups ``g_i``
+partial codes, sorts them, clips ``c_i`` bits off each tail and keeps one
+of every ``s_i`` bits.  The temporal adder (Fig 12) reuses a small BSN
+over ``cycles`` chunks of a wider accumulation.
+
+Each exists as a bit-exact circuit (``*_bits``, compare-exchange
+networks on the bits) and in the count domain (``*_counts``, the
+oracle).  On the card the networks run in the ``bsn_sort`` kernel and the
+count-domain pipelines in the ``approx_bsn`` kernels; :func:`approx_bsn`
+is the front door that reaches them through ``kernels.dispatch``.
 """
 
 from __future__ import annotations
@@ -16,8 +22,59 @@ from dataclasses import dataclass, field
 
 import torch
 
-__all__ = ["SubSampleSpec", "StageSpec", "ApproxBSNSpec",
-           "approx_bsn_counts", "default_approx_spec", "spec_stages"]
+__all__ = ["bitonic_sort", "exact_bsn_bits", "exact_bsn_counts",
+           "SubSampleSpec", "StageSpec", "ApproxBSNSpec",
+           "approx_bsn_counts", "approx_bsn_bits", "spatial_temporal_counts",
+           "approx_bsn", "default_approx_spec", "spec_stages"]
+
+
+# ---------------------------------------------------------------------------
+# bitonic sort (Batcher 1968) and the exact adder
+# ---------------------------------------------------------------------------
+
+def _ceil_pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def bitonic_sort(x: torch.Tensor, descending: bool = True) -> torch.Tensor:
+    """Sort the trailing axis with Batcher's bitonic network.
+
+    Any dtype with min/max.  A non-power-of-two length is padded with the
+    dtype's sentinel (its minimum, or -inf, when descending) and cropped.
+    The network runs in the ``bsn_sort`` kernel on a CUDA tensor and in
+    its plain PyTorch version on a CPU tensor (``kernels.ops.sort_rows``).
+    """
+    from ..kernels.ops import sort_rows            # kernels build on core
+    n = x.shape[-1]
+    m = _ceil_pow2(n)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, n)
+    if m != n:
+        if x.dtype.is_floating_point:
+            pad_val = float("-inf") if descending else float("inf")
+        else:
+            info = torch.iinfo(x.dtype)
+            pad_val = info.min if descending else info.max
+        x2 = torch.nn.functional.pad(x2, (0, m - n), value=pad_val)
+    out = sort_rows(x2.contiguous(), descending=descending)
+    return out[:, :n].reshape(*lead, n)
+
+
+def exact_bsn_bits(bits: torch.Tensor) -> torch.Tensor:
+    """Exact BSN: ``(..., N, L)`` thermometer codes -> ``(..., N*L)``
+    sorted descending, again a thermometer code of the exact sum."""
+    flat = bits.reshape(*bits.shape[:-2], bits.shape[-2] * bits.shape[-1])
+    return bitonic_sort(flat.to(torch.int8), descending=True)
+
+
+def exact_bsn_counts(counts: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """The exact adder in the count domain: the sorted popcount is the sum."""
+    return torch.sum(counts, dim=axis, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# approximate spatial BSN (paper §IV-B, Fig 10b)
+# ---------------------------------------------------------------------------
 
 
 @dataclass(frozen=True)
@@ -44,6 +101,14 @@ class SubSampleSpec:
         kept = in_len - 2 * self.clip
         c = torch.clamp(c - self.clip, 0, kept)
         return torch.div(c + self.phase, self.stride, rounding_mode="floor")
+
+    def apply_bits(self, sorted_bits: torch.Tensor) -> torch.Tensor:
+        """Bit-domain semantics: tap wires of the sorted vector; output bit
+        j taps sorted position ``clip + j*stride + (stride - 1 - phase)``."""
+        out_len = self.out_len(sorted_bits.shape[-1])
+        pos = (self.clip + torch.arange(out_len, device=sorted_bits.device)
+               * self.stride + (self.stride - 1 - self.phase))
+        return sorted_bits[..., pos]
 
 
 @dataclass(frozen=True)
@@ -108,6 +173,48 @@ def approx_bsn_counts(counts: torch.Tensor,
         c = s.sub.apply_counts(c, sorted_len)
         bsl = s.sub.out_len(sorted_len)
     return c.squeeze(-1)
+
+
+def approx_bsn_bits(bits: torch.Tensor, spec: ApproxBSNSpec) -> torch.Tensor:
+    """Bit-exact approximate BSN on ``(..., width, in_bsl)`` codes ->
+    ``(..., out_bsl)`` bits."""
+    if bits.shape[-2] != spec.width or bits.shape[-1] != spec.in_bsl:
+        raise ValueError(f"expected (..., {spec.width}, {spec.in_bsl}), "
+                         f"got {tuple(bits.shape)}")
+    x = bits
+    for s in spec.stages:
+        m = x.shape[-2] // s.group
+        x = x.reshape(*x.shape[:-2], m, s.group * x.shape[-1])
+        x = bitonic_sort(x.to(torch.int8), descending=True)
+        x = s.sub.apply_bits(x)
+    return x.squeeze(-2)
+
+
+# ---------------------------------------------------------------------------
+# spatial-temporal BSN (paper §IV-B, Fig 12) and the kernel front door
+# ---------------------------------------------------------------------------
+
+def spatial_temporal_counts(counts: torch.Tensor, spec: ApproxBSNSpec,
+                            cycles: int) -> torch.Tensor:
+    """Fold a ``cycles * spec.width`` accumulation onto one small BSN: the
+    spatial pipeline on each chunk, the short partial codes summed
+    exactly.  The value is ``scale * (out - cycles * out_bsl / 2)``."""
+    w = spec.width
+    if counts.shape[-1] != cycles * w:
+        raise ValueError(f"expected {cycles * w} inputs, got "
+                         f"{tuple(counts.shape)}")
+    c = counts.reshape(*counts.shape[:-1], cycles, w)
+    return torch.sum(approx_bsn_counts(c, spec), dim=-1, dtype=torch.int32)
+
+
+def approx_bsn(counts: torch.Tensor, spec: ApproxBSNSpec, *,
+               cycles: int = 1) -> torch.Tensor:
+    """The approximate adder through the kernel dispatch: the semantics of
+    :func:`approx_bsn_counts` (``cycles == 1``) or
+    :func:`spatial_temporal_counts` (``cycles > 1``), run by the CUDA
+    kernels on a CUDA tensor and by their plain versions on the CPU."""
+    from ..kernels.dispatch import approx_bsn as run
+    return run(counts, spec, cycles=cycles)
 
 
 def default_approx_spec(width: int, in_bsl: int, *,

@@ -1,9 +1,12 @@
-"""Approximate-BSN adder: CUDA kernel wrapper and its plain version.
+"""Approximate-BSN adder: CUDA kernel wrappers and their plain versions.
 
-Port of ``repro.kernels.approx_bsn`` (the spatial ``approx_bsn_pallas``).
-Stages are primitive static tuples ``((group, clip, stride), ...)`` so
-this module stays free of core imports; ``kernels/dispatch.py`` converts
-an ``ApproxBSNSpec``.  The kernel source is ``csrc/approx_bsn.cu``.
+Port of ``repro.kernels.approx_bsn``: the spatial ``approx_bsn_pallas``
+and the Fig 12 temporal ``approx_bsn_temporal_pallas``.  Stages are
+primitive static tuples ``((group, clip, stride), ...)`` so this module
+stays free of core imports; ``kernels/dispatch.py`` converts an
+``ApproxBSNSpec``.  Both wrappers launch the one kernel of
+``csrc/approx_bsn.cu`` (the spatial adder is one cycle) and count their
+launches apart, as ``approx_bsn`` and ``approx_bsn_temporal``.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import torch
 from .build import launch, stream_of
 
 __all__ = ["MAX_STAGES", "validate_stages", "approx_bsn_plain",
-           "approx_bsn_cuda"]
+           "approx_bsn_temporal_plain", "approx_bsn_cuda",
+           "approx_bsn_temporal_cuda"]
 
 Stages = tuple[tuple[int, int, int], ...]
 
@@ -61,22 +65,38 @@ def approx_bsn_plain(counts: torch.Tensor, *, in_bsl: int,
     return x[..., 0]
 
 
-def approx_bsn_cuda(counts: torch.Tensor, *, in_bsl: int,
-                    stages: Stages) -> torch.Tensor:
-    """Launch ``csrc/approx_bsn.cu`` on ``(R, width)`` int32 counts on the
-    card; returns ``(R,)`` int32.  Raises on anything the kernel does not
-    take."""
+def approx_bsn_temporal_plain(counts: torch.Tensor, *, in_bsl: int,
+                              stages: Stages, cycles: int) -> torch.Tensor:
+    """The temporal kernel's function: ``(R, cycles * width)`` -> ``(R,)``
+    int32, the spatial pipeline on each chunk, the outputs summed."""
+    rows, total = counts.shape
+    if cycles < 1 or total % cycles:
+        raise ValueError(f"{total} counts do not split into {cycles} "
+                         f"cycles")
+    per_chunk = approx_bsn_plain(counts.reshape(rows * cycles,
+                                                total // cycles),
+                                 in_bsl=in_bsl, stages=stages)
+    return torch.sum(per_chunk.reshape(rows, cycles), dim=-1,
+                     dtype=torch.int32)
+
+
+def _launch(kernel: str, counts: torch.Tensor, in_bsl: int, stages: Stages,
+            cycles: int) -> torch.Tensor:
     if not counts.is_cuda:
-        raise ValueError("approx_bsn_cuda needs a CUDA tensor")
+        raise ValueError(f"{kernel}_cuda needs a CUDA tensor")
     if counts.dtype != torch.int32 or counts.ndim != 2:
-        raise ValueError(f"counts must be (R, width) int32, got "
+        raise ValueError(f"counts must be (R, cycles * width) int32, got "
                          f"{tuple(counts.shape)} {counts.dtype}")
     if not counts.is_contiguous():
         raise ValueError("counts must be contiguous")
     if not 1 <= len(stages) <= MAX_STAGES:
         raise ValueError(f"the kernel takes 1..{MAX_STAGES} stages, "
                          f"got {len(stages)}")
-    rows, width = counts.shape
+    rows, total = counts.shape
+    if cycles < 1 or total % cycles:
+        raise ValueError(f"{total} counts do not split into {cycles} "
+                         f"cycles")
+    width = total // cycles
     validate_stages(width, in_bsl, stages)
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} rows exceed one launch's grid")
@@ -85,7 +105,21 @@ def approx_bsn_cuda(counts: torch.Tensor, *, in_bsl: int,
         return out
     flat = [v for st in stages for v in st]
     arr = (ctypes.c_int * len(flat))(*flat)
-    launch("approx_bsn", "approx_bsn_launch", counts.data_ptr(),
-           out.data_ptr(), rows, width, in_bsl, arr, len(stages),
-           stream_of(counts))
+    launch(kernel, "approx_bsn_launch", counts.data_ptr(), out.data_ptr(),
+           rows, width, cycles, in_bsl, arr, len(stages), stream_of(counts))
     return out
+
+
+def approx_bsn_cuda(counts: torch.Tensor, *, in_bsl: int,
+                    stages: Stages) -> torch.Tensor:
+    """Launch ``csrc/approx_bsn.cu`` on ``(R, width)`` int32 counts on the
+    card; returns ``(R,)`` int32.  Raises on anything the kernel does not
+    take."""
+    return _launch("approx_bsn", counts, in_bsl, stages, 1)
+
+
+def approx_bsn_temporal_cuda(counts: torch.Tensor, *, in_bsl: int,
+                             stages: Stages, cycles: int) -> torch.Tensor:
+    """Launch the temporal adder on ``(R, cycles * width)`` int32 counts on
+    the card; returns ``(R,)`` int32, the chunks' outputs summed."""
+    return _launch("approx_bsn_temporal", counts, in_bsl, stages, cycles)

@@ -40,15 +40,17 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-KERNELS = ("approx_bsn", "paged_attn_decode", "paged_attn_prefill")
+KERNELS = ("approx_bsn", "approx_bsn_temporal", "paged_attn_decode",
+           "paged_attn_prefill", "ternary_matmul", "bsn_sort")
 # launches of each kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    # counts, out, rows, width, in_bsl, stages (group, clip, stride)*n,
-    # n_stages, stream
-    "approx_bsn_launch": [_P, _P, _I, _I, _I, ctypes.POINTER(_I), _I, _P],
+    # counts, out, rows, width, cycles, in_bsl, stages (group, clip,
+    # stride)*n, n_stages, stream
+    "approx_bsn_launch": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
+                          _P],
     # q, k, v, k_scale, v_scale, k_resid, v_resid, tables, lengths, out,
     # S, Hkv, G, D, page, maxp, q_dtype, kv_kind, stream
     "paged_attn_decode_launch": [_P] * 10 + [_I] * 8 + [_P],
@@ -56,6 +58,10 @@ _SIGNATURES = {
     # G, C, Hkv, Gq, D, page, width, start, block_q, q_dtype, kv_kind,
     # stream
     "paged_attn_prefill_launch": [_P] * 9 + [_I] * 11 + [_P],
+    # x, w, thresholds (or null), out, M, N, K, out_bsl, stream
+    "ternary_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # in, out, rows, L, dtype code, descending, stream
+    "bsn_sort_launch": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -1,33 +1,41 @@
-// Approximate progressive-sorting BSN adder (paper §IV-B, Fig 10b),
-// count domain, for Hopper (sm_90a).
+// Approximate progressive-sorting BSN adder (paper §IV-B, Fig 10b and
+// the Fig 12 temporal reuse), count domain, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel src/repro/kernels/approx_bsn.py:
-// approx_bsn_pallas (_spatial_kernel, _pipeline).  For each row of
-// (R, width) int32 popcounts it runs a static chain of stages
-// (group g, clip c, stride s), entering BSL L:
+// Replaces the TPU kernels src/repro/kernels/approx_bsn.py:
+// approx_bsn_pallas (_spatial_kernel, _pipeline) and
+// approx_bsn_temporal_pallas (_temporal_kernel).  For each row of
+// (R, cycles * width) int32 popcounts it runs, on each of the `cycles`
+// chunks of `width` counts, a static chain of stages (group g, clip c,
+// stride s), entering BSL L:
 //     x <- sum over groups of g
 //     x <- clamp(x - c, 0, g*L - 2c)          (clamps even when c == 0)
 //     x <- (x + s/2) / s                      (x >= 0: floor == shift)
-// and writes the (R,) int32 output popcount.
+// and writes the (R,) int32 sum of the chunks' output popcounts (the
+// spatial adder is cycles == 1).  The TPU walks the cycle axis as a
+// sequential grid dimension that revisits the output block; here the
+// row's block loops over its chunks itself and keeps the running sum in
+// a register, so no output is revisited and no atomics are needed.
 //
 // What bounds it: memory.  Each count is read once and used in one add,
 // so the card's 3.35 TB/s read rate is the limit (on the serving path
-// R = tokens x N rows of width K in {2048, 8192}).  Design: one block of
-// 256 threads per row.  Stage 1 reads the row straight from device
-// memory with consecutive threads on consecutive words (coalesced); its
-// partial codes stay in shared memory for the later stages, so nothing
-// between stages goes back to device memory.  A stage with one output
-// (the last one, and the whole pipeline of default_approx_spec) is a
-// block-wide reduction; a stage with group >= 32 gives each output a
-// warp; a narrower group gives each output a thread.  All sums are
-// integer, so the order of reduction changes no bit.
+// R = tokens x N rows of width K in {2048, 8192}).  Design: one block per
+// row, of 256 threads, or fewer for a narrow chunk (width / 8, at least
+// one warp) so that more rows are in flight while each short chunk
+// waits on its reads and barriers.  Stage 1 reads the row straight from
+// device memory with consecutive threads on consecutive words
+// (coalesced); its partial codes stay in shared memory for the later
+// stages, so nothing between stages goes back to device memory.  A
+// stage with one output (the last one, and the whole pipeline of
+// default_approx_spec) is a block-wide reduction; a stage with group >=
+// 32 gives each output a warp; a narrower group gives each output a
+// thread.  All sums are integer, so the order of reduction changes no
+// bit.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int MAX_STAGES = 8;
-constexpr int THREADS = 256;
 
 struct Stages {
   int n;
@@ -50,65 +58,85 @@ __device__ __forceinline__ int warp_sum(int v) {
   return v;
 }
 
+// THREADS is a compile-time constant: the strided loops below unroll on
+// it (a run-time block size made the 256-thread kernel 1.5x slower).
+template <int THREADS>
 __global__ void __launch_bounds__(THREADS)
 approx_bsn_kernel(const int* __restrict__ counts, int* __restrict__ out,
-                  int width, Stages st) {
+                  int width, int cycles, Stages st) {
   extern __shared__ int bufs[];
   __shared__ int red[THREADS / 32];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int nwarps = THREADS / 32;
   const int row = blockIdx.x;
 
-  const int* in = counts + static_cast<size_t>(row) * width;
-  int n = width;
-  for (int s = 0; s < st.n; ++s) {
-    const int g = st.group[s], m = n / g;
-    const int clip = st.clip[s], kept = st.kept[s], stride = st.stride[s];
-    int* dst = (s & 1) ? bufs + st.buf0 : bufs;
-    if (m == 1) {                       // block-wide reduction
-      int v = 0;
-      for (int i = tid; i < n; i += THREADS) v += in[i];
-      v = warp_sum(v);
-      if (lane == 0) red[warp] = v;
-      __syncthreads();
-      if (warp == 0) {
-        v = lane < nwarps ? red[lane] : 0;
+  int total = 0;                        // thread 0: sum over the chunks
+  for (int t = 0; t < cycles; ++t) {
+    const int* in = counts + (static_cast<size_t>(row) * cycles + t) * width;
+    int n = width;
+    for (int s = 0; s < st.n; ++s) {
+      const int g = st.group[s], m = n / g;
+      const int clip = st.clip[s], kept = st.kept[s], stride = st.stride[s];
+      int* dst = (s & 1) ? bufs + st.buf0 : bufs;
+      if (m == 1) {                       // block-wide reduction
+        int v = 0;
+        for (int i = tid; i < n; i += THREADS) v += in[i];
         v = warp_sum(v);
-        if (lane == 0) {
-          v = finish(v, clip, kept, stride);
-          if (s == st.n - 1) out[row] = v; else dst[0] = v;
+        if (lane == 0) red[warp] = v;
+        __syncthreads();
+        if (warp == 0) {
+          v = lane < nwarps ? red[lane] : 0;
+          v = warp_sum(v);
+          if (lane == 0) {
+            v = finish(v, clip, kept, stride);
+            if (s == st.n - 1) total += v; else dst[0] = v;
+          }
+        }
+      } else if (g >= 32) {               // one warp per output
+        for (int j = warp; j < m; j += nwarps) {
+          int v = 0;
+          for (int i = lane; i < g; i += 32) v += in[j * g + i];
+          v = warp_sum(v);
+          if (lane == 0) dst[j] = finish(v, clip, kept, stride);
+        }
+      } else {                            // one thread per output
+        for (int j = tid; j < m; j += THREADS) {
+          int v = 0;
+          for (int i = 0; i < g; ++i) v += in[j * g + i];
+          dst[j] = finish(v, clip, kept, stride);
         }
       }
-    } else if (g >= 32) {               // one warp per output
-      for (int j = warp; j < m; j += nwarps) {
-        int v = 0;
-        for (int i = lane; i < g; i += 32) v += in[j * g + i];
-        v = warp_sum(v);
-        if (lane == 0) dst[j] = finish(v, clip, kept, stride);
-      }
-    } else {                            // one thread per output
-      for (int j = tid; j < m; j += THREADS) {
-        int v = 0;
-        for (int i = 0; i < g; ++i) v += in[j * g + i];
-        dst[j] = finish(v, clip, kept, stride);
-      }
+      __syncthreads();
+      in = dst;
+      n = m;
     }
-    __syncthreads();
-    in = dst;
-    n = m;
   }
+  if (tid == 0) out[row] = total;
+}
+
+template <int THREADS>
+int run(const int* counts, int* out, int rows, int width, int cycles,
+        const Stages& st, size_t smem, cudaStream_t stream) {
+  int rc = prepare_smem(approx_bsn_kernel<THREADS>, smem, "approx_bsn");
+  if (rc) return rc;
+  approx_bsn_kernel<THREADS><<<rows, THREADS, smem, stream>>>(
+      counts, out, width, cycles, st);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// stages: n_stages triples (group, clip, stride), validated by the Python
-// wrapper (kernels/approx_bsn.validate_stages).  Returns a CUDA error code.
+// counts: (rows, cycles * width); stages: n_stages triples (group, clip,
+// stride), validated by the Python wrapper
+// (kernels/approx_bsn.validate_stages).  Returns a CUDA error code.
 extern "C" int approx_bsn_launch(const void* counts, void* out, int rows,
-                                 int width, int in_bsl, const int* stages,
-                                 int n_stages, void* stream) {
-  if (n_stages < 1 || n_stages > MAX_STAGES || rows < 1 || width < 1)
-    return refuse("approx_bsn: takes 1..%d stages and positive rows and "
-                  "width", MAX_STAGES);
+                                 int width, int cycles, int in_bsl,
+                                 const int* stages, int n_stages,
+                                 void* stream) {
+  if (n_stages < 1 || n_stages > MAX_STAGES || rows < 1 || width < 1 ||
+      cycles < 1)
+    return refuse("approx_bsn: takes 1..%d stages and positive rows, "
+                  "width and cycles", MAX_STAGES);
   Stages st{};
   st.n = n_stages;
   int bsl = in_bsl, n = width;
@@ -127,10 +155,13 @@ extern "C" int approx_bsn_launch(const void* counts, void* out, int rows,
   st.buf0 = sizes[0];
   st.buf1 = n_stages > 1 ? sizes[1] : 0;
   const size_t smem = static_cast<size_t>(st.buf0 + st.buf1) * sizeof(int);
-  int rc = prepare_smem(approx_bsn_kernel, smem, "approx_bsn");
-  if (rc) return rc;
-  approx_bsn_kernel<<<rows, THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(counts), static_cast<int*>(out), width, st);
-  return static_cast<int>(cudaGetLastError());
+  // a block of width / 8 threads, one warp to 256
+  const auto* c = static_cast<const int*>(counts);
+  auto* o = static_cast<int*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  if (width <= 32 * 8) return run<32>(c, o, rows, width, cycles, st, smem, s);
+  if (width <= 64 * 8) return run<64>(c, o, rows, width, cycles, st, smem, s);
+  if (width <= 128 * 8)
+    return run<128>(c, o, rows, width, cycles, st, smem, s);
+  return run<256>(c, o, rows, width, cycles, st, smem, s);
 }

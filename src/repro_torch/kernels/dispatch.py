@@ -15,28 +15,36 @@ import torch
 
 from ..core.bsn import ApproxBSNSpec, spec_stages
 from . import ref
-from .approx_bsn import approx_bsn_cuda, approx_bsn_plain
+from .approx_bsn import (approx_bsn_cuda, approx_bsn_plain,
+                         approx_bsn_temporal_cuda, approx_bsn_temporal_plain)
 from .paged_attention import paged_attn_decode_cuda, paged_attn_prefill_cuda
 
 __all__ = ["approx_bsn", "paged_attn_decode", "paged_attn_prefill"]
 
 
-def approx_bsn(counts: torch.Tensor, spec: ApproxBSNSpec) -> torch.Tensor:
-    """Approximate-BSN accumulation of ``(..., width)`` popcounts ->
-    ``(...,)`` int32 output popcounts; the represented value is
-    ``spec.scale * (out - spec.out_bsl // 2)``."""
-    if counts.shape[-1] != spec.width:
-        raise ValueError(f"expected trailing dim {spec.width}, got "
-                         f"{tuple(counts.shape)}")
+def approx_bsn(counts: torch.Tensor, spec: ApproxBSNSpec, *,
+               cycles: int = 1) -> torch.Tensor:
+    """Approximate-BSN accumulation of ``(..., cycles * width)`` popcounts
+    -> ``(...,)`` int32 output popcounts; the represented value is
+    ``spec.scale * (out - cycles * spec.out_bsl // 2)``.  ``cycles > 1``
+    is the Fig 12 temporal adder (its own kernel)."""
+    total = cycles * spec.width
+    if counts.shape[-1] != total:
+        raise ValueError(f"expected trailing dim {total} (cycles={cycles} "
+                         f"x width={spec.width}), got {tuple(counts.shape)}")
     batch = counts.shape[:-1]
     rows = math.prod(batch)
-    x2 = counts.reshape(rows, spec.width).to(torch.int32)
+    x2 = counts.reshape(rows, total).to(torch.int32)
     kw = dict(in_bsl=spec.in_bsl, stages=spec_stages(spec))
-    if counts.is_cuda:
-        out = approx_bsn_cuda(x2.contiguous(), **kw)
+    if cycles > 1:
+        kw["cycles"] = cycles
+        run = (approx_bsn_temporal_cuda if counts.is_cuda
+               else approx_bsn_temporal_plain)
     else:
-        out = approx_bsn_plain(x2, **kw)
-    return out.reshape(batch)
+        run = approx_bsn_cuda if counts.is_cuda else approx_bsn_plain
+    if counts.is_cuda:
+        x2 = x2.contiguous()
+    return run(x2, **kw).reshape(batch)
 
 
 def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,

@@ -1,0 +1,91 @@
+"""Front doors of the SC datapath kernels: batching, ragged shapes and the
+device rule.
+
+Port of ``repro.kernels.ops``.  A CUDA tensor goes to the hand-written
+kernel (which launches or raises), a CPU tensor to its plain PyTorch
+version; there is no size threshold (the reference's
+``min_flops_for_kernel`` / ``min_rows_for_kernel``) and no backend knob.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from . import ref
+from .bsn_sort import bsn_sort_cuda, bsn_sort_plain
+from .ternary_matmul import ternary_matmul_cuda
+
+__all__ = ["ternary_matmul", "bsn_sort", "sort_rows"]
+
+# never-firing SI threshold of a padded output channel
+_NEVER = torch.iinfo(torch.int32).max
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
+                   thresholds_q: torch.Tensor | None = None) -> torch.Tensor:
+    """SC integer datapath matmul: ``(..., K)`` x ``(K, N)`` -> ``(..., N)``
+    int32, then the SI epilogue when ``thresholds_q (N, out_bsl)`` (q
+    domain) is given.
+
+    ``x_q``: int8 activation levels; ``w_int``: int8 ternary weights.  On
+    the card, K and N are zero-padded to the kernel's multiple of 4 when
+    they are ragged (padded output channels get a never-firing threshold
+    and are cropped); any M is taken as it is.
+    """
+    *batch, k = x_q.shape
+    k2, n = w_int.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch: {tuple(x_q.shape)} x "
+                         f"{tuple(w_int.shape)}")
+    m = math.prod(batch)
+    x2 = x_q.reshape(m, k)
+    t2 = None if thresholds_q is None else thresholds_q.to(torch.int32)
+    if not x_q.is_cuda:
+        out = ref.ternary_matmul_ref(x2, w_int, t2)
+    else:
+        kp, np_ = _round_up(k, 4), _round_up(n, 4)
+        if kp != k:
+            x2 = F.pad(x2, (0, kp - k))
+        w2 = w_int
+        if (kp, np_) != (k, n):
+            w2 = F.pad(w_int, (0, np_ - n, 0, kp - k))
+            if t2 is not None:
+                t2 = F.pad(t2, (0, 0, 0, np_ - n), value=_NEVER)
+        out = ternary_matmul_cuda(
+            x2.contiguous(), w2.contiguous(),
+            None if t2 is None else t2.contiguous())[:, :n]
+    return out.reshape(*batch, n) if batch else out[0]
+
+
+def sort_rows(x: torch.Tensor, *, descending: bool = True) -> torch.Tensor:
+    """The bitonic network on ``(R, L)`` rows, L a power of two: the
+    ``bsn_sort`` kernel on a CUDA tensor, its plain version on the CPU."""
+    if x.is_cuda:
+        return bsn_sort_cuda(x, descending=descending)
+    return bsn_sort_plain(x, descending=descending)
+
+
+def bsn_sort(bits: torch.Tensor) -> torch.Tensor:
+    """Descending bitonic sort of thermometer bit vectors ``(..., L)``.
+
+    Pads L to the next power of two with **zeros** and crops, as the
+    reference does.  That keeps the popcount for {0, 1} bit inputs only:
+    on a row with negative values and a non-power-of-two length the
+    padded zeros outrank the negatives, so the cropped row is not a sort
+    of the input (the reference behaves the same, and so does this port).
+    """
+    *batch, length = bits.shape
+    r = math.prod(batch)
+    lp = 1 << (length - 1).bit_length()
+    x2 = bits.reshape(r, length)
+    if lp != length:
+        x2 = F.pad(x2, (0, lp - length))
+    out = sort_rows(x2.contiguous(), descending=True)[:, :length]
+    return out.reshape(*batch, length) if batch else out[0]

@@ -1,8 +1,10 @@
-"""Plain PyTorch versions of the paged-attention kernels.
+"""Plain PyTorch versions of the kernels: the correctness ground truth.
 
-Port of the paged half of ``repro.kernels.ref``: gather each slot's page
-window, dequantize it, mask and softmax.  These are what the CPU runs and
-what ``chip_smoke.py`` holds the CUDA kernels against on the card.
+Port of ``repro.kernels.ref``: the SC integer datapath (ternary matmul
+and its SI epilogue), the exact BSN's sort, and the paged attention
+(gather each slot's page window, dequantize it, mask and softmax).  These
+are what the CPU runs and what ``chip_smoke.py`` holds the CUDA kernels
+against on the card.
 """
 
 from __future__ import annotations
@@ -13,8 +15,41 @@ import torch
 
 from ..core.kv_quant import kv_dequant
 
-__all__ = ["gather_pages", "gather_pages_dequant", "paged_attn_decode_ref",
+__all__ = ["ternary_matmul_ref", "si_epilogue_ref", "bsn_sort_ref",
+           "gather_pages", "gather_pages_dequant", "paged_attn_decode_ref",
            "paged_attn_prefill_ref"]
+
+
+def si_epilogue_ref(sum_q: torch.Tensor,
+                    thresholds_q: torch.Tensor) -> torch.Tensor:
+    """SI activation on accumulated q-domain sums: ``#{j : sum_q >= t_j} -
+    out_bsl // 2``; ``thresholds_q`` (N, out_bsl) int32, ascending."""
+    t = thresholds_q.to(torch.int32)
+    out_counts = torch.sum(sum_q[..., None] >= t, dim=-1, dtype=torch.int32)
+    return out_counts - t.shape[-1] // 2
+
+
+def ternary_matmul_ref(x_q: torch.Tensor, w_int: torch.Tensor,
+                       thresholds_q: torch.Tensor | None = None
+                       ) -> torch.Tensor:
+    """int8 activation levels ``(..., K)`` x int8 ternary weights ``(K, N)``
+    -> int32 sums, then the optional SI epilogue.
+
+    The product runs in float64 on every device: CUDA ``torch.matmul`` has
+    no integer product, and float64 holds every partial sum exactly
+    (``|sum| <= K * 128 * 128`` is far below ``2**53``), so the result is
+    the exact integer sum in any summation order.
+    """
+    sums = torch.matmul(x_q.to(torch.float64), w_int.to(torch.float64))
+    sum_q = sums.to(torch.int32)
+    if thresholds_q is None:
+        return sum_q
+    return si_epilogue_ref(sum_q, thresholds_q)
+
+
+def bsn_sort_ref(bits: torch.Tensor) -> torch.Tensor:
+    """Descending sort of the trailing axis (thermometer normal form)."""
+    return torch.sort(bits, dim=-1, descending=True).values
 
 
 def gather_pages(pages: torch.Tensor,

@@ -8,6 +8,11 @@ layer, in order, with every leaf a torch tensor on ``device``.  The LSQ
 scales (``alpha_w``, ``alpha_a``) and the residual scales
 (``alpha_r1``/``alpha_r2``, which the ``qat`` datapath's residual
 re-quantization reads) come along with the weights.
+
+:func:`tree_to_torch` carries any other numpy tree: an SC linear's QAT
+dict (``w``, ``alpha_w``, ``alpha_a``), the paper's TNN (``w_in``,
+``blocks``, ``w_out``) or an ``export_sc_linear`` dict (``w_int``,
+``thresholds``, ``sum_max``, ``alpha_*``).
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from .configs.base import ModelConfig
 from .device import resolve_device
 
-__all__ = ["from_jax", "to_torch"]
+__all__ = ["from_jax", "to_torch", "tree_to_torch"]
 
 
 def to_torch(a, device: torch.device) -> torch.Tensor:
@@ -33,7 +38,23 @@ def to_torch(a, device: torch.device) -> torch.Tensor:
 def _tree(obj, fn):
     if isinstance(obj, dict):
         return {k: _tree(v, fn) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return [_tree(v, fn) for v in obj]
     return fn(obj)
+
+
+def tree_to_torch(tree, device: str | torch.device | None = None):
+    """A tree of dicts and lists whose leaves are numpy arrays (or numpy
+    scalars) -> the same tree of torch tensors on ``device``; Python
+    numbers, strings and ``None`` stay as they are (an exported layer's
+    ``alpha_a``, ``sum_max`` and ``alpha_out``)."""
+    dev = resolve_device(device)
+
+    def leaf(a):
+        if isinstance(a, (np.ndarray, np.generic)):
+            return to_torch(a, dev)
+        return a
+    return _tree(tree, leaf)
 
 
 def from_jax(params_np: dict, cfg: ModelConfig,

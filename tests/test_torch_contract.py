@@ -47,7 +47,8 @@ def test_port_never_imports_jax_or_the_reference():
 def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.weights, repro_torch.kernels.dispatch, "
-            "repro_torch.kernels.build; "
+            "repro_torch.kernels.build, repro_torch.kernels.ops, "
+            "repro_torch.core.si, repro_torch.core.multiplier; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'repro' not in sys.modules, 'repro'")
     env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}

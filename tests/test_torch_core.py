@@ -226,13 +226,6 @@ def test_sc_linear_int_approx_bit_exact(with_si, monkeypatch):
     np.testing.assert_array_equal(blocked.numpy(), with_jax)
 
 
-def test_sc_linear_int_refuses_tf32(monkeypatch):
-    x_q, w_int = _int_case(5)
-    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
-    with pytest.raises(RuntimeError, match="tf32"):
-        sc_layers.sc_linear_int({"w_int": _t(w_int)}, _t(x_q))
-
-
 @pytest.mark.parametrize("int_approx", [False, True])
 def test_sc_linear_int_from_qat_matches(int_approx):
     """float32 outputs: the integer sums are exact on both sides and the

@@ -6,7 +6,8 @@ file imports torch only (no JAX), so it runs where the card is:
 
 float32 inputs at small shapes; attention within ``atol=rtol=1e-5``
 (fp32 online softmax against the gathered softmax: the sums run in a
-different order), the BSN adder bit for bit.
+different order); the BSN adders, the ternary matmul (with and without
+its SI epilogue) and the sort bit for bit.
 """
 
 import pytest
@@ -14,12 +15,18 @@ import torch
 
 from repro_torch.core.bsn import default_approx_spec, spec_stages
 from repro_torch.core.kv_quant import kv_quant
-from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.approx_bsn import approx_bsn_cuda, approx_bsn_plain
+from repro_torch.core.sc_layers import SCQuantConfig, sc_linear_int_from_qat
+from repro_torch.kernels import build, dispatch, ops
+from repro_torch.kernels.approx_bsn import (approx_bsn_cuda, approx_bsn_plain,
+                                            approx_bsn_temporal_cuda,
+                                            approx_bsn_temporal_plain)
+from repro_torch.kernels.bsn_sort import bsn_sort_cuda, bsn_sort_plain
 from repro_torch.kernels.paged_attention import (paged_attn_decode_cuda,
                                                  paged_attn_prefill_cuda)
 from repro_torch.kernels.ref import (paged_attn_decode_ref,
-                                     paged_attn_prefill_ref)
+                                     paged_attn_prefill_ref,
+                                     ternary_matmul_ref)
+from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -98,6 +105,12 @@ def test_dispatch_launches_the_kernels_on_cuda_tensors(cuda):
     dispatch.approx_bsn(torch.zeros((2, 3, 256), dtype=torch.int32,
                                     device=cuda),
                         default_approx_spec(256, 8))
+    dispatch.approx_bsn(torch.zeros((2, 512), dtype=torch.int32,
+                                    device=cuda),
+                        default_approx_spec(256, 8), cycles=2)
+    ops.ternary_matmul(torch.zeros((3, 8), dtype=torch.int8, device=cuda),
+                       torch.zeros((8, 4), dtype=torch.int8, device=cuda))
+    ops.bsn_sort(torch.zeros((3, 8), dtype=torch.int8, device=cuda))
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 1)
 
 
@@ -135,4 +148,128 @@ def test_launch_refuses_layouts_above_the_shared_memory_cap(cuda):
     with pytest.raises(RuntimeError,
                        match=r"approx_bsn needs 524292 bytes of shared"):
         approx_bsn_cuda(counts, in_bsl=8, stages=((1, 0, 1), (2 ** 17, 0, 1)))
+    assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+# ---------------------------------------------------------------------------
+# the SC integer datapath: ternary matmul, temporal adder, sort
+# ---------------------------------------------------------------------------
+
+def _matmul_case(dev, m, k, n, out_bsl, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randint(-4, 5, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-1, 2, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    t = None
+    if out_bsl:
+        t = torch.sort(torch.randint(-2 * k - 1, 2 * k + 1, (n, out_bsl),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32), dim=-1).values
+    return x, w, t
+
+
+@pytest.mark.parametrize("m,k,n", [
+    (4, 2048, 512),         # decode lanes, K split over blocks
+    (1, 8192, 256),         # one row, a long K split
+    (37, 256, 132),         # ragged row and column tiles
+    (256, 256, 256),        # the TNN's layer
+    (5, 1001, 1003),        # K and N padded by ops.ternary_matmul
+    (3, 0, 8),              # an empty contraction
+])
+@pytest.mark.parametrize("out_bsl", [0, 8, 32])
+def test_ternary_matmul_kernel_bit_exact(cuda, m, k, n, out_bsl):
+    x, w, t = _matmul_case(cuda, m, k, n, out_bsl)
+    got = ops.ternary_matmul(x, w, t)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, ternary_matmul_ref(x, w, t))
+
+
+def test_ternary_matmul_padded_channels_never_fire(cuda):
+    """N = 1003 is padded to 1004 with a never-firing threshold; the kernel
+    on the padded operands gives the padded channel the lowest code."""
+    x, w, t = _matmul_case(cuda, 6, 64, 1003, 8, seed=1)
+    got = ops.ternary_matmul(x.reshape(2, 3, 64), w, t)
+    assert torch.equal(got.reshape(6, 1003), ternary_matmul_ref(x, w, t))
+    wp = torch.nn.functional.pad(w, (0, 1))
+    tp = torch.nn.functional.pad(t, (0, 0, 0, 1),
+                                 value=torch.iinfo(torch.int32).max)
+    full = ternary_matmul_cuda(x, wp, tp)
+    assert bool((full[:, -1] == -4).all())
+
+
+@pytest.mark.parametrize("cycles", [2, 8])
+@pytest.mark.parametrize("width", [256, 64])
+def test_temporal_adder_kernel_bit_exact(cuda, cycles, width):
+    spec = default_approx_spec(width, 8)
+    counts = torch.randint(0, 9, (37, cycles * width), dtype=torch.int32,
+                           device=cuda)
+    kw = dict(in_bsl=8, stages=spec_stages(spec), cycles=cycles)
+    got = approx_bsn_temporal_cuda(counts, **kw)
+    assert torch.equal(got, approx_bsn_temporal_plain(counts, **kw))
+    multi = ((8, 2, 4), (width // 8, 0, 2))
+    kw["stages"] = multi
+    assert torch.equal(approx_bsn_temporal_cuda(counts, **kw),
+                       approx_bsn_temporal_plain(counts, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32])
+@pytest.mark.parametrize("length", [1, 2, 64, 4096])
+@pytest.mark.parametrize("descending", [True, False])
+def test_bsn_sort_kernel_bit_exact(cuda, dtype, length, descending):
+    x = (torch.randn((19, length), device=cuda) * 50).to(dtype)
+    got = bsn_sort_cuda(x, descending=descending)
+    assert torch.equal(got, bsn_sort_plain(x, descending=descending))
+    assert torch.equal(got, torch.sort(x, dim=-1,
+                                       descending=descending).values)
+
+
+def test_bsn_sort_kernel_at_the_exact_bsn_row(cuda):
+    """One q_proj output channel's K * act_bsl = 16384 bits per row."""
+    bits = torch.randint(0, 2, (8, 16384), dtype=torch.int8, device=cuda)
+    got = ops.bsn_sort(bits)
+    assert torch.equal(got, bsn_sort_plain(bits))
+    assert torch.equal(got.sum(-1), bits.sum(-1))
+
+
+def test_sc_int_projection_launches_ternary_matmul(cuda):
+    """An sc_int projection on CUDA tensors runs the kernel, and gives the
+    plain path's result."""
+    gen = torch.Generator(cuda).manual_seed(0)
+    params = {"w": torch.randn((256, 64), generator=gen, device=cuda) / 16,
+              "alpha_w": torch.full((64,), 0.07, device=cuda),
+              "alpha_a": torch.tensor(1.0, device=cuda)}
+    x = torch.randn((4, 256), generator=gen, device=cuda)
+    build.reset_launches()
+    y = sc_linear_int_from_qat(params, x, SCQuantConfig(mode="sc_int"))
+    assert build.LAUNCHES["ternary_matmul"] == 1
+    cpu = {k: v.cpu() for k, v in params.items()}
+    want = sc_linear_int_from_qat(cpu, x.cpu(), SCQuantConfig(mode="sc_int"))
+    torch.testing.assert_close(y.cpu(), want, rtol=0, atol=0)
+
+
+def test_sc_kernels_refuse_what_they_do_not_take(cuda):
+    build.reset_launches()
+    x, w, t = _matmul_case(cuda, 4, 64, 32, 33)
+    with pytest.raises(RuntimeError, match="out_bsl=33"):
+        ternary_matmul_cuda(x, w, t)
+    with pytest.raises(RuntimeError, match="multiples of 4"):
+        ternary_matmul_cuda(x[:, :62].contiguous(), w[:62].contiguous())
+    with pytest.raises(ValueError, match="int8"):
+        ternary_matmul_cuda(x.int(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        ternary_matmul_cuda(x, w.t().contiguous().t())
+    with pytest.raises(ValueError, match=r"\(32, out_bsl\) int32"):
+        ternary_matmul_cuda(x, w, t.long())
+    with pytest.raises(RuntimeError,
+                       match=r"bsn_sort needs 262144 bytes of shared"):
+        bsn_sort_cuda(torch.zeros((1, 65536), device=cuda))
+    with pytest.raises(ValueError, match="int8, int32 or float32"):
+        bsn_sort_cuda(torch.zeros((2, 8), device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="power of two"):
+        bsn_sort_cuda(torch.zeros((2, 6), device=cuda, dtype=torch.int8))
+    with pytest.raises(ValueError, match="cycles"):
+        approx_bsn_temporal_cuda(torch.zeros((2, 100), dtype=torch.int32,
+                                             device=cuda),
+                                 in_bsl=8, stages=((16, 0, 1),), cycles=3)
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)

@@ -19,11 +19,14 @@ from repro.core import kv_quant as jkv
 from repro.kernels.paged_attention import (paged_attn_decode_pallas,
                                            paged_attn_prefill_pallas)
 from repro_torch.kernels import build, dispatch
-from repro_torch.kernels.approx_bsn import approx_bsn_cuda
+from repro_torch.kernels.approx_bsn import (approx_bsn_cuda,
+                                            approx_bsn_temporal_cuda)
+from repro_torch.kernels.bsn_sort import bsn_sort_cuda
 from repro_torch.kernels.paged_attention import (paged_attn_decode_cuda,
                                                  paged_attn_prefill_cuda)
 from repro_torch.kernels.ref import (paged_attn_decode_ref,
                                      paged_attn_prefill_ref)
+from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 POISON = 3.0e4
@@ -191,12 +194,21 @@ def test_cuda_wrappers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         paged_attn_prefill_cuda(q.reshape(1, 1, 1, 1, 8).expand(
             1, 4, 1, 1, 8).contiguous(), pool, pool, tables, start=0)
+    with pytest.raises(ValueError, match="CUDA"):
+        approx_bsn_temporal_cuda(torch.zeros((4, 32), dtype=torch.int32),
+                                 in_bsl=8, stages=((16, 0, 1),), cycles=2)
+    x_q = torch.zeros((4, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        ternary_matmul_cuda(x_q, torch.zeros((8, 4), dtype=torch.int8))
+    with pytest.raises(ValueError, match="CUDA"):
+        bsn_sort_cuda(x_q)
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
 
 
 def test_build_flags_target_sm90a_with_a_plain_c_interface():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
-    assert srcs == ["approx_bsn.cu", "errors.cu", "paged_attention.cu"]
+    assert srcs == ["approx_bsn.cu", "bsn_sort.cu", "errors.cu",
+                    "paged_attention.cu", "ternary_matmul.cu"]
     for p in build.CSRC.glob("*.cu*"):
         assert "torch/extension.h" not in p.read_text()
