@@ -24,12 +24,24 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    bit-level circuit (the sort kernel) over a full granite projection,
    and the temporal adder on full-width ``w_up``; each kernel of the path
    must have launched and every integer must agree with its plain
-   version and with the exact integer path.
+   version and with the exact integer path;
+6. train full-width granite-3-2b (bf16, sc_qat, per-layer recompute,
+   seeded random initial weights) for 3 AdamW steps on 2 x 4096 tokens
+   of ``SyntheticLM`` through ``build_train_step``: every attention
+   forward and its recompute runs the flash kernel (40 x 2 x 3 launches),
+   losses and gradient norms are finite, step 1 (learning rate 0) changes
+   no parameter and step 2 changes them; one more step is profiled; and
+   a tiny float32 config's train step on the card equals the same step on
+   the CPU within a stated tolerance.
+
+Phase 3 also holds the flash kernel against its plain version at phase
+6's shape (O and the log-sum-exp), at a ragged bidirectional GQA shape,
+and its gradient against autograd through the plain version.
 
 Run from the repository root::
 
     python3 chip_smoke.py                 # full run (40 layers)
-    python3 chip_smoke.py --layers 2      # quick check of the same path
+    python3 chip_smoke.py --layers 2      # quick check of the same paths
 
 Phase 4 also profiles one decode step per datapath (torch.profiler):
 device busy time, the device's idle share, and the PyTorch ops that take
@@ -47,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import subprocess
 import sys
 import time
@@ -494,6 +507,89 @@ def check_prefill(torch, dev, gen):
     return cases
 
 
+FLASH_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=8, D=64)   # phase 6's attention
+LSE_ATOL = 1e-4         # float32 log-sum-exp, sums in another order
+GRAD_TOL = 1e-4         # float32 gradients against autograd
+
+
+def _flash_inputs(torch, gen, dev, B, S, Hq, Hkv, D, dtype):
+    return tuple(torch.randn((B, S, h, D), generator=gen, device=dev)
+                 .to(dtype) for h in (Hq, Hkv, Hkv))
+
+
+def flash_bound(B, S, Hq, Hkv, D, causal):
+    """bf16 q, k, v, o read / written once plus the float32 LSE; 4 D
+    operations per (query, key) pair the mask keeps (q.k and p.v)."""
+    pairs = S * (S + 1) // 2 if causal else S * S
+    nbytes = 2 * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S
+    return bound(nbytes, 4 * B * Hq * pairs * D, BF16_OPS)
+
+
+def check_flash(torch, dev, gen):
+    import torch.nn.functional as F
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.ref import flash_attention_ref
+    cases = []
+    for label, shp, causal in (
+            ("train B2 S4096 causal", FLASH_SHAPE, True),
+            ("ragged S1000 bidirectional GQA",
+             dict(B=1, S=1000, Hq=8, Hkv=2, D=64), False)):
+        q, k, v = _flash_inputs(torch, gen, dev, **shp,
+                                dtype=torch.bfloat16)
+        out, lse = flash_attention_cuda(q, k, v, causal=causal)
+        want, want_lse = flash_attention_ref(q, k, v, causal,
+                                             return_lse=True)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        if not (err <= ATTN_ATOL and lse_err <= LSE_ATOL
+                and torch.isfinite(out.float()).all()):
+            raise AssertionError(f"flash {label}: max_abs_err {err}, lse "
+                                 f"{lse_err}")
+        del want, want_lse
+        ms = time_ms(lambda: flash_attention_cuda(q, k, v, causal=causal),
+                     iters=10)
+        plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, causal),
+                           iters=3, warmup=1)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=causal, enable_gqa=True), iters=10)
+        b_ms, b_by = flash_bound(**shp, causal=causal)
+        cases.append(dict(label=label, **shp, causal=causal,
+                          dtype="bfloat16", max_abs_err=err,
+                          lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
+                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
+        log(f"flash_attention {label}: max_abs_err={err:.3g} lse_err="
+            f"{lse_err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms(SDPA)={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+    # the gradient: the kernel's LSE and the blocked backward against
+    # autograd through the plain version, float32
+    q, k, v = _flash_inputs(torch, gen, dev, B=2, S=512, Hq=8, Hkv=2, D=64,
+                            dtype=torch.float32)
+    g = torch.randn(q.shape, generator=gen, device=dev)
+    leaves = tuple(t.requires_grad_() for t in (q, k, v))
+    got = torch.autograd.grad(dispatch.flash_attention(*leaves), leaves, g)
+    want = torch.autograd.grad(flash_attention_ref(*leaves), leaves, g)
+    grad_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    if not grad_err <= GRAD_TOL:
+        raise AssertionError(f"flash backward: max_abs_err {grad_err}")
+    # the backward's time at phase 6's shape (PyTorch ops, not a kernel)
+    q, k, v = _flash_inputs(torch, gen, dev, **FLASH_SHAPE,
+                            dtype=torch.bfloat16)
+    leaves = tuple(t.requires_grad_() for t in (q, k, v))
+    g = torch.randn(q.shape, generator=gen, device=dev).to(torch.bfloat16)
+    out = dispatch.flash_attention(*leaves)
+    bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                 retain_graph=True),
+                     iters=3, warmup=1)
+    log(f"flash backward B2 S512 float32: max_abs_err={grad_err:.3g} "
+        f"(tol {GRAD_TOL}); backward at the train shape (PyTorch ops) "
+        f"{bwd_ms:.2f} ms")
+    cases[0].update(grad_max_abs_err=grad_err, backward_ms=bwd_ms)
+    return cases
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the serving main path at full width
 # ---------------------------------------------------------------------------
@@ -878,6 +974,207 @@ def sc_pipeline(torch, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training at full width
+# ---------------------------------------------------------------------------
+
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 4096, 3
+TRAIN_LR = 1e-3
+# tiny card == CPU train step, float32.  Without quantization: loss and
+# grad norm (products and sums in another order) within 1e-5 relative;
+# params after one AdamW step (~lr * sign(g), lr 5e-4) within 2e-5, so a
+# gradient within float32 rounding of zero that flips its step still
+# shows; m within 5e-5 and v within 1e-4 of each leaf's largest entry.
+# Under sc_qat the fake-quant lattice turns a one-ulp difference of an
+# activation into a whole quantum (1.0 at act_bsl 8) now and then, which
+# moves the gradients, so there the loss alone, within 1e-5 relative.
+TINY_TRAIN_TOL = dict(metric=1e-5, params=2e-5, m=5e-5, v=1e-4)
+
+
+def _watch(params):
+    """Copies of a few leaves, to see which steps change them."""
+    lay = params["layers"]
+    return {"layers/0/mixer/wq/w": lay[0]["mixer"]["wq"]["w"],
+            f"layers/{len(lay) - 1}/ffn/w_down/w":
+                lay[-1]["ffn"]["w_down"]["w"],
+            "layers/0/norm1/scale": lay[0]["norm1"]["scale"],
+            "layers/0/mixer/wq/alpha_a": lay[0]["mixer"]["wq"]["alpha_a"],
+            "embed/table": params["embed"]["table"],
+            "lm_head/w": params["lm_head"]["w"]}
+
+
+def profile_train_step(torch, step_fn, state, batch):
+    """One train step under torch.profiler: device busy time and the
+    device's idle share of the step's wall time."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ms = sum(_dev_us(e) for e in events if e.device_type == cuda) / 1e3
+    flash_ms = sum(_dev_us(e) for e in events if e.device_type == cuda
+                   and "flash_fwd_kernel" in e.key) / 1e3
+    rows = sorted(((_dev_us(e), e.key, e.count) for e in events
+                   if e.device_type != cuda and _dev_us(e) > 0),
+                  reverse=True)
+    (OUT_DIR / "profile_train.txt").write_text(events.table(
+        sort_by="self_cuda_time_total", row_limit=40))
+    top = [dict(name=k, ms=us / 1e3, calls=n) for us, k, n in rows[:10]]
+    res = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
+               idle_share=1 - busy_ms / wall_ms, flash_kernel_ms=flash_ms,
+               top=top)
+    log(f"profile train step: wall_ms={wall_ms:.1f} device_busy_ms="
+        f"{busy_ms:.1f} idle_share={res['idle_share']:.3f} flash_kernel_ms="
+        f"{flash_ms:.1f} top ops: "
+        + "; ".join(f"{t['name']} {t['ms']:.1f} ms x{t['calls']}"
+                    for t in top[:6]))
+    return res
+
+
+def train(torch, dev, layers):
+    """Phase 6: the training main path at full width."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import init_params
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    cfg = get_arch("granite-3-2b")
+    if layers != cfg.n_layers:
+        cfg = cfg.scaled(n_layers=layers)
+    if (cfg.quant.mode, cfg.remat, cfg.dtype) != ("sc_qat", "full",
+                                                  "bfloat16"):
+        raise AssertionError(f"granite-3-2b trains {cfg.quant.mode} / "
+                             f"{cfg.remat} / {cfg.dtype}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state = init_train_state(
+        init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev), cfg)
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=SEED)
+    batches = [ds.batch(i, TRAIN_BATCH) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    # warmup_cosine(0) = 0: step 1 moves nothing, step 2 runs at the peak
+    step_fn = build_train_step(cfg, lambda s: warmup_cosine(
+        s, TRAIN_LR, 1, TRAIN_STEPS))
+    initial = {k: v.clone() for k, v in _watch(state.params).items()}
+
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    steps, changed = [], []
+    for i in range(TRAIN_STEPS):
+        t1 = time.perf_counter()
+        state, m = step_fn(state, batches[i])
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t1
+        steps.append(dict({k: float(v) for k, v in m.items()}, sec=sec))
+        changed.append({k: (v != initial[k]).float().mean().item()
+                        for k, v in _watch(state.params).items()})
+        log(f"train step {i + 1}: loss={steps[-1]['loss']:.4f} grad_norm="
+            f"{steps[-1]['grad_norm']:.4f} lr={steps[-1]['lr']:.3g} "
+            f"{sec:.2f} s; share of watched entries changed: "
+            + ", ".join(f"{k.split('/')[-2]} {c:.3g}"
+                        for k, c in changed[-1].items()))
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    want = cfg.n_layers * 2 * TRAIN_STEPS          # forward + recompute
+    if launches["flash_attention"] != want:
+        raise AssertionError(f"flash kernel launched "
+                             f"{launches['flash_attention']} times, "
+                             f"expected {want}")
+    if not all(math.isfinite(s[k]) for s in steps
+               for k in ("loss", "grad_norm")):
+        raise AssertionError(f"non-finite loss or grad norm: {steps}")
+    if any(changed[0].values()):
+        raise AssertionError(f"step 1 (lr 0) changed parameters: "
+                             f"{changed[0]}")
+    if not all(changed[1].values()):
+        raise AssertionError(f"step 2 left parameters unchanged: "
+                             f"{changed[1]}")
+    later = [s["sec"] for s in steps[1:]]
+    sec_per_step = sum(later) / len(later)
+    res = dict(layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+               quant=cfg.quant.mode, remat=cfg.remat, lr=TRAIN_LR,
+               setup_s=setup_s, steps=steps, changed=changed,
+               sec_per_step=sec_per_step,
+               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / sec_per_step,
+               max_memory_allocated=peak, launches=launches)
+    log(f"train granite-3-2b layers={cfg.n_layers} batch={TRAIN_BATCH}x"
+        f"{TRAIN_SEQ}: sec/step (steps 2-{TRAIN_STEPS}) {sec_per_step:.3f} "
+        f"tokens/s {res['tokens_per_s']:.0f} max_memory_allocated="
+        f"{peak / 2**30:.2f} GiB launches={launches}")
+    res["profile"] = profile_train_step(torch, step_fn, state,
+                                        batches[TRAIN_STEPS])
+    res["profile"]["idle_share_unprofiled"] = \
+        1 - res["profile"]["device_busy_ms"] / (sec_per_step * 1e3)
+    log(f"train step idle share against the unprofiled step "
+        f"({sec_per_step * 1e3:.1f} ms): "
+        f"{res['profile']['idle_share_unprofiled']:.3f}")
+    return res
+
+
+def tiny_train_card_equals_cpu(torch, dev):
+    """One train step of a tiny float32 config on the card (flash kernel)
+    against the same step on the CPU (plain version), without
+    quantization and under sc_qat (tolerances at TINY_TRAIN_TOL)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import init_params
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_leaves
+    qat = get_arch("granite-3-2b").scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=64, vocab_pad_multiple=32, dtype="float32")
+    batch = SyntheticLM(vocab_size=qat.vocab_size, seq_len=100,
+                        seed=SEED).batch(0, 4)
+    tol = TINY_TRAIN_TOL
+    res = {}
+    for cfg in (qat.scaled(quant=qat.quant.with_mode("none")), qat):
+        cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+        gpu = _to(cpu, dev)
+        step_fn = build_train_step(cfg, lambda s: warmup_cosine(
+            s + 1, 1e-3, 2, 10))
+        before = kbuild.LAUNCHES["flash_attention"]
+        (sc, mc), (sg, mg) = [step_fn(init_train_state(p, cfg), batch)
+                              for p in (cpu, gpu)]
+        if kbuild.LAUNCHES["flash_attention"] - before != cfg.n_layers * 2:
+            raise AssertionError("tiny train step: the card did not run "
+                                 "the flash kernel")
+        errs = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+                for k in ("loss", "grad_norm")}
+        errs["params"] = max((a.cpu() - b).abs().max().item()
+                             for a, b in zip(tree_leaves(sg.params),
+                                             tree_leaves(sc.params)))
+        for name in ("m", "v"):
+            errs[name] = max(((a.cpu() - b).abs().max()
+                              / b.abs().max().clamp(min=1e-30)).item()
+                             for a, b in zip(tree_leaves(sg.opt[name]),
+                                             tree_leaves(sc.opt[name])))
+        checked = ("loss",) if cfg.quant.enabled else tuple(errs)
+        bad = {k: errs[k] for k in checked
+               if errs[k] > tol["metric" if k in ("loss", "grad_norm")
+                                else k]}
+        if bad:
+            raise AssertionError(f"tiny train step {cfg.quant.mode}: card "
+                                 f"!= cpu {bad}")
+        log(f"tiny train step {cfg.quant.mode}: card == cpu on "
+            f"{', '.join(checked)} (loss rel {errs['loss']:.2g}, grad_norm "
+            f"rel {errs['grad_norm']:.2g}, params max abs "
+            f"{errs['params']:.2g}, m {errs['m']:.2g}, v {errs['v']:.2g}; "
+            f"tolerances {tol})")
+        res[cfg.quant.mode] = errs
+    return res
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -889,7 +1186,8 @@ def _to(tree, dev):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--layers", type=int, default=40,
-                    help="granite-3-2b depth to serve (full width always)")
+                    help="granite-3-2b depth to serve and train (full "
+                         "width always)")
     args = ap.parse_args()
 
     import torch
@@ -933,6 +1231,7 @@ def main() -> int:
     pre = check_prefill(torch, dev, gen)
     tmm = check_ternary_matmul(torch, dev, gen)
     srt = check_bsn_sort(torch, dev, gen)
+    fla = check_flash(torch, dev, gen)
 
     # phase 4: the main path at full width, then the tiny card==cpu check
     serving, launches, products = serve(torch, dev, args.layers)
@@ -942,6 +1241,12 @@ def main() -> int:
     sc = sc_pipeline(torch, dev)
     for k, v in sc["launches"].items():
         launches[k] += v
+
+    # phase 6: training at full width, then the tiny card==cpu step
+    training = train(torch, dev, args.layers)
+    for k, v in training["launches"].items():
+        launches[k] += v
+    training["tiny_card_vs_cpu"] = tiny_train_card_equals_cpu(torch, dev)
 
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
@@ -968,13 +1273,17 @@ def main() -> int:
         entry("bsn_sort", csrc + "bsn_sort.cu",
               "src/repro/kernels/bsn_sort.py:54", srt,
               "exact BSN q_proj 4 tokens"),
+        entry("flash_attention", csrc + "flash_attention.cu",
+              "src/repro/kernels/flash_attention.py:75", fla,
+              "train B2 S4096 causal"),
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": res.seconds,
          "approx_bsn": bsn, "approx_bsn_temporal": tmp,
          "paged_attn_decode": dec, "paged_attn_prefill": pre,
-         "ternary_matmul": tmm, "bsn_sort": srt, "serving": serving,
-         "sc_datapath": sc, "float_products": products, **summary},
+         "ternary_matmul": tmm, "bsn_sort": srt, "flash_attention": fla,
+         "serving": serving, "sc_datapath": sc, "training": training,
+         "float_products": products, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

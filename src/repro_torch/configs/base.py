@@ -1,17 +1,20 @@
 """Model configuration: ``ModelConfig``, ``LayerSpec`` and the registry.
 
-Port of ``repro.configs.base`` with the fields the serving main path
-reads, or checks to refuse what is not ported yet.  An architecture is a *period* of layers repeated
-``n_periods`` times; the port keeps one parameter dict per layer.
+Port of ``repro.configs.base`` with the fields the serving and training
+paths read, or check to refuse what is not ported yet.  An architecture
+is a *period* of layers repeated ``n_periods`` times; the port keeps one
+parameter dict per layer.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
 
 from ..core.sc_layers import SC_OFF, SCQuantConfig
 
-__all__ = ["LayerSpec", "ModelConfig", "register_arch", "get_arch"]
+__all__ = ["LayerSpec", "ModelConfig", "register_arch", "get_arch",
+           "list_archs"]
 
 
 @dataclass(frozen=True)
@@ -44,6 +47,14 @@ class ModelConfig:
     logit_softcap: float = 0.0
     quant: SCQuantConfig = SC_OFF
     dtype: str = "bfloat16"
+    opt_state_dtype: str = "float32"   # AdamW m / v
+    remat: str = "full"         # full | none  (per-layer recompute)
+    # the reference's flash-scan block sizes, kept so configs carry over;
+    # the port's flash kernel tiles on its own and reads neither
+    attn_q_chunk: int = 1024
+    attn_kv_chunk: int = 1024
+    ce_chunks: int = 0          # >1: chunked cross-entropy (the (B, S, V)
+                                # logits are never all alive at once)
     vocab_pad_multiple: int = 256
 
     @property
@@ -66,6 +77,11 @@ class ModelConfig:
     def is_encoder(self) -> bool:
         return not self.causal
 
+    def with_quant(self, mode: str, **kw) -> "ModelConfig":
+        return replace(self, quant=dataclasses.replace(
+            self.quant if self.quant.enabled else SCQuantConfig(),
+            mode=mode, **kw))
+
     def scaled(self, **kw) -> "ModelConfig":
         """Reduced copy for smoke tests."""
         return replace(self, **kw)
@@ -84,3 +100,8 @@ def get_arch(name: str) -> ModelConfig:
         # importing the configs package populates the registry
         from .. import configs  # noqa: F401
     return _ARCH_REGISTRY[name]
+
+
+def list_archs() -> list[str]:
+    from .. import configs  # noqa: F401
+    return sorted(_ARCH_REGISTRY)

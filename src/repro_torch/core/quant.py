@@ -1,8 +1,8 @@
-"""SC-friendly fake quantizers (paper §III-B), forward only.
+"""SC-friendly fake quantizers (paper §III-B) with the LSQ gradient.
 
-Port of the forward of ``repro.core.quant``: LSQ fake-quant, ternary
-weights, thermometer activations and the ternary scale's init.  Serving
-needs no gradient; the custom backward waits for the training slice.
+Port of ``repro.core.quant``: LSQ fake-quant (learned step size, Esser
+et al. 2020) with the reference's custom VJP, ternary weights,
+thermometer activations and the two scale inits.
 """
 
 from __future__ import annotations
@@ -10,20 +10,69 @@ from __future__ import annotations
 import torch
 
 __all__ = ["lsq_fake_quant", "ternary_weight_quant", "thermometer_act_quant",
-           "ternary_weight_init_alpha"]
+           "init_alpha", "ternary_weight_init_alpha"]
+
+
+def _reduce_to_shape(x: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """Sum ``x`` over the axes along which a tensor of ``shape`` was
+    broadcast against it (the reference's ``_reduce_to_shape``)."""
+    if shape == ():
+        return torch.sum(x)
+    while x.ndim > len(shape):
+        x = torch.sum(x, dim=0)
+    axes = tuple(i for i, (a, b) in enumerate(zip(x.shape, shape))
+                 if b == 1 and a != 1)
+    if axes:
+        x = torch.sum(x, dim=axes, keepdim=True)
+    return x.reshape(shape)
+
+
+class _LSQ(torch.autograd.Function):
+    """Value ``alpha * clip(round(x / alpha), qn, qp)``; gradient as the
+    reference's ``_lsq_fwd`` / ``_lsq_bwd``:
+
+    * ``gx``: straight through inside ``[qn, qp]`` (in ``x / alpha``
+      units), zero outside;
+    * ``galpha``: ``g * dalpha * gscale`` in float32, with ``dalpha`` the
+      rail (``qn`` or ``qp``) outside the range and ``q - x / alpha``
+      (taken in ``x.dtype``) inside it, and ``gscale = 1 / sqrt(x.numel()
+      * max(qp, 1))``, summed to alpha's shape.
+    """
+
+    @staticmethod
+    def forward(ctx, x, alpha, qn: int, qp: int):
+        a = alpha.to(x.dtype)
+        xs = x / a
+        q = torch.clamp(torch.round(xs), qn, qp)
+        ctx.save_for_backward(xs, q)
+        ctx.qn, ctx.qp = qn, qp
+        ctx.alpha_shape = tuple(alpha.shape)
+        # a Python float: x.numel() can pass 2**31
+        ctx.gscale = 1.0 / float(x.numel() * max(qp, 1)) ** 0.5
+        return q * a
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, q = ctx.saved_tensors
+        qn, qp = ctx.qn, ctx.qp
+        gx = torch.where((xs >= qn) & (xs <= qp), g, torch.zeros((),
+                         dtype=g.dtype, device=g.device))
+        dalpha = torch.where(xs <= qn, float(qn),
+                             torch.where(xs >= qp, float(qp), q - xs))
+        galpha = g.to(torch.float32) * dalpha.to(torch.float32) * ctx.gscale
+        return gx, _reduce_to_shape(galpha, ctx.alpha_shape), None, None
 
 
 def lsq_fake_quant(x: torch.Tensor, alpha: torch.Tensor, qn: int,
                    qp: int) -> torch.Tensor:
-    """``alpha * clip(round(x / alpha), qn, qp)``.
+    """``alpha * clip(round(x / alpha), qn, qp)`` with the LSQ gradient.
 
     The value path runs in ``x.dtype``: alpha is cast to it first, so a
     bf16 model stays bf16 and the rounding boundary is computed against
-    the cast alpha, as in the reference.
+    the cast alpha, as in the reference; alpha's gradient accumulates in
+    float32.
     """
-    a = alpha.to(x.dtype)
-    q = torch.clamp(torch.round(x / a), qn, qp)
-    return q * a
+    return _LSQ.apply(x, alpha, qn, qp)
 
 
 def ternary_weight_quant(w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
@@ -36,6 +85,11 @@ def thermometer_act_quant(x: torch.Tensor, alpha: torch.Tensor,
     """L-bit-BSL activation fake-quant: levels [-L/2, L/2]."""
     half = bsl // 2
     return lsq_fake_quant(x, alpha, -half, half)
+
+
+def init_alpha(x: torch.Tensor, qp: int) -> torch.Tensor:
+    """LSQ init: ``2 * mean|x| / sqrt(qp)``."""
+    return 2.0 * torch.mean(torch.abs(x)) / float(max(qp, 1)) ** 0.5
 
 
 def ternary_weight_init_alpha(w: torch.Tensor) -> torch.Tensor:

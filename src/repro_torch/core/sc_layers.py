@@ -14,6 +14,7 @@ bridge every projection uses when serving ``sc_int``
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Callable
@@ -60,6 +61,9 @@ class SCQuantConfig:
     @property
     def resid_half(self) -> int:
         return self.resid_bsl // 2
+
+    def with_mode(self, mode: str) -> "SCQuantConfig":
+        return dataclasses.replace(self, mode=mode)
 
 
 SC_OFF = SCQuantConfig(mode="none")

@@ -41,7 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 KERNELS = ("approx_bsn", "approx_bsn_temporal", "paged_attn_decode",
-           "paged_attn_prefill", "ternary_matmul", "bsn_sort")
+           "paged_attn_prefill", "ternary_matmul", "bsn_sort",
+           "flash_attention")
 # launches of each kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -62,6 +63,9 @@ _SIGNATURES = {
     "ternary_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
     # in, out, rows, L, dtype code, descending, stream
     "bsn_sort_launch": [_P, _P, _I, _I, _I, _I, _P],
+    # q, k, v, out, lse, B, S, Hq, Hkv, D, scale, causal, dtype, stream
+    "flash_attention_launch": [_P] * 5 + [_I] * 5
+                              + [ctypes.c_float, _I, _I, _P],
 }
 
 

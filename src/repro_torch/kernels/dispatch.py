@@ -9,6 +9,7 @@ would send a CUDA tensor to the plain version.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -17,9 +18,13 @@ from ..core.bsn import ApproxBSNSpec, spec_stages
 from . import ref
 from .approx_bsn import (approx_bsn_cuda, approx_bsn_plain,
                          approx_bsn_temporal_cuda, approx_bsn_temporal_plain)
+from .flash_attention import FlashAttention, flash_attention_cuda
 from .paged_attention import paged_attn_decode_cuda, paged_attn_prefill_cuda
 
-__all__ = ["approx_bsn", "paged_attn_decode", "paged_attn_prefill"]
+__all__ = ["approx_bsn", "paged_attn_decode", "paged_attn_prefill",
+           "flash_attention"]
+
+_flash_plain = functools.partial(ref.flash_attention_ref, return_lse=True)
 
 
 def approx_bsn(counts: torch.Tensor, spec: ApproxBSNSpec, *,
@@ -77,3 +82,15 @@ def paged_attn_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     return ref.paged_attn_prefill_ref(q, k_pages, v_pages, page_tables,
                                       start, kv_format=kv_format,
                                       kv_aux=aux)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True,
+                    scale: float | None = None) -> torch.Tensor:
+    """Differentiable flash attention, q (B, S, Hq, D) and k / v
+    (B, S, Hkv, D) -> (B, S, Hq, D); q is multiplied by ``scale`` (default
+    ``1/sqrt(D)``) in float32.  The forward is the flash kernel on CUDA
+    tensors and the plain version on CPU ones; the gradient is
+    ``kernels/flash_attention.flash_attention_backward`` on both."""
+    run = flash_attention_cuda if q.is_cuda else _flash_plain
+    return FlashAttention.apply(q, k, v, causal, scale, run)

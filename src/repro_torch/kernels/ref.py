@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels: the correctness ground truth.
 
 Port of ``repro.kernels.ref``: the SC integer datapath (ternary matmul
-and its SI epilogue), the exact BSN's sort, and the paged attention
-(gather each slot's page window, dequantize it, mask and softmax).  These
+and its SI epilogue), the exact BSN's sort, the paged attention
+(gather each slot's page window, dequantize it, mask and softmax) and
+plain softmax attention, the flash kernel's ground truth.  These
 are what the CPU runs and what ``chip_smoke.py`` holds the CUDA kernels
 against on the card.
 """
@@ -17,7 +18,7 @@ from ..core.kv_quant import kv_dequant
 
 __all__ = ["ternary_matmul_ref", "si_epilogue_ref", "bsn_sort_ref",
            "gather_pages", "gather_pages_dequant", "paged_attn_decode_ref",
-           "paged_attn_prefill_ref"]
+           "paged_attn_prefill_ref", "flash_attention_ref"]
 
 
 def si_epilogue_ref(sum_q: torch.Tensor,
@@ -129,3 +130,36 @@ def paged_attn_prefill_ref(q: torch.Tensor, k_pages: torch.Tensor,
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("shgqt,sthd->sqhgd", w, vg)
     return o.to(q.dtype)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True, *, scale: float | None = None,
+                        return_lse: bool = False):
+    """Plain softmax attention with GQA broadcast.  q: (B, S, Hq, D); k, v:
+    (B, S, Hkv, D) -> (B, S, Hq, D) in q.dtype, and with ``return_lse``
+    also the per-row log-sum-exp (B, Hq, S) in float32.
+
+    The flash kernel's arithmetic: q is cast to float32 and multiplied by
+    ``scale`` (default ``1/sqrt(D)``) before the dot, where the
+    reference's ``flash_attention_ref`` divides the dot by ``sqrt(D)``;
+    for a power-of-two ``sqrt(D)`` (granite's D = 64) the two are equal.
+    Causal logits ``k_col > q_row`` are set to -1e30 before the softmax.
+    """
+    B, S, Hq, D = q.shape
+    Hkv = k.shape[2]
+    g = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, S, Hkv, g, D).to(torch.float32) * scale
+    logits = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    if causal:
+        mask = torch.tril(torch.ones((S, S), dtype=torch.bool,
+                                     device=q.device))
+        logits = torch.where(mask, logits, torch.tensor(-1e30,
+                                                        device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", w, v.to(torch.float32))
+    o = o.reshape(B, S, Hq, D).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(logits, dim=-1).reshape(B, Hq, S)

@@ -1,7 +1,8 @@
-"""The decoder LM on the paged serving cache (attention + dense FFN)."""
+"""The decoder LM (attention + dense FFN): training forward and loss, and
+serving on the paged cache."""
 
-from .transformer import (init_paged_cache, init_params, paged_decode_step,
-                          paged_prefill)
+from .transformer import (forward, init_paged_cache, init_params, loss_fn,
+                          paged_decode_step, paged_prefill)
 
-__all__ = ["init_params", "init_paged_cache", "paged_decode_step",
-           "paged_prefill"]
+__all__ = ["init_params", "forward", "loss_fn", "init_paged_cache",
+           "paged_decode_step", "paged_prefill"]

@@ -1,13 +1,16 @@
-"""GQA attention over the paged KV cache (serving decode + chunked prefill).
+"""GQA attention: full-sequence flash attention (training) and the paged
+KV cache (serving decode + chunked prefill).
 
-Port of the paged half of ``repro.models.attention``.  Per slot ``s``
-position ``t`` lives at physical page ``page_tables[s, t // page]``,
-offset ``t % page``; padded table lanes point at the trash page 0, where
-writes land harmlessly and reads are masked by length or causality.
+Port of ``repro.models.attention`` for attention layers.  ``attn_train``
+runs the differentiable flash attention over the whole sequence.
 
-Both layers take the engine's pool dict (``k_pages``/``v_pages``/
-``page_tables`` plus, for compressed caches, ``k_scale``/``v_scale`` and
-the sc ``k_resid``/``v_resid``; the keys are the format).  New K/V
+In the paged cache, slot ``s``'s position ``t`` lives at physical page
+``page_tables[s, t // page]``, offset ``t % page``; padded table lanes
+point at the trash page 0, where writes land harmlessly and reads are
+masked by length or causality.  Both paged layers take the engine's pool
+dict (``k_pages``/``v_pages``/``page_tables`` plus, for compressed
+caches, ``k_scale``/``v_scale`` and the sc ``k_resid``/``v_resid``; the
+keys are the format).  New K/V
 quantize on scatter: only the just-written positions are encoded.  The
 port writes the pools in place (the reference returns new arrays) and
 returns the same dict.  Attention itself goes through
@@ -17,6 +20,8 @@ versions on the CPU.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..configs.base import ModelConfig
@@ -24,7 +29,8 @@ from ..core.kv_quant import kv_format_of, kv_quant
 from ..kernels import dispatch
 from .common import apply_rope, dense_apply, dense_init
 
-__all__ = ["attn_init", "attn_decode_paged", "attn_prefill_paged"]
+__all__ = ["attn_init", "attn_train", "attn_decode_paged",
+           "attn_prefill_paged", "flash_attention"]
 
 _AUX_KEYS = ("k_scale", "v_scale", "k_resid", "v_resid")
 
@@ -43,15 +49,49 @@ def attn_init(cfg: ModelConfig, *, generator: torch.Generator,
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor):
+                 positions: torch.Tensor, batch_invariant: bool = True):
     B, S, _ = x.shape
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q = dense_apply(p["wq"], x, cfg.quant).reshape(B, S, hq, dh)
-    k = dense_apply(p["wk"], x, cfg.quant).reshape(B, S, hkv, dh)
-    v = dense_apply(p["wv"], x, cfg.quant).reshape(B, S, hkv, dh)
+    kw = dict(batch_invariant=batch_invariant)
+    q = dense_apply(p["wq"], x, cfg.quant, **kw).reshape(B, S, hq, dh)
+    k = dense_apply(p["wk"], x, cfg.quant, **kw).reshape(B, S, hkv, dh)
+    v = dense_apply(p["wv"], x, cfg.quant, **kw).reshape(B, S, hkv, dh)
     q = apply_rope(q, positions, dh, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, dh, cfg.rope_fraction, cfg.rope_theta)
     return q, k, v
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool) -> torch.Tensor:
+    """q: (B, S, Hkv, G, Dh); k, v: (B, S, Hkv, Dh) -> (B, S, Hkv, G, Dh).
+
+    The model path's op order: q is scaled by ``1/sqrt(Dh)`` in q's own
+    dtype and then attended in float32 (the reference's scan,
+    ``attention.py:100``), so the kernel runs with ``scale=1``; the
+    Pallas kernel and ``flash_attention_cuda``'s default cast first and
+    scale in float32 instead.  For a power-of-two ``sqrt(Dh)`` (granite's
+    Dh = 64) the two orders agree exactly.  The reference's scan block
+    (``chunk``) has no counterpart: the kernel tiles on its own.
+    """
+    B, S, H, G, D = q.shape
+    qs = q * (1.0 / math.sqrt(D))
+    o = dispatch.flash_attention(qs.reshape(B, S, H * G, D), k, v,
+                                 causal=causal, scale=1.0)
+    return o.reshape(B, S, H, G, D)
+
+
+def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor):
+    """Full-sequence attention for training, x (B, S, D) -> (y, (k, v));
+    the projections are plain products (``batch_invariant=False``)."""
+    B, S, _ = x.shape
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    q, k, v = _project_qkv(p, x, cfg, positions, batch_invariant=False)
+    o = flash_attention(q.reshape(B, S, hkv, hq // hkv, dh), k, v,
+                        cfg.causal)
+    y = dense_apply(p["wo"], o.reshape(B, S, hq * dh), cfg.quant,
+                    batch_invariant=False)
+    return y, (k, v)
 
 
 def _scatter_pools(pools: dict, fmt: str, k_new: torch.Tensor,

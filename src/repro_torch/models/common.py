@@ -1,9 +1,9 @@
 """Shared building blocks: SC-aware dense, RMSNorm, RoPE, activations.
 
-Port of the serving half of ``repro.models.common``.  Every projection
-routes through :func:`dense_apply`: a plain product with quantization
-off, the fake-quant QAT product under ``sc_qat``, and the integer SC
-datapath under ``sc_int`` (``sc_linear_int_from_qat``).
+Port of ``repro.models.common``.  Every projection routes through
+:func:`dense_apply`: a plain product with quantization off, the
+fake-quant QAT product under ``sc_qat`` (with the LSQ gradient), and the
+integer SC datapath under ``sc_int`` (``sc_linear_int_from_qat``).
 
 Batch invariance.  The serving engine's batched decode must give each
 request the tokens it gets alone (``sequential_generate``), so a row's
@@ -14,7 +14,10 @@ to the working dtype.  That makes the result very likely, not certain,
 to be independent of the batch: the library may still sum in another
 order for another row count, and a float64 difference flips the rounding
 of a value that sits on a rounding tie.  It costs bandwidth as well:
-every call writes and re-reads a float64 copy of the weight.
+every call writes and re-reads a float64 copy of the weight.  Training
+has no such contract, so the train forward passes
+``batch_invariant=False`` and its products are the reference's plain
+``x @ w`` in the working dtype (a bf16 ``torch.matmul`` on the card).
 """
 
 from __future__ import annotations
@@ -62,15 +65,19 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(x.dtype)
 
 
-def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig) -> torch.Tensor:
-    """The SC integration point (see the module docstring)."""
+def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
+                batch_invariant: bool = True) -> torch.Tensor:
+    """The SC integration point (see the module docstring).  Float
+    products go through :func:`matmul_rows` when ``batch_invariant`` (the
+    serving engine), else through a plain ``x @ w`` (training)."""
     if quant.enabled and quant.mode == "sc_int":
         return sc_linear_int_from_qat(p, x, quant)
+    product = matmul_rows if batch_invariant else torch.matmul
     if not quant.enabled or quant.mode != "sc_qat":
-        return matmul_rows(x, p["w"])
+        return product(x, p["w"])
     x_fq = thermometer_act_quant(x, p["alpha_a"], quant.act_bsl)
     w_fq = ternary_weight_quant(p["w"], p["alpha_w"])
-    return matmul_rows(x_fq, w_fq.to(x_fq.dtype))
+    return product(x_fq, w_fq.to(x_fq.dtype))
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str,

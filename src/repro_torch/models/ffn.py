@@ -23,8 +23,10 @@ def ffn_init(cfg: ModelConfig, *, generator: torch.Generator,
             "w_down": dense_init(cfg.d_ff, cfg.d_model, cfg.quant, **kw)}
 
 
-def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def ffn_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              batch_invariant: bool = True) -> torch.Tensor:
     act = ACT_FNS[cfg.ffn_act]
-    h = act(dense_apply(p["w_gate"], x, cfg.quant)) \
-        * dense_apply(p["w_up"], x, cfg.quant)
-    return dense_apply(p["w_down"], h, cfg.quant)
+    kw = dict(batch_invariant=batch_invariant)
+    h = act(dense_apply(p["w_gate"], x, cfg.quant, **kw)) \
+        * dense_apply(p["w_up"], x, cfg.quant, **kw)
+    return dense_apply(p["w_down"], h, cfg.quant, **kw)

@@ -1,7 +1,9 @@
-"""Decoder LM over the paged serving cache (attention + dense FFN layers).
+"""Decoder LM (attention + dense FFN layers): training forward and loss,
+and serving over the paged cache.
 
-Port of the serving half of ``repro.models.transformer``: parameter init
-in the reference's shapes, the paged cache, one batched decode step and
+Port of ``repro.models.transformer``: parameter init in the reference's
+shapes, the training forward with per-period recomputation and the loss
+(chunked cross-entropy too), the paged cache, one batched decode step and
 the chunked paged prefill.  The reference stacks layers over a leading
 ``n_periods`` axis and scans them; the port keeps one parameter dict and
 one pool dict per layer and loops over them in Python.
@@ -16,6 +18,7 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..core.kv_quant import check_kv_format
@@ -24,8 +27,8 @@ from ..device import resolve_device
 from . import attention, ffn
 from .common import dense_apply, dense_init, norm_apply
 
-__all__ = ["init_params", "init_paged_cache", "paged_decode_step",
-           "paged_prefill"]
+__all__ = ["init_params", "forward", "loss_fn", "init_paged_cache",
+           "paged_decode_step", "paged_prefill"]
 
 
 def _check_ported(cfg: ModelConfig) -> None:
@@ -102,14 +105,15 @@ def _residual_add(x, dx, lp, name, cfg: ModelConfig):
     return y
 
 
-def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig, mixer):
+def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig, mixer,
+                 batch_invariant: bool = True):
     """norm -> attention (``mixer(h)``) -> residual -> norm -> FFN ->
     residual."""
     h = norm_apply(lp["norm1"], x, cfg.norm)
     x = _residual_add(x, mixer(h), lp, "alpha_r1", cfg)
     h2 = norm_apply(lp["norm2"], x, cfg.norm)
-    return _residual_add(x, ffn.ffn_apply(lp["ffn"], h2, cfg), lp,
-                         "alpha_r2", cfg)
+    dx = ffn.ffn_apply(lp["ffn"], h2, cfg, batch_invariant=batch_invariant)
+    return _residual_add(x, dx, lp, "alpha_r2", cfg)
 
 
 def _vocab_bias(cfg: ModelConfig, dtype: torch.dtype,
@@ -117,6 +121,103 @@ def _vocab_bias(cfg: ModelConfig, dtype: torch.dtype,
     """-1e9 on the padded vocab slots."""
     iota = torch.arange(cfg.padded_vocab, device=device)
     return torch.where(iota < cfg.vocab_size, 0.0, -1e9).to(dtype)
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
+            return_hidden: bool = False):
+    """Full-sequence training forward over ``batch["tokens"]`` (B, S).
+
+    Returns (logits (B, S, V), aux), or with ``return_hidden`` the final
+    normed hidden state (B, S, D) in place of the logits; ``aux`` is the
+    MoE balance loss, 0 for the dense layers ported so far.  With
+    ``cfg.remat == "full"`` each period of layers runs under
+    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
+    period body: only the period's input is kept and the backward runs
+    the period's forward again.  Products are plain (no batch-invariance
+    casts); attention is the flash kernel on the card.
+    """
+    if mode != "train":
+        raise NotImplementedError(f"forward mode {mode!r} is not ported "
+                                  f"yet (train only)")
+    _check_ported(cfg)
+    table = params["embed"]["table"]
+    tokens = batch["tokens"].to(device=table.device, dtype=torch.long)
+    B, S = tokens.shape
+    x = table[tokens]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+
+    def period(layers, x):
+        for lp in layers:
+            x = _apply_layer(
+                lp, x, cfg, lambda h, lp=lp: attention.attn_train(
+                    lp["mixer"], h, cfg, positions)[0],
+                batch_invariant=False)
+        return x
+
+    n = len(cfg.period)
+    for i in range(0, cfg.n_layers, n):
+        layers = params["layers"][i:i + n]
+        if cfg.remat == "full":
+            x = checkpoint(period, layers, x, use_reentrant=False)
+        else:
+            x = period(layers, x)
+    x = norm_apply(params["final_norm"], x, cfg.norm)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_hidden:
+        return x, aux
+    logits = dense_apply(params["lm_head"], x, cfg.quant,
+                         batch_invariant=False)
+    return logits + _vocab_bias(cfg, logits.dtype, logits.device), aux
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    lf = logits.to(torch.float32)
+    lse = torch.logsumexp(lf, dim=-1)
+    tl = torch.gather(lf, -1, targets.long()[..., None])[..., 0]
+    return lse - tl
+
+
+def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
+    """Mean next-token cross-entropy over ``batch`` (``tokens``,
+    ``targets`` and an optional ``loss_mask``, all (B, S)) plus
+    ``1e-2 * aux``.  Returns (loss, {"loss", "ce", "aux"}).
+
+    ``cfg.ce_chunks > 1`` splits the sequence into that many chunks (or
+    the largest count below it that divides S), each projected to the
+    vocabulary and reduced under ``torch.utils.checkpoint``, so only one
+    chunk's logits are alive at a time, in the forward and the backward.
+    """
+    dev = params["embed"]["table"].device
+    targets = batch["targets"].to(dev)
+    mask = batch.get("loss_mask")
+    if cfg.ce_chunks > 1:
+        hidden, aux = forward(params, batch, cfg, return_hidden=True)
+        S = hidden.shape[1]
+        nc = cfg.ce_chunks
+        while S % nc:
+            nc -= 1
+        c = S // nc
+        bias = _vocab_bias(cfg, torch.float32, dev)
+
+        def chunk_nll(xc, tc):
+            lc = dense_apply(params["lm_head"], xc, cfg.quant,
+                             batch_invariant=False)
+            return _nll(lc.to(torch.float32) + bias, tc)
+
+        nll = torch.cat([checkpoint(chunk_nll, hidden[:, i:i + c],
+                                    targets[:, i:i + c], use_reentrant=False)
+                         for i in range(0, S, c)], dim=1)
+    else:
+        logits, aux = forward(params, batch, cfg)
+        nll = _nll(logits, targets)
+    if mask is not None:
+        mask = mask.to(dev)
+        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    else:
+        ce = nll.mean()
+    loss = ce + 1e-2 * aux
+    return loss, {"loss": loss, "ce": ce, "aux": aux}
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

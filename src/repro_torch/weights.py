@@ -1,4 +1,4 @@
-"""Carry the reference's parameters over to the port.
+"""Carry the reference's parameters (and training state) over to the port.
 
 ``repro.models.init_params`` returns a pytree whose layer leaves are
 stacked over a leading ``n_periods`` axis.  :func:`from_jax` takes that
@@ -7,7 +7,10 @@ itself never imports JAX) and returns the port's layout: one dict per
 layer, in order, with every leaf a torch tensor on ``device``.  The LSQ
 scales (``alpha_w``, ``alpha_a``) and the residual scales
 (``alpha_r1``/``alpha_r2``, which the ``qat`` datapath's residual
-re-quantization reads) come along with the weights.
+re-quantization reads) come along with the weights.  Given the
+reference's ``TrainState`` instead (as numpy, the same way), it returns
+the port's :class:`~repro_torch.train.step.TrainState`: the parameters,
+AdamW's ``m`` / ``v`` in the same layout, ``count`` and ``step``.
 
 :func:`tree_to_torch` carries any other numpy tree: an SC linear's QAT
 dict (``w``, ``alpha_w``, ``alpha_a``), the paper's TNN (``w_in``,
@@ -22,6 +25,7 @@ import torch
 
 from .configs.base import ModelConfig
 from .device import resolve_device
+from .tree import tree_map
 
 __all__ = ["from_jax", "to_torch", "tree_to_torch"]
 
@@ -35,14 +39,6 @@ def to_torch(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
-def _tree(obj, fn):
-    if isinstance(obj, dict):
-        return {k: _tree(v, fn) for k, v in obj.items()}
-    if isinstance(obj, (list, tuple)):
-        return [_tree(v, fn) for v in obj]
-    return fn(obj)
-
-
 def tree_to_torch(tree, device: str | torch.device | None = None):
     """A tree of dicts and lists whose leaves are numpy arrays (or numpy
     scalars) -> the same tree of torch tensors on ``device``; Python
@@ -54,21 +50,39 @@ def tree_to_torch(tree, device: str | torch.device | None = None):
         if isinstance(a, (np.ndarray, np.generic)):
             return to_torch(a, dev)
         return a
-    return _tree(tree, leaf)
+    return tree_map(leaf, tree)
 
 
-def from_jax(params_np: dict, cfg: ModelConfig,
-             device: str | torch.device | None = None) -> dict:
-    """The reference's parameter tree (as numpy) -> the port's."""
-    dev = resolve_device(device)
+def _params(params_np: dict, cfg: ModelConfig, dev: torch.device) -> dict:
     layers = []
     for i in range(cfg.n_periods):
         for j in range(len(cfg.period)):
-            layers.append(_tree(params_np["periods"][f"p{j}"],
-                                lambda a: to_torch(np.asarray(a)[i], dev)))
+            layers.append(tree_map(lambda a: to_torch(np.asarray(a)[i], dev),
+                                   params_np["periods"][f"p{j}"]))
+
     def conv(a):
         return to_torch(a, dev)
-    return {"embed": _tree(params_np["embed"], conv),
+    return {"embed": tree_map(conv, params_np["embed"]),
             "layers": layers,
-            "final_norm": _tree(params_np["final_norm"], conv),
-            "lm_head": _tree(params_np["lm_head"], conv)}
+            "final_norm": tree_map(conv, params_np["final_norm"]),
+            "lm_head": tree_map(conv, params_np["lm_head"])}
+
+
+def from_jax(tree_np, cfg: ModelConfig,
+             device: str | torch.device | None = None):
+    """The reference's parameter tree, or its ``TrainState``, as numpy ->
+    the port's."""
+    dev = resolve_device(device)
+    if not hasattr(tree_np, "opt"):
+        return _params(tree_np, cfg, dev)
+    from .train.step import TrainState
+    if getattr(tree_np, "error", None) is not None:
+        raise NotImplementedError("gradient compression's error state is "
+                                  "not ported yet (ROADMAP Queue 1 item 11)")
+    opt = tree_np.opt
+    return TrainState(
+        params=_params(tree_np.params, cfg, dev),
+        opt={"m": _params(opt["m"], cfg, dev),
+             "v": _params(opt["v"], cfg, dev),
+             "count": to_torch(opt["count"], dev)},
+        step=to_torch(tree_np.step, dev))

@@ -18,6 +18,7 @@ from repro_torch.serving import (EngineConfig, PageAllocator, PageTable,
                                  ServeEngine, pad_pow2, pages_needed,
                                  sequential_generate)
 from repro_torch.serving.paging import TRASH_PAGE
+from repro_torch.launch.train import main as train_main
 from repro_torch.weights import from_jax
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
@@ -48,7 +49,10 @@ def test_importing_the_port_leaves_jax_unloaded():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.weights, repro_torch.kernels.dispatch, "
             "repro_torch.kernels.build, repro_torch.kernels.ops, "
-            "repro_torch.core.si, repro_torch.core.multiplier; "
+            "repro_torch.core.si, repro_torch.core.multiplier, "
+            "repro_torch.optim, repro_torch.train, repro_torch.data, "
+            "repro_torch.checkpoint, repro_torch.launch.train, "
+            "repro_torch.kernels.flash_attention; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'repro' not in sys.modules, 'repro'")
     env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}
@@ -77,6 +81,8 @@ def test_entry_points_refuse_the_host_unless_asked(monkeypatch):
         sequential_generate(params, TINY, [[1, 2]], max_new_tokens=1)
     eng = ServeEngine(params, TINY, max_len=16, page_size=4, device="cpu")
     assert eng.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_main(["--arch", "granite-3-2b", "--steps", "1"])
 
 
 def test_engine_rejects_params_on_another_device():

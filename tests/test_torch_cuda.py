@@ -7,7 +7,9 @@ file imports torch only (no JAX), so it runs where the card is:
 float32 inputs at small shapes; attention within ``atol=rtol=1e-5``
 (fp32 online softmax against the gathered softmax: the sums run in a
 different order); the BSN adders, the ternary matmul (with and without
-its SI epilogue) and the sort bit for bit.
+its SI epilogue) and the sort bit for bit.  The flash kernel in bfloat16
+within ``atol=1e-2`` on O (one bf16 ulp at |o| <= 2 is 7.8e-3) and
+``atol=rtol=1e-5`` on its float32 LSE.
 """
 
 import pytest
@@ -21,9 +23,12 @@ from repro_torch.kernels.approx_bsn import (approx_bsn_cuda, approx_bsn_plain,
                                             approx_bsn_temporal_cuda,
                                             approx_bsn_temporal_plain)
 from repro_torch.kernels.bsn_sort import bsn_sort_cuda, bsn_sort_plain
+from repro_torch.kernels.flash_attention import (flash_attention_backward,
+                                                 flash_attention_cuda)
 from repro_torch.kernels.paged_attention import (paged_attn_decode_cuda,
                                                  paged_attn_prefill_cuda)
-from repro_torch.kernels.ref import (paged_attn_decode_ref,
+from repro_torch.kernels.ref import (flash_attention_ref,
+                                     paged_attn_decode_ref,
                                      paged_attn_prefill_ref,
                                      ternary_matmul_ref)
 from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
@@ -111,6 +116,8 @@ def test_dispatch_launches_the_kernels_on_cuda_tensors(cuda):
     ops.ternary_matmul(torch.zeros((3, 8), dtype=torch.int8, device=cuda),
                        torch.zeros((8, 4), dtype=torch.int8, device=cuda))
     ops.bsn_sort(torch.zeros((3, 8), dtype=torch.int8, device=cuda))
+    qkv = torch.zeros((1, 8, 2, 16), device=cuda)
+    dispatch.flash_attention(qkv, qkv, qkv)
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 1)
 
 
@@ -273,3 +280,135 @@ def test_sc_kernels_refuse_what_they_do_not_take(cuda):
                                              device=cuda),
                                  in_bsl=8, stages=((16, 0, 1),), cycles=3)
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+# ---------------------------------------------------------------------------
+# flash attention: the training path's forward
+# ---------------------------------------------------------------------------
+
+def _flash_case(dev, B, S, Hq, Hkv, D, dtype, seed=0):
+    gen = torch.Generator(dev).manual_seed(seed)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device=dev)
+               .to(dtype) for h in (Hq, Hkv, Hkv))
+    return q, k, v
+
+
+@pytest.mark.parametrize("B,S,Hq,Hkv,D", [
+    (1, 64, 4, 2, 16),      # one q tile, GQA 2
+    (2, 100, 8, 2, 64),     # ragged S: a part tile of q rows and keys
+    (1, 1, 2, 1, 32),       # a single row
+    (2, 257, 6, 3, 64),     # GQA 2, 5 tiles, 1 row past the last
+    (1, 130, 4, 4, 128),    # no grouping, the widest head
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal, dtype):
+    q, k, v = _flash_case(cuda, B, S, Hq, Hkv, D, dtype)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
+    tol = TOL if dtype == torch.float32 else dict(rtol=0, atol=1e-2)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+def test_flash_kernel_takes_a_caller_scale(cuda):
+    q, k, v = _flash_case(cuda, 2, 96, 4, 2, 64, torch.float32)
+    out, _ = flash_attention_cuda(q * 0.125, k, v, scale=1.0)
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v), **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_backward_matches_autograd_through_plain(cuda, causal, dtype):
+    """dispatch.flash_attention's gradient (the kernel's LSE, the blocked
+    backward) against autograd through the plain version; float32 within
+    1e-4, bf16 gradients within 2e-2 (rounded to bf16 on both sides)."""
+    q, k, v = _flash_case(cuda, 2, 200, 8, 2, 64, dtype, seed=1)
+    g = torch.randn(q.shape, device=cuda).to(dtype)
+    got = torch.autograd.grad(
+        dispatch.flash_attention(*(t.requires_grad_() for t in (q, k, v)),
+                                 causal=causal), (q, k, v), g)
+    want = torch.autograd.grad(flash_attention_ref(q, k, v, causal),
+                               (q, k, v), g)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 \
+        else dict(rtol=2e-2, atol=2e-2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), **tol)
+
+
+def test_flash_backward_blocks_rows(cuda, monkeypatch):
+    """Blocks of query rows give the gradient of one block."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _flash_case(cuda, 1, 96, 4, 2, 32, torch.float32, seed=2)
+    _, lse = flash_attention_cuda(q, k, v)
+    g = torch.randn(q.shape, device=cuda)
+    whole = flash_attention_backward(q, k, v, lse, g, causal=True)
+    monkeypatch.setattr(fa, "_BWD_BLOCK_ELEMS", 4 * 96 * 7)
+    blocked = flash_attention_backward(q, k, v, lse, g, causal=True)
+    for a, b in zip(blocked, whole):
+        torch.testing.assert_close(a, b, **TOL)
+
+
+def test_flash_counts_one_launch_per_forward(cuda):
+    q, k, v = (t.requires_grad_() for t in _flash_case(
+        cuda, 1, 64, 4, 2, 64, torch.float32))
+    build.reset_launches()
+    out = dispatch.flash_attention(q, k, v)
+    out.sum().backward()
+    assert build.LAUNCHES["flash_attention"] == 1
+    assert sum(build.LAUNCHES.values()) == 1
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    build.reset_launches()
+    q, k, v = _flash_case(cuda, 1, 64, 4, 2, 64, torch.float32)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_cuda(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="k must be"):
+        flash_attention_cuda(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_cuda(q, k, v.transpose(1, 2).contiguous()
+                             .transpose(1, 2))
+    with pytest.raises(ValueError, match="multiple of Hkv"):
+        flash_attention_cuda(q[:, :, :3].contiguous(), k, v)
+    with pytest.raises(ValueError, match="is on cpu"):
+        flash_attention_cuda(q, k.cpu(), v)
+    with pytest.raises(RuntimeError, match="head dim 24"):
+        flash_attention_cuda(q[..., :24].contiguous(),
+                             k[..., :24].contiguous(),
+                             v[..., :24].contiguous())
+    assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+def test_train_step_on_the_card_equals_the_cpu(cuda):
+    """One float32 train step without quantization (flash kernel, CUDA
+    products) against the same step on the CPU: loss and grad norm within
+    1e-5 relative, params within 2e-5 (one AdamW step of lr 5e-4), m / v
+    within 5e-5 / 1e-4 of each leaf's largest entry; the kernel ran once
+    per layer in the forward and once in the recompute."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_arch("granite-3-2b").scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=64, vocab_pad_multiple=32, dtype="float32")
+    cfg = cfg.scaled(quant=cfg.quant.with_mode("none"))
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    batch = SyntheticLM(vocab_size=64, seq_len=100, seed=0).batch(0, 4)
+    step = build_train_step(cfg, lambda s: warmup_cosine(s + 1, 1e-3, 2,
+                                                         10))
+    sc, mc = step(init_train_state(cpu, cfg), batch)
+    build.reset_launches()
+    sg, mg = step(init_train_state(gpu, cfg), batch)
+    assert build.LAUNCHES["flash_attention"] == 2 * cfg.n_layers
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=0)
+    for a, b in zip(tree_leaves(sg.params), tree_leaves(sc.params)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2e-5)
+    for name, tol in (("m", 5e-5), ("v", 1e-4)):
+        for a, b in zip(tree_leaves(sg.opt[name]), tree_leaves(sc.opt[name])):
+            assert (a.cpu() - b).abs().max() <= tol * b.abs().max()

@@ -22,6 +22,7 @@ from repro_torch.kernels import build, dispatch
 from repro_torch.kernels.approx_bsn import (approx_bsn_cuda,
                                             approx_bsn_temporal_cuda)
 from repro_torch.kernels.bsn_sort import bsn_sort_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.paged_attention import (paged_attn_decode_cuda,
                                                  paged_attn_prefill_cuda)
 from repro_torch.kernels.ref import (paged_attn_decode_ref,
@@ -202,6 +203,9 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         ternary_matmul_cuda(x_q, torch.zeros((8, 4), dtype=torch.int8))
     with pytest.raises(ValueError, match="CUDA"):
         bsn_sort_cuda(x_q)
+    qkv = torch.zeros((1, 8, 2, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(qkv, qkv, qkv)
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
 
 
@@ -209,6 +213,7 @@ def test_build_flags_target_sm90a_with_a_plain_c_interface():
     assert "arch=compute_90a,code=sm_90a" in build.NVCC_FLAGS
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
     assert srcs == ["approx_bsn.cu", "bsn_sort.cu", "errors.cu",
-                    "paged_attention.cu", "ternary_matmul.cu"]
+                    "flash_attention.cu", "paged_attention.cu",
+                    "ternary_matmul.cu"]
     for p in build.CSRC.glob("*.cu*"):
         assert "torch/extension.h" not in p.read_text()
