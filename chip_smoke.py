@@ -5,7 +5,9 @@ Drives ``src/repro_torch`` (never ``jax`` or the ``repro`` package) on one
 CUDA card, in phases; any failure ends the run with a non-zero exit:
 
 1. the card: torch's device name and ``nvidia-smi``'s name / power limit;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc``;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and read
+   their machine code (``cuobjdump -sass``): the bf16 flash kernel must
+   use the tensor cores (HMMA) and, at D 64, no local memory;
 3. hold each kernel against its plain PyTorch version at the shapes its
    path gives it (the BSN adders, the ternary matmul with and without
    its SI epilogue, and the sort bit-exact; attention within a stated
@@ -30,13 +32,17 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    of ``SyntheticLM`` through ``build_train_step``: every attention
    forward and its recompute runs the flash kernel (40 x 2 x 3 launches),
    losses and gradient norms are finite, step 1 (learning rate 0) changes
-   no parameter and step 2 changes them; one more step is profiled; and
+   no parameter and step 2 changes them; one more step is profiled, and
+   all its 80 flash forwards must be the tensor-core kernel; and
    a tiny float32 config's train step on the card equals the same step on
    the CPU within a stated tolerance.
 
 Phase 3 also holds the flash kernel against its plain version at phase
-6's shape (O and the log-sum-exp), at a ragged bidirectional GQA shape,
-and its gradient against autograd through the plain version.
+6's shape (O and the log-sum-exp), at a ragged bidirectional GQA shape
+(both bf16: the tensor-core kernel), in float32 (the CUDA-core kernel),
+and its gradient against autograd through the plain version; and it
+measures what rounding P to one bf16 term, or to the kernel's two,
+does to O.
 
 Run from the repository root::
 
@@ -51,8 +57,9 @@ float64) against a bf16 ``torch.matmul`` on the same operands.
 
 The last stdout line is ``{"ok": true, "device": {...}}``; the line before
 it holds the per-kernel JSON summary.  Details go to
-``chiprun_out/chip_smoke.json`` and the kernels' ``ptxas`` report to
-``chiprun_out/ptxas.log``.
+``chiprun_out/chip_smoke.json``, the kernels' ``ptxas`` report to
+``chiprun_out/ptxas.log`` and the flash and sort kernels' machine code to
+``chiprun_out/sass.txt``.
 """
 
 from __future__ import annotations
@@ -110,6 +117,49 @@ def time_ms(fn, iters=20, warmup=3):
 def bound(nbytes, ops, ops_rate):
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / ops_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def read_sass(so_path):
+    """The flash and sort kernels' machine code in the built library
+    (``cuobjdump -sass``): per kernel instance its tensor-core (HMMA /
+    HGMMA) and local-memory (LDL / STL) instructions.  Each bf16 flash
+    instance must use the tensor cores, and at D 64 spill nothing."""
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).is_file():
+        log("sass: cuobjdump not found, machine code not read")
+        return None
+    sass = subprocess.run([tool, "-sass", str(so_path)], capture_output=True,
+                          text=True, check=True).stdout
+    kept, found = [], []
+    for block in sass.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        kernel = next((k for k in ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+                                   "bsn_sort_reg_kernel") if k in name), None)
+        if kernel is None:
+            continue
+        if kernel != "flash_fwd_kernel":
+            kept.append("Function : " + block)
+        tmpl = re.search(r"kernelI(.*?)E+v", name)
+        found.append(dict(kernel=kernel, template=tmpl.group(1) if tmpl
+                          else "", hmma=len(re.findall(r"\bH(?:G)?MMA\b",
+                                                       block)),
+                          ldl=len(re.findall(r"\bLDL\b", block)),
+                          stl=len(re.findall(r"\bSTL\b", block))))
+    (OUT_DIR / "sass.txt").write_text("".join(kept))
+    for f in found:
+        log(f"sass {f['kernel']}<{f['template']}>: {f['hmma']} HMMA, "
+            f"{f['ldl']} LDL, {f['stl']} STL")
+    mma = [f for f in found if f["kernel"] == "flash_fwd_mma_kernel"]
+    if len(mma) != 4 or not all(f["hmma"] > 0 for f in mma):
+        raise AssertionError(f"flash_fwd_mma_kernel: tensor-core "
+                             f"instructions missing: {mma}")
+    d64 = [f for f in mma if f["template"] == "Li64"]
+    if not d64 or d64[0]["ldl"] + d64[0]["stl"]:
+        raise AssertionError(f"flash_fwd_mma_kernel at D 64 uses local "
+                             f"memory: {d64}")
+    return found
 
 
 # ---------------------------------------------------------------------------
@@ -509,6 +559,7 @@ def check_prefill(torch, dev, gen):
 
 FLASH_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=8, D=64)   # phase 6's attention
 LSE_ATOL = 1e-4         # float32 log-sum-exp, sums in another order
+FLASH_F32_TOL = 1e-5    # the float32 kernel: O and LSE, float32 sums
 GRAD_TOL = 1e-4         # float32 gradients against autograd
 
 
@@ -517,12 +568,43 @@ def _flash_inputs(torch, gen, dev, B, S, Hq, Hkv, D, dtype):
                  .to(dtype) for h in (Hq, Hkv, Hkv))
 
 
-def flash_bound(B, S, Hq, Hkv, D, causal):
-    """bf16 q, k, v, o read / written once plus the float32 LSE; 4 D
-    operations per (query, key) pair the mask keeps (q.k and p.v)."""
+def flash_bound(B, S, Hq, Hkv, D, causal, itemsize=2):
+    """q, k, v, o read / written once plus the float32 LSE; 4 D operations
+    per (query, key) pair the mask keeps (q.k and p.v), at the bf16
+    tensor-core peak (``itemsize`` 2) or the float32 CUDA-core peak (4)."""
     pairs = S * (S + 1) // 2 if causal else S * S
-    nbytes = 2 * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S
-    return bound(nbytes, 4 * B * Hq * pairs * D, BF16_OPS)
+    nbytes = itemsize * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S
+    return bound(nbytes, 4 * B * Hq * pairs * D,
+                 BF16_OPS if itemsize == 2 else FP32_OPS)
+
+
+def p_rounding_error(torch, q, k, v, rows=512):
+    """What rounding P does to O, on the first ``rows`` causal query rows
+    (those that see few keys, where one weight moves O most): P as one
+    bf16 term, and as the kernel's bf16 hi + lo terms, each against
+    float32 P; outputs cast to bf16 as the kernel's are.  Returns
+    {name: (max |dO|, outputs off by more than ATTN_ATOL)}."""
+    B, _, Hq, D = q.shape
+    Hkv = k.shape[2]
+    qf = q[:, :rows].float().reshape(B, rows, Hkv, Hq // Hkv, D) / math.sqrt(D)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qf, k[:, :rows].float())
+    keep = torch.tril(torch.ones((rows, rows), dtype=torch.bool,
+                                 device=q.device))
+    p = torch.exp(s.masked_fill(~keep, float("-inf"))
+                  - s.masked_fill(~keep, float("-inf")).amax(-1, True))
+    l = p.sum(-1, keepdim=True)
+
+    def out(pp):
+        return (torch.einsum("bhgqk,bkhd->bhgqd", pp, v[:, :rows].float())
+                / l).to(torch.bfloat16).float()
+    exact = out(p)
+    hi = p.to(torch.bfloat16).float()
+    lo = (p - hi).to(torch.bfloat16).float()
+    res = {}
+    for name, pp in (("one_bf16_term", hi), ("bf16_hi_lo", hi + lo)):
+        err = (out(pp) - exact).abs()
+        res[name] = (err.max().item(), int((err > ATTN_ATOL).sum().item()))
+    return res
 
 
 def check_flash(torch, dev, gen):
@@ -531,19 +613,23 @@ def check_flash(torch, dev, gen):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
     cases = []
-    for label, shp, causal in (
-            ("train B2 S4096 causal", FLASH_SHAPE, True),
+    # bf16 runs the tensor-core kernel, float32 the CUDA-core one
+    for label, shp, causal, dtype in (
+            ("train B2 S4096 causal", FLASH_SHAPE, True, torch.bfloat16),
             ("ragged S1000 bidirectional GQA",
-             dict(B=1, S=1000, Hq=8, Hkv=2, D=64), False)):
-        q, k, v = _flash_inputs(torch, gen, dev, **shp,
-                                dtype=torch.bfloat16)
+             dict(B=1, S=1000, Hq=8, Hkv=2, D=64), False, torch.bfloat16),
+            ("float32 S1024 causal GQA",
+             dict(B=1, S=1024, Hq=8, Hkv=2, D=64), True, torch.float32)):
+        q, k, v = _flash_inputs(torch, gen, dev, **shp, dtype=dtype)
         out, lse = flash_attention_cuda(q, k, v, causal=causal)
         want, want_lse = flash_attention_ref(q, k, v, causal,
                                              return_lse=True)
         torch.cuda.synchronize()
         err = (out.float() - want.float()).abs().max().item()
         lse_err = (lse - want_lse).abs().max().item()
-        if not (err <= ATTN_ATOL and lse_err <= LSE_ATOL
+        o_tol, l_tol = ((ATTN_ATOL, LSE_ATOL) if dtype == torch.bfloat16
+                        else (FLASH_F32_TOL, FLASH_F32_TOL))
+        if not (err <= o_tol and lse_err <= l_tol
                 and torch.isfinite(out.float()).all()):
             raise AssertionError(f"flash {label}: max_abs_err {err}, lse "
                                  f"{lse_err}")
@@ -555,14 +641,20 @@ def check_flash(torch, dev, gen):
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
             qh, kh, vh, is_causal=causal, enable_gqa=True), iters=10)
-        b_ms, b_by = flash_bound(**shp, causal=causal)
+        b_ms, b_by = flash_bound(**shp, causal=causal,
+                                 itemsize=q.element_size())
         cases.append(dict(label=label, **shp, causal=causal,
-                          dtype="bfloat16", max_abs_err=err,
+                          dtype=str(dtype), max_abs_err=err,
                           lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
         log(f"flash_attention {label}: max_abs_err={err:.3g} lse_err="
             f"{lse_err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms(SDPA)={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
+        if shp is FLASH_SHAPE:
+            cases[-1]["p_rounding"] = pr = p_rounding_error(torch, q, k, v)
+            log("flash P operand, first 512 rows: " + "; ".join(
+                f"{n} max |dO| {e:.3g}, {c} outputs over {ATTN_ATOL}"
+                for n, (e, c) in pr.items()))
     # the gradient: the kernel's LSE and the blocked backward against
     # autograd through the plain version, float32
     q, k, v = _flash_inputs(torch, gen, dev, B=2, S=512, Hq=8, Hkv=2, D=64,
@@ -634,7 +726,7 @@ def profile_decode_step(torch, eng, label, step_ms):
     ours_ms = sum(_dev_us(e) for e in events if e.device_type == cuda and any(
         k in e.key for k in ("decode_kernel", "prefill_kernel",
                              "approx_bsn_kernel", "ternary_matmul_kernel",
-                             "bsn_sort_kernel"))) / 1e3
+                             "bsn_sort_reg_kernel"))) / 1e3
     idle = 1 - busy_ms / wall_ms
     idle_unprofiled = 1 - busy_ms / step_ms
     log(f"profile {label}: step wall_ms={wall_ms:.1f} device_busy_ms="
@@ -1003,9 +1095,13 @@ def _watch(params):
             "lm_head/w": params["lm_head"]["w"]}
 
 
-def profile_train_step(torch, step_fn, state, batch):
-    """One train step under torch.profiler: device busy time and the
-    device's idle share of the step's wall time."""
+MMA_KERNEL = "flash_fwd_mma_kernel"     # the bf16 tensor-core forward
+
+
+def profile_train_step(torch, step_fn, state, batch, n_flash):
+    """One train step under torch.profiler: device busy time, the device's
+    idle share of the step's wall time, and the flash forward's time over
+    its ``n_flash`` launches, all of them the tensor-core kernel."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1017,20 +1113,28 @@ def profile_train_step(torch, step_fn, state, batch):
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     busy_ms = sum(_dev_us(e) for e in events if e.device_type == cuda) / 1e3
-    flash_ms = sum(_dev_us(e) for e in events if e.device_type == cuda
-                   and "flash_fwd_kernel" in e.key) / 1e3
+    # every flash forward of a bf16 step is the tensor-core kernel
+    flash = [e for e in events if e.device_type == cuda
+             and "flash_fwd" in e.key]
+    flash_ms = sum(_dev_us(e) for e in flash) / 1e3
+    flash_calls = {e.key: e.count for e in flash}
     rows = sorted(((_dev_us(e), e.key, e.count) for e in events
                    if e.device_type != cuda and _dev_us(e) > 0),
                   reverse=True)
     (OUT_DIR / "profile_train.txt").write_text(events.table(
         sort_by="self_cuda_time_total", row_limit=40))
+    if (sum(flash_calls.values()) != n_flash
+            or not all(MMA_KERNEL in k for k in flash_calls)):
+        raise AssertionError(f"profiled train step: flash kernels "
+                             f"{flash_calls}, expected {n_flash} launches "
+                             f"of {MMA_KERNEL}")
     top = [dict(name=k, ms=us / 1e3, calls=n) for us, k, n in rows[:10]]
     res = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                idle_share=1 - busy_ms / wall_ms, flash_kernel_ms=flash_ms,
-               top=top)
+               flash_kernel_calls=flash_calls, top=top)
     log(f"profile train step: wall_ms={wall_ms:.1f} device_busy_ms="
         f"{busy_ms:.1f} idle_share={res['idle_share']:.3f} flash_kernel_ms="
-        f"{flash_ms:.1f} top ops: "
+        f"{flash_ms:.1f} ({n_flash} launches of {MMA_KERNEL}) top ops: "
         + "; ".join(f"{t['name']} {t['ms']:.1f} ms x{t['calls']}"
                     for t in top[:6]))
     return res
@@ -1111,7 +1215,8 @@ def train(torch, dev, layers):
         f"tokens/s {res['tokens_per_s']:.0f} max_memory_allocated="
         f"{peak / 2**30:.2f} GiB launches={launches}")
     res["profile"] = profile_train_step(torch, step_fn, state,
-                                        batches[TRAIN_STEPS])
+                                        batches[TRAIN_STEPS],
+                                        cfg.n_layers * 2)
     res["profile"]["idle_share_unprofiled"] = \
         1 - res["profile"]["device_busy_ms"] / (sec_per_step * 1e3)
     log(f"train step idle share against the unprofiled step "
@@ -1222,6 +1327,7 @@ def main() -> int:
     log(f"build: {res.seconds:.1f} s -> {res.path.name}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ptxas.log").write_text(res.log)
+    sass = read_sass(res.path)
 
     # phase 3: each kernel against its plain version
     gen = torch.Generator(dev).manual_seed(SEED)
@@ -1279,6 +1385,7 @@ def main() -> int:
     ]}
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         {"device": name, "nvidia_smi": smi, "build_s": res.seconds,
+         "sass": sass,
          "approx_bsn": bsn, "approx_bsn_temporal": tmp,
          "paged_attn_decode": dec, "paged_attn_prefill": pre,
          "ternary_matmul": tmm, "bsn_sort": srt, "flash_attention": fla,

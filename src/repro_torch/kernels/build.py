@@ -103,10 +103,12 @@ def _nvcc() -> str:
 
 
 def build() -> BuildResult:
-    """Compile ``csrc/*.cu`` into the cached shared library (or reuse it)."""
+    """Compile ``csrc/*.cu`` into the cached shared library (or reuse it,
+    with the log its build left beside it)."""
     so = BUILD_DIR / f"repro_kernels_{_digest()}.so"
     if so.exists():
-        return BuildResult(so, 0.0, "")
+        log = so.with_suffix(".log")
+        return BuildResult(so, 0.0, log.read_text() if log.exists() else "")
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
@@ -135,6 +137,9 @@ def build() -> BuildResult:
             text=True)
         if link.returncode:
             raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        tmp_log = tmp_so.with_suffix(".log")
+        tmp_log.write_text("\n".join(logs))
+        os.replace(tmp_log, so.with_suffix(".log"))
         os.replace(tmp_so, so)      # atomic: concurrent builds agree
     return BuildResult(so, time.perf_counter() - t0, "\n".join(logs))
 

@@ -8,8 +8,9 @@ float32 inputs at small shapes; attention within ``atol=rtol=1e-5``
 (fp32 online softmax against the gathered softmax: the sums run in a
 different order); the BSN adders, the ternary matmul (with and without
 its SI epilogue) and the sort bit for bit.  The flash kernel in bfloat16
-within ``atol=1e-2`` on O (one bf16 ulp at |o| <= 2 is 7.8e-3) and
-``atol=rtol=1e-5`` on its float32 LSE.
+(the tensor-core kernel) within ``atol=1e-2`` on O (one bf16 ulp at
+|o| <= 2 is 7.8e-3) and ``atol=rtol=1e-5`` on its float32 LSE; in
+float32 (the CUDA-core kernel) within ``atol=rtol=1e-5`` on both.
 """
 
 import pytest
@@ -220,23 +221,48 @@ def test_temporal_adder_kernel_bit_exact(cuda, cycles, width):
                        approx_bsn_temporal_plain(counts, **kw))
 
 
+# every level class of the kernel: inside a word (int8, L <= 4), inside a
+# thread's run of 32 (L <= 32), inside a warp (L <= 1024), across warps
+# in shared memory (L >= 2048); rows sharing a block (L < 8192), a tail
+# block with rows missing (19, 300), and the int8 runs of 64 and 128
 @pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32])
-@pytest.mark.parametrize("length", [1, 2, 64, 4096])
+@pytest.mark.parametrize("length", [1, 2, 4, 8, 32, 64, 256, 1024, 2048,
+                                    4096, 8192, 16384])
+@pytest.mark.parametrize("rows", [1, 19, 300])
 @pytest.mark.parametrize("descending", [True, False])
-def test_bsn_sort_kernel_bit_exact(cuda, dtype, length, descending):
-    x = (torch.randn((19, length), device=cuda) * 50).to(dtype)
+def test_bsn_sort_kernel_bit_exact(cuda, dtype, length, rows, descending):
+    x = (torch.randn((rows, length), device=cuda) * 50).to(dtype)
     got = bsn_sort_cuda(x, descending=descending)
     assert torch.equal(got, bsn_sort_plain(x, descending=descending))
     assert torch.equal(got, torch.sort(x, dim=-1,
                                        descending=descending).values)
 
 
-def test_bsn_sort_kernel_at_the_exact_bsn_row(cuda):
-    """One q_proj output channel's K * act_bsl = 16384 bits per row."""
-    bits = torch.randint(0, 2, (8, 16384), dtype=torch.int8, device=cuda)
-    got = ops.bsn_sort(bits)
-    assert torch.equal(got, bsn_sort_plain(bits))
+@pytest.mark.parametrize("rows,length", [(8, 16384), (300, 1024), (19, 8),
+                                         (3, 2048), (2, 65536),
+                                         (1, 131072)])
+@pytest.mark.parametrize("descending", [True, False])
+def test_bsn_sort_kernel_at_the_exact_bsn_row(cuda, rows, length,
+                                              descending):
+    """Rows of 0/1 bits (ties everywhere), as the exact BSN sorts them: one
+    q_proj output channel's K * act_bsl = 16384 bits per row, and the
+    other classes of the network."""
+    bits = torch.randint(0, 2, (rows, length), dtype=torch.int8,
+                         device=cuda)
+    got = (ops.bsn_sort(bits) if descending
+           else bsn_sort_cuda(bits, descending=False))
+    assert torch.equal(got, bsn_sort_plain(bits, descending=descending))
     assert torch.equal(got.sum(-1), bits.sum(-1))
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int32, torch.float32])
+def test_bsn_sort_kernel_takes_an_unaligned_view(cuda, dtype):
+    """A contiguous view one element into its storage is not 16-byte
+    aligned: the kernel reads and writes it element by element."""
+    flat = (torch.randn(5 * 2048 + 1, device=cuda) * 50).to(dtype)
+    x = flat[1:].view(5, 2048)
+    got = bsn_sort_cuda(x)
+    assert torch.equal(got, bsn_sort_plain(x))
 
 
 def test_sc_int_projection_launches_ternary_matmul(cuda):
@@ -309,6 +335,85 @@ def test_flash_kernel_matches_plain(cuda, B, S, Hq, Hkv, D, causal, dtype):
     tol = TOL if dtype == torch.float32 else dict(rtol=0, atol=1e-2)
     torch.testing.assert_close(out.float(), want.float(), **tol)
     torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+def test_flash_bf16_kernel_at_the_train_shape(cuda):
+    """The training path's shape at batch 1 (S 4096, 32 q / 8 kv heads,
+    D 64, causal) on the tensor-core kernel."""
+    q, k, v = _flash_case(cuda, 1, 4096, 32, 8, 64, torch.bfloat16, seed=3)
+    out, lse = flash_attention_cuda(q, k, v)
+    want, want_lse = flash_attention_ref(q, k, v, True, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("S", [63, 65, 129, 1000])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernel_ragged_gqa4(cuda, S, causal):
+    """GQA 4 where the causal diagonal tile and the ragged tail of S meet
+    (128-row q tiles, 64-key tiles)."""
+    q, k, v = _flash_case(cuda, 2, S, 8, 2, 64, torch.bfloat16, seed=S)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("D", [32, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernel_default_scale(cuda, D, causal):
+    """1/sqrt(D) is not exact in bf16 at D 32 and 128: the kernel scales
+    the float32 logits, as the plain version scales q in float32."""
+    q, k, v = _flash_case(cuda, 1, 300, 4, 2, D, torch.bfloat16, seed=D)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bf16_kernel_with_large_negative_logits(cuda, causal):
+    """Every logit far below zero (q >= 0, k <= 0, scale 8): the first
+    tile's row max is below -128 in log2 units, and the running sums must
+    start from it without overflow."""
+    q, k, v = _flash_case(cuda, 1, 150, 4, 2, 64, torch.bfloat16, seed=9)
+    q, k = q.abs(), -k.abs()
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=8.0)
+    want, want_lse = flash_attention_ref(q, k, v, causal, scale=8.0,
+                                         return_lse=True)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+def test_flash_bf16_kernel_takes_a_negative_scale(cuda):
+    """The tensor-core kernel takes the row max of raw logits, so for a
+    negative scale it negates q (exact in bf16) against |scale|."""
+    q, k, v = _flash_case(cuda, 1, 200, 4, 2, 64, torch.bfloat16, seed=8)
+    out, lse = flash_attention_cuda(q, k, v, scale=-0.3)
+    want, want_lse = flash_attention_ref(q, k, v, True, scale=-0.3,
+                                         return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+def test_flash_dtype_picks_the_tensor_core_or_cuda_core_kernel(cuda):
+    """By the profiler's kernel names: a bf16 call runs the tensor-core
+    kernel (mma.sync), a float32 call the CUDA-core one; one launch each."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = _flash_case(cuda, 1, 256, 4, 2, 64, dtype)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            flash_attention_cuda(q, k, v)
+            torch.cuda.synchronize()
+        names[dtype] = [e.key for e in prof.key_averages()
+                        if "flash_fwd" in e.key for _ in range(e.count)]
+    assert len(names[torch.bfloat16]) == 1
+    assert "flash_fwd_mma_kernel" in names[torch.bfloat16][0]
+    assert len(names[torch.float32]) == 1
+    assert "flash_fwd_kernel" in names[torch.float32][0]
 
 
 def test_flash_kernel_takes_a_caller_scale(cuda):
