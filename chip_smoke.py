@@ -6,14 +6,18 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
 
 1. the card: torch's device name and ``nvidia-smi``'s name / power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and read
-   their machine code (``cuobjdump -sass``): the bf16 flash kernel must
-   use the tensor cores (HMMA) and, at D 64, no local memory;
+   their machine code (``cuobjdump -sass``): the bf16 flash and paged-
+   prefill kernels must use the tensor cores (HMMA) and, at D 64, they
+   and the split paged-decode kernel use no local memory;
 3. hold each kernel against its plain PyTorch version at the shapes its
    path gives it (the BSN adders, the ternary matmul with and without
    its SI epilogue, and the sort bit-exact; attention within a stated
    tolerance for fp / int8 / sc pools, ragged lengths and poisoned trash
-   pages), with kernel / plain / library-yardstick times and a roofline
-   bound;
+   pages; the paged kernels at the serving shapes and at 4096-token
+   contexts: 32 decode lanes of 1024-4095 tokens, the last 64-token
+   prefill chunk of a 4096-token prompt), with kernel / plain / library-
+   yardstick times and a roofline bound (the paged kernels' device times
+   from torch.profiler beside their times per call with the host);
 4. serve full-width granite-3-2b (bf16, random weights from a seed)
    through ``ServeEngine`` on qat x fp, sc_int x int8 (every projection
    through the ternary matmul kernel) and sc_int_approx x sc: every
@@ -119,11 +123,17 @@ def bound(nbytes, ops, ops_rate):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+SASS_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+                "bsn_sort_reg_kernel", "paged_decode_split_kernel",
+                "paged_prefill_mma_kernel")
+
+
 def read_sass(so_path):
-    """The flash and sort kernels' machine code in the built library
-    (``cuobjdump -sass``): per kernel instance its tensor-core (HMMA /
-    HGMMA) and local-memory (LDL / STL) instructions.  Each bf16 flash
-    instance must use the tensor cores, and at D 64 spill nothing."""
+    """The tensor-core and register-level kernels' machine code in the
+    built library (``cuobjdump -sass``): per kernel instance its tensor-
+    core (HMMA / HGMMA) and local-memory (LDL / STL) instructions.  Each
+    bf16 flash and paged-prefill instance must use the tensor cores; at
+    D 64 the flash, paged-prefill and paged-decode kernels spill nothing."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -135,30 +145,35 @@ def read_sass(so_path):
     kept, found = [], []
     for block in sass.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        kernel = next((k for k in ("flash_fwd_mma_kernel", "flash_fwd_kernel",
-                                   "bsn_sort_reg_kernel") if k in name), None)
+        kernel = next((k for k in SASS_KERNELS if k in name), None)
         if kernel is None:
             continue
-        if kernel != "flash_fwd_kernel":
-            kept.append("Function : " + block)
         tmpl = re.search(r"kernelI(.*?)E+v", name)
-        found.append(dict(kernel=kernel, template=tmpl.group(1) if tmpl
-                          else "", hmma=len(re.findall(r"\bH(?:G)?MMA\b",
-                                                       block)),
+        tmpl = tmpl.group(1) if tmpl else ""
+        d64 = re.match(r"Li64(E|$)", tmpl) is not None
+        if kernel in ("flash_fwd_mma_kernel", "bsn_sort_reg_kernel") or (
+                kernel.startswith("paged_") and d64):
+            kept.append("Function : " + block)
+        found.append(dict(kernel=kernel, template=tmpl, d64=d64,
+                          hmma=len(re.findall(r"\bH(?:G)?MMA\b", block)),
                           ldl=len(re.findall(r"\bLDL\b", block)),
                           stl=len(re.findall(r"\bSTL\b", block))))
     (OUT_DIR / "sass.txt").write_text("".join(kept))
     for f in found:
         log(f"sass {f['kernel']}<{f['template']}>: {f['hmma']} HMMA, "
             f"{f['ldl']} LDL, {f['stl']} STL")
-    mma = [f for f in found if f["kernel"] == "flash_fwd_mma_kernel"]
-    if len(mma) != 4 or not all(f["hmma"] > 0 for f in mma):
-        raise AssertionError(f"flash_fwd_mma_kernel: tensor-core "
-                             f"instructions missing: {mma}")
-    d64 = [f for f in mma if f["template"] == "Li64"]
-    if not d64 or d64[0]["ldl"] + d64[0]["stl"]:
-        raise AssertionError(f"flash_fwd_mma_kernel at D 64 uses local "
-                             f"memory: {d64}")
+    for kernel, count in (("flash_fwd_mma_kernel", 4),
+                          ("paged_prefill_mma_kernel", 12)):
+        inst = [f for f in found if f["kernel"] == kernel]
+        if len(inst) != count or not all(f["hmma"] > 0 for f in inst):
+            raise AssertionError(f"{kernel}: tensor-core instructions "
+                                 f"missing: {inst}")
+    for kernel in ("flash_fwd_mma_kernel", "paged_prefill_mma_kernel",
+                   "paged_decode_split_kernel"):
+        d64 = [f for f in found if f["kernel"] == kernel and f["d64"]]
+        if not d64 or any(f["ldl"] + f["stl"] for f in d64):
+            raise AssertionError(f"{kernel} at D 64 uses local memory: "
+                                 f"{d64}")
     return found
 
 
@@ -227,7 +242,11 @@ def device_ms_per_call(torch, fn, calls=10):
     host work (Python checks, the ctypes call) outlasts its kernel, so
     CUDA events around back-to-back calls would time the host."""
     fn()
-    return device_ms(torch, lambda: [fn() for _ in range(calls)]) / calls
+    for _ in range(3):          # the profiler now and then records no kernel
+        ms = device_ms(torch, lambda: [fn() for _ in range(calls)]) / calls
+        if ms > 0:
+            return ms
+    raise AssertionError("torch.profiler recorded no device time")
 
 
 def _int_mm_ms(torch, x, w):
@@ -411,149 +430,202 @@ def _kv_bytes_per_pos(fmt, Hkv, D):
             "sc": 2 * Hkv * D + 4 * Hkv}[fmt]
 
 
+def _gathered_heads(torch, pools, aux, tables, fmt, group):
+    """The window the plain version attends, gathered and dequantized, as
+    SDPA's (lanes, Hq, T, D) bf16 K and V (each KV head repeated
+    ``group`` times): the yardstick's inputs, made outside its timing."""
+    from repro_torch.kernels.ref import gather_pages_dequant
+    out = []
+    for name in ("k", "v"):
+        g = gather_pages_dequant(pools[f"{name}_pages"], tables,
+                                 kv_format=fmt, scale=aux.get(f"{name}_scale"),
+                                 resid=aux.get(f"{name}_resid"))
+        out.append(g.to(torch.bfloat16).permute(0, 2, 1, 3)
+                   .repeat_interleave(group, dim=1))
+    return out
+
+
+def _attn_times(torch, kernel, plain, sdpa):
+    """Device ms per call of the kernel, its plain version and SDPA
+    (torch.profiler), and the kernel's and SDPA's time per call with the
+    host (CUDA events over back-to-back calls)."""
+    return dict(ms=device_ms_per_call(torch, kernel),
+                call_ms=time_ms(kernel),
+                plain_ms=device_ms_per_call(torch, plain, calls=3),
+                library_ms=device_ms_per_call(torch, sdpa),
+                library_call_ms=time_ms(sdpa))
+
+
+# decode shapes: (label prefix, S, maxp, lengths).  "serving": 8 lanes,
+# a padded lane (length 0, all-trash table), lengths with (len + 1) %
+# page in {0, 1, page - 1} and a full window; "4096": 32 ragged lanes
+# of 1024-4095 tokens (granite-3-2b's context).
+def _decode_shapes(page):
+    long_lens = [1024 + 99 * i for i in range(32)]
+    long_lens[-1] = 4095
+    return (("", 8, 16, [0, page - 1, page, 2 * page - 2, 37, 100, 150,
+                         16 * page - 1]),
+            ("4096 ", 32, 256, long_lens))
+
+
 def check_decode(torch, dev, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attn_decode_cuda
-    from repro_torch.kernels.ref import (gather_pages_dequant,
-                                         paged_attn_decode_ref)
-    S, Hkv, G, D, page, maxp = 8, 8, 4, 64, 16, 16
-    N = S * maxp + 1
-    tables = torch.zeros((S, maxp), dtype=torch.int32, device=dev)
-    perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
-    tables[:] = perm[:S * maxp].reshape(S, maxp).to(torch.int32)
-    # ragged: a padded lane (length 0, all-trash table), lengths with
-    # (len + 1) % page in {0, 1, page - 1}, a full window
-    lens = [0, page - 1, page, 2 * page - 2, 37, 100, 150, maxp * page - 1]
-    tables[0] = 0
-    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
-    q = torch.randn((S, Hkv, G, D), generator=gen, device=dev) \
-        .to(torch.bfloat16)
+    from repro_torch.kernels.ref import paged_attn_decode_ref
+    Hkv, G, D, page = 8, 4, 64, 16
     cases = []
-    for fmt in ("fp", "int8", "sc"):
-        pools = _pools(torch, gen, dev, fmt, N, page, Hkv, D)
-        aux = {k: v for k, v in pools.items() if not k.endswith("_pages")}
-        args = (q, pools["k_pages"], pools["v_pages"], tables, lengths)
-        got = paged_attn_decode_cuda(*args, kv_format=fmt, **aux)
-        want = paged_attn_decode_ref(*args, kv_format=fmt, kv_aux=aux)
-        # poison the trash page and every page past each live length
-        dead = {0} | {int(tables[s, j]) for s in range(S)
-                      for j in range(lens[s] // page + 1, maxp)}
-        pp = _poison(torch, pools, dead)
-        paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
-        pois = paged_attn_decode_cuda(q, pp["k_pages"], pp["v_pages"],
-                                      tables, lengths, kv_format=fmt, **paux)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        if not (err <= ATTN_ATOL and torch.isfinite(got.float()).all()):
-            raise AssertionError(f"decode {fmt}: max_abs_err {err}")
-        # lane 0 attends the trash page itself (its own padded write)
-        if not torch.equal(pois[1:], got[1:]):
-            raise AssertionError(f"decode {fmt}: poisoned pages leaked")
-        ms = time_ms(lambda: paged_attn_decode_cuda(*args, kv_format=fmt,
-                                                    **aux))
-        plain_ms = time_ms(lambda: paged_attn_decode_ref(
-            *args, kv_format=fmt, kv_aux=aux))
-        # yardstick: one SDPA call on the gathered, dequantized window
-        kg = gather_pages_dequant(pools["k_pages"], tables, kv_format=fmt,
-                                  scale=aux.get("k_scale"),
-                                  resid=aux.get("k_resid"))
-        vg = gather_pages_dequant(pools["v_pages"], tables, kv_format=fmt,
-                                  scale=aux.get("v_scale"),
-                                  resid=aux.get("v_resid"))
-        kh = kg.to(torch.bfloat16).permute(0, 2, 1, 3) \
-            .repeat_interleave(G, dim=1)                 # (S, Hq, T, D)
-        vh = vg.to(torch.bfloat16).permute(0, 2, 1, 3) \
-            .repeat_interleave(G, dim=1)
-        qh = q.reshape(S, Hkv * G, 1, D)
-        mask = (torch.arange(maxp * page, device=dev)[None, :]
-                <= lengths[:, None])[:, None, None, :]
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask))
-        live = sum(n + 1 for n in lens)
-        nbytes = (2 * q.numel() * 2 + tables.numel() * 4 + S * 4
-                  + 2 * live * _kv_bytes_per_pos(fmt, Hkv, D))
-        b_ms, b_by = bound(nbytes, 4 * live * Hkv * G * D, BF16_OPS)
-        cases.append(dict(label=fmt, S=S, Hkv=Hkv, G=G, D=D, page=page,
-                          maxp=maxp, lengths=lens, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by))
-        log(f"paged_attn_decode {fmt}: max_abs_err={err:.3g} "
-            f"poison-invisible ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f}")
+    for prefix, S, maxp, lens in _decode_shapes(page):
+        N = S * maxp + 1
+        perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
+        tables = perm[:S * maxp].reshape(S, maxp).to(torch.int32)
+        if lens[0] == 0:
+            tables[0] = 0
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+        q = torch.randn((S, Hkv, G, D), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        for fmt in ("fp", "int8", "sc"):
+            label = prefix + fmt
+            pools = _pools(torch, gen, dev, fmt, N, page, Hkv, D)
+            aux = {k: v for k, v in pools.items()
+                   if not k.endswith("_pages")}
+            args = (q, pools["k_pages"], pools["v_pages"], tables, lengths)
+            got = paged_attn_decode_cuda(*args, kv_format=fmt, **aux)
+            want = paged_attn_decode_ref(*args, kv_format=fmt, kv_aux=aux)
+            # poison the trash page and every page past each live length
+            tab = tables.tolist()
+            dead = {0} | {tab[s][j] for s in range(S)
+                          for j in range(lens[s] // page + 1, maxp)}
+            pp = _poison(torch, pools, dead)
+            paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
+            pois = paged_attn_decode_cuda(q, pp["k_pages"], pp["v_pages"],
+                                          tables, lengths, kv_format=fmt,
+                                          **paux)
+            del pp, paux
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            if not (err <= ATTN_ATOL and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"decode {label}: max_abs_err {err}")
+            # a padded lane attends the trash page itself (its own write)
+            live = slice(1, None) if lens[0] == 0 else slice(None)
+            if not torch.equal(pois[live], got[live]):
+                raise AssertionError(f"decode {label}: poisoned pages "
+                                     f"leaked")
+            # yardstick: one SDPA call on the gathered, dequantized window
+            kh, vh = _gathered_heads(torch, pools, aux, tables, fmt, G)
+            qh = q.reshape(S, Hkv * G, 1, D)
+            mask = (torch.arange(maxp * page, device=dev)[None, :]
+                    <= lengths[:, None])[:, None, None, :]
+            times = _attn_times(
+                torch,
+                lambda: paged_attn_decode_cuda(*args, kv_format=fmt, **aux),
+                lambda: paged_attn_decode_ref(*args, kv_format=fmt,
+                                              kv_aux=aux),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=mask))
+            del kh, vh
+            n_live = sum(n + 1 for n in lens)
+            nbytes = (2 * q.numel() * 2 + tables.numel() * 4 + S * 4
+                      + 2 * n_live * _kv_bytes_per_pos(fmt, Hkv, D))
+            b_ms, b_by = bound(nbytes, 4 * n_live * Hkv * G * D, BF16_OPS)
+            cases.append(dict(label=label, S=S, Hkv=Hkv, G=G, D=D,
+                              page=page, maxp=maxp, lengths=lens,
+                              max_abs_err=err, **times, bound_ms=b_ms,
+                              bound_by=b_by))
+            log(f"paged_attn_decode {label}: S={S} maxp={maxp} "
+                f"max_abs_err={err:.3g} poison-invisible device ms="
+                f"{times['ms']:.4f} (per call with the host "
+                f"{times['call_ms']:.4f}) plain_ms={times['plain_ms']:.4f} "
+                f"library_ms(SDPA)={times['library_ms']:.4f} (with the "
+                f"host {times['library_call_ms']:.4f}) bound_ms={b_ms:.5f} "
+                f"({b_by})")
+            del pools, aux, got, want, pois
     return cases
+
+
+# prefill shapes: (label prefix, start, width).  "serving": the second
+# chunk of a 128-token prompt; "4096": the last 64-token chunk of a
+# 4096-token prompt at the engine's default prefill_chunk.
+PREFILL_SHAPES = (("", 64, 8), ("4096 ", 4032, 256))
 
 
 def check_prefill(torch, dev, gen):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attn_prefill_cuda
-    from repro_torch.kernels.ref import (gather_pages_dequant,
-                                         paged_attn_prefill_ref)
-    Gr, C, Hkv, Gq, D, page, start = 4, 64, 8, 4, 64, 16, 64
-    width = 8
-    N = Gr * width + 1
-    perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
-    tables = perm[:Gr * width].reshape(Gr, width).to(torch.int32) \
-        .contiguous()
-    q = torch.randn((Gr, C, Hkv, Gq, D), generator=gen, device=dev) \
-        .to(torch.bfloat16)
-    seen = (start + C) // page
+    from repro_torch.kernels.ref import paged_attn_prefill_ref
+    Gr, C, Hkv, Gq, D, page = 4, 64, 8, 4, 64, 16
     cases = []
-    for fmt in ("fp", "int8", "sc"):
-        pools = _pools(torch, gen, dev, fmt, N, page, Hkv, D)
-        aux = {k: v for k, v in pools.items() if not k.endswith("_pages")}
-        args = (q, pools["k_pages"], pools["v_pages"], tables)
-        got = paged_attn_prefill_cuda(*args, start=start, kv_format=fmt,
-                                      **aux)
-        got2 = paged_attn_prefill_cuda(*args, start=start, block_q=16,
-                                       kv_format=fmt, **aux)
-        want = paged_attn_prefill_ref(*args, start, kv_format=fmt,
-                                      kv_aux=aux)
-        dead = {0} | {int(tables[g, j]) for g in range(Gr)
-                      for j in range(seen, width)}
-        pp = _poison(torch, pools, dead)
-        paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
-        pois = paged_attn_prefill_cuda(q, pp["k_pages"], pp["v_pages"],
-                                       tables, start=start, kv_format=fmt,
-                                       **paux)
-        torch.cuda.synchronize()
-        err = max((got.float() - want.float()).abs().max().item(),
-                  (got2.float() - want.float()).abs().max().item())
-        if not (err <= ATTN_ATOL and torch.isfinite(got.float()).all()):
-            raise AssertionError(f"prefill {fmt}: max_abs_err {err}")
-        if not torch.equal(pois, got):
-            raise AssertionError(f"prefill {fmt}: poisoned pages leaked")
-        ms = time_ms(lambda: paged_attn_prefill_cuda(
-            *args, start=start, kv_format=fmt, **aux))
-        plain_ms = time_ms(lambda: paged_attn_prefill_ref(
-            *args, start, kv_format=fmt, kv_aux=aux))
-        seen_t = tables[:, :seen]
-        kg = gather_pages_dequant(pools["k_pages"], seen_t, kv_format=fmt,
-                                  scale=aux.get("k_scale"),
-                                  resid=aux.get("k_resid"))
-        vg = gather_pages_dequant(pools["v_pages"], seen_t, kv_format=fmt,
-                                  scale=aux.get("v_scale"),
-                                  resid=aux.get("v_resid"))
-        kh = kg.to(torch.bfloat16).permute(0, 2, 1, 3) \
-            .repeat_interleave(Gq, dim=1)                # (G, Hq, T, D)
-        vh = vg.to(torch.bfloat16).permute(0, 2, 1, 3) \
-            .repeat_interleave(Gq, dim=1)
-        qh = q.reshape(Gr, C, Hkv * Gq, D).permute(0, 2, 1, 3)
-        T = seen * page
-        mask = (torch.arange(T, device=dev)[None, :]
-                <= start + torch.arange(C, device=dev)[:, None])
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-            qh, kh, vh, attn_mask=mask))
-        pairs = sum(start + c + 1 for c in range(C))     # causal (q, k)
-        nbytes = (2 * q.numel() * 2 + tables.numel() * 4
-                  + 2 * Gr * T * _kv_bytes_per_pos(fmt, Hkv, D))
-        b_ms, b_by = bound(nbytes, 4 * Gr * pairs * Hkv * Gq * D, BF16_OPS)
-        cases.append(dict(label=fmt, G=Gr, C=C, Hkv=Hkv, Gq=Gq, D=D,
-                          page=page, start=start, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms,
-                          bound_ms=b_ms, bound_by=b_by))
-        log(f"paged_attn_prefill {fmt}: max_abs_err={err:.3g} (block_q 32, "
-            f"16) poison-invisible ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib_ms:.4f} bound_ms={b_ms:.5f}")
+    for prefix, start, width in PREFILL_SHAPES:
+        N = Gr * width + 1
+        perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
+        tables = perm[:Gr * width].reshape(Gr, width).to(torch.int32) \
+            .contiguous()
+        q = torch.randn((Gr, C, Hkv, Gq, D), generator=gen, device=dev) \
+            .to(torch.bfloat16)
+        seen = (start + C) // page
+        for fmt in ("fp", "int8", "sc"):
+            label = prefix + fmt
+            pools = _pools(torch, gen, dev, fmt, N, page, Hkv, D)
+            aux = {k: v for k, v in pools.items()
+                   if not k.endswith("_pages")}
+            args = (q, pools["k_pages"], pools["v_pages"], tables)
+            got = paged_attn_prefill_cuda(*args, start=start, kv_format=fmt,
+                                          **aux)
+            got2 = paged_attn_prefill_cuda(*args, start=start, block_q=16,
+                                           kv_format=fmt, **aux)
+            want = paged_attn_prefill_ref(*args, start, kv_format=fmt,
+                                          kv_aux=aux)
+            tab = tables.tolist()
+            dead = {0} | {tab[g][j] for g in range(Gr)
+                          for j in range(seen, width)}
+            pp = _poison(torch, pools, dead)
+            paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
+            pois = paged_attn_prefill_cuda(q, pp["k_pages"], pp["v_pages"],
+                                           tables, start=start,
+                                           kv_format=fmt, **paux)
+            del pp, paux
+            torch.cuda.synchronize()
+            err = max((got.float() - want.float()).abs().max().item(),
+                      (got2.float() - want.float()).abs().max().item())
+            if not (err <= ATTN_ATOL and torch.isfinite(got.float()).all()):
+                raise AssertionError(f"prefill {label}: max_abs_err {err}")
+            if not torch.equal(pois, got):
+                raise AssertionError(f"prefill {label}: poisoned pages "
+                                     f"leaked")
+            kh, vh = _gathered_heads(torch, pools, aux, tables[:, :seen],
+                                     fmt, Gq)
+            qh = q.reshape(Gr, C, Hkv * Gq, D).permute(0, 2, 1, 3)
+            T = seen * page
+            mask = (torch.arange(T, device=dev)[None, :]
+                    <= start + torch.arange(C, device=dev)[:, None])
+            times = _attn_times(
+                torch,
+                lambda: paged_attn_prefill_cuda(*args, start=start,
+                                                kv_format=fmt, **aux),
+                lambda: paged_attn_prefill_ref(*args, start, kv_format=fmt,
+                                               kv_aux=aux),
+                lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                       attn_mask=mask))
+            del kh, vh
+            times["ms_block_q16"] = device_ms_per_call(
+                torch, lambda: paged_attn_prefill_cuda(
+                    *args, start=start, block_q=16, kv_format=fmt, **aux))
+            pairs = sum(start + c + 1 for c in range(C))    # causal (q, k)
+            nbytes = (2 * q.numel() * 2 + tables.numel() * 4
+                      + 2 * Gr * T * _kv_bytes_per_pos(fmt, Hkv, D))
+            b_ms, b_by = bound(nbytes, 4 * Gr * pairs * Hkv * Gq * D,
+                               BF16_OPS)
+            cases.append(dict(label=label, G=Gr, C=C, Hkv=Hkv, Gq=Gq, D=D,
+                              page=page, start=start, width=width,
+                              max_abs_err=err, **times, bound_ms=b_ms,
+                              bound_by=b_by))
+            log(f"paged_attn_prefill {label}: start={start} "
+                f"max_abs_err={err:.3g} (block_q 32, 16) poison-invisible "
+                f"device ms={times['ms']:.4f} (per call with the host "
+                f"{times['call_ms']:.4f}) plain_ms={times['plain_ms']:.4f} "
+                f"library_ms(SDPA)={times['library_ms']:.4f} (with the "
+                f"host {times['library_call_ms']:.4f}) bound_ms={b_ms:.5f} "
+                f"({b_by}); block_q 16: {times['ms_block_q16']:.4f}")
+            del pools, aux, got, got2, want, pois
     return cases
 
 
@@ -725,6 +797,7 @@ def profile_decode_step(torch, eng, label, step_ms):
     top = [dict(name=k, ms=us / 1e3, calls=n) for us, k, n in rows[:10]]
     ours_ms = sum(_dev_us(e) for e in events if e.device_type == cuda and any(
         k in e.key for k in ("decode_kernel", "prefill_kernel",
+                             "paged_decode_", "paged_prefill_",
                              "approx_bsn_kernel", "ternary_matmul_kernel",
                              "bsn_sort_reg_kernel"))) / 1e3
     idle = 1 - busy_ms / wall_ms
@@ -1327,10 +1400,10 @@ def main() -> int:
     log(f"build: {res.seconds:.1f} s -> {res.path.name}")
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "ptxas.log").write_text(res.log)
+    gen = torch.Generator(dev).manual_seed(SEED)
     sass = read_sass(res.path)
 
     # phase 3: each kernel against its plain version
-    gen = torch.Generator(dev).manual_seed(SEED)
     bsn = check_approx_bsn(torch, dev, gen)
     tmp = check_temporal(torch, dev, gen)
     dec = check_decode(torch, dev, gen)

@@ -53,12 +53,16 @@ _SIGNATURES = {
     "approx_bsn_launch": [_P, _P, _I, _I, _I, _I, ctypes.POINTER(_I), _I,
                           _P],
     # q, k, v, k_scale, v_scale, k_resid, v_resid, tables, lengths, out,
-    # S, Hkv, G, D, page, maxp, q_dtype, kv_kind, stream
-    "paged_attn_decode_launch": [_P] * 10 + [_I] * 8 + [_P],
-    # q, k, v, k_scale, v_scale, k_resid, v_resid, tables, out,
+    # scratch, S, Hkv, G, D, page, maxp, q_dtype, kv_kind, stream
+    "paged_attn_decode_launch": [_P] * 11 + [_I] * 8 + [_P],
+    # positions one decode split / keys one prefill split cover (they
+    # size the scratch of the split partials)
+    "paged_attn_decode_split_tokens": [],
+    # q, k, v, k_scale, v_scale, k_resid, v_resid, tables, out, scratch,
     # G, C, Hkv, Gq, D, page, width, start, block_q, q_dtype, kv_kind,
     # stream
-    "paged_attn_prefill_launch": [_P] * 9 + [_I] * 11 + [_P],
+    "paged_attn_prefill_launch": [_P] * 10 + [_I] * 11 + [_P],
+    "paged_attn_prefill_split_tokens": [],
     # x, w, thresholds (or null), out, M, N, K, out_bsl, stream
     "ternary_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
     # in, out, rows, L, dtype code, descending, stream

@@ -4,6 +4,10 @@ Port of ``repro.kernels.paged_attention``.  The kernels
 (``csrc/paged_attention.cu``) read K/V pages straight through the page
 tables and dequantize int8 / sc pools on load; their plain versions are
 ``kernels/ref.py``'s ``paged_attn_decode_ref`` / ``paged_attn_prefill_ref``.
+bf16 q over bf16 / int8 / sc pools runs the tensor-core kernels, whose
+positions are split by absolute position (the splits' partials go to a
+scratch buffer the wrapper allocates); float32 q or pools run the
+CUDA-core kernels.
 Layouts are the reference's: q (S, Hkv, G, D) for decode and
 (G, C, Hkv, Gq, D) for prefill, pools (N, page, Hkv, D), scales
 (N, page, Hkv), int32 tables and lengths.
@@ -14,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.kv_quant import check_kv_format
-from .build import launch, stream_of
+from .build import launch, library, stream_of
 
 __all__ = ["paged_attn_decode_cuda", "paged_attn_prefill_cuda"]
 
@@ -84,8 +88,10 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     q (S, Hkv, G, D); pools hold the new token at position ``lengths``;
     page_tables (S, maxp) int32; lengths (S,) int32.  Page-table entries
     must index the pools (the engine's padded lanes point at trash page
-    0).  One block per (slot, KV head) walks the pages in order (no
-    split-K).  Returns (S, Hkv, G, D) in q.dtype.
+    0).  bf16 q over bf16 / int8 / sc pools splits each lane's positions
+    by absolute position and merges the splits on the card (one count in
+    ``LAUNCHES``); float32 q or pools walk each lane's pages in one
+    block.  Returns (S, Hkv, G, D) in q.dtype.
     """
     kind = _pools(q, kv_format, k_pages, v_pages, k_scale, v_scale,
                   k_resid, v_resid)
@@ -103,11 +109,18 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if S == 0 or maxp == 0:
         return out.zero_()
+    # the splits' partials, when a lane can span several splits: acc
+    # (.., G, D), m and l (.., G) per split
+    n_split = -(-maxp * page // library().paged_attn_decode_split_tokens())
+    scratch = None if n_split == 1 else torch.empty(
+        S * Hkv * n_split * G * (D + 2), dtype=torch.float32,
+        device=q.device)
     launch("paged_attn_decode", "paged_attn_decode_launch",
            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
            _ptr(k_scale), _ptr(v_scale), _ptr(k_resid), _ptr(v_resid),
-           page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), S,
-           Hkv, G, D, page, maxp, _Q_DTYPES[q.dtype], kind, stream_of(q))
+           page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+           _ptr(scratch), S, Hkv, G, D, page, maxp, _Q_DTYPES[q.dtype],
+           kind, stream_of(q))
     return out
 
 
@@ -125,7 +138,10 @@ def paged_attn_prefill_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     q (G, C, Hkv, Gq, D) holds positions ``[start, start + C)``; C and
     ``start`` are multiples of the page size; the pools already hold the
     chunk's K/V; page_tables (G, width) int32 with width >= (start+C)/page.
-    Causal mask ``k_pos <= start + row``.  Returns q's shape and dtype.
+    Causal mask ``k_pos <= start + row``.  bf16 q over bf16 / int8 / sc
+    pools runs the tensor-core kernel: a block holds ``block_q`` positions
+    (at most 128 / Gq) of all Gq heads of one KV head, and a row's result
+    does not depend on ``block_q``.  Returns q's shape and dtype.
     """
     kind = _pools(q, kv_format, k_pages, v_pages, k_scale, v_scale,
                   k_resid, v_resid)
@@ -149,9 +165,15 @@ def paged_attn_prefill_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     if G == 0 or C == 0:
         return out
+    # the key splits' partials when the chunk's keys span several splits
+    n_split = -(-(start + C) // library().paged_attn_prefill_split_tokens())
+    scratch = None if n_split == 1 else torch.empty(
+        G * C * Hkv * Gq * n_split * (D + 2), dtype=torch.float32,
+        device=q.device)
     launch("paged_attn_prefill", "paged_attn_prefill_launch",
            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
            _ptr(k_scale), _ptr(v_scale), _ptr(k_resid), _ptr(v_resid),
-           page_tables.data_ptr(), out.data_ptr(), G, C, Hkv, Gq, D, page,
-           width, start, bq, _Q_DTYPES[q.dtype], kind, stream_of(q))
+           page_tables.data_ptr(), out.data_ptr(), _ptr(scratch), G, C, Hkv,
+           Gq, D, page, width, start, bq, _Q_DTYPES[q.dtype], kind,
+           stream_of(q))
     return out

@@ -6,12 +6,17 @@ file imports torch only (no JAX), so it runs where the card is:
 
 float32 inputs at small shapes; attention within ``atol=rtol=1e-5``
 (fp32 online softmax against the gathered softmax: the sums run in a
-different order); the BSN adders, the ternary matmul (with and without
-its SI epilogue) and the sort bit for bit.  The flash kernel in bfloat16
+different order); the paged kernels with bf16 q (split decode, tensor-
+core prefill) within ``atol=1e-2`` on O, and bit for bit where a lane's
+or a row's output must not depend on the batch, block_q or chunk; the
+BSN adders, the ternary matmul (with and without its SI epilogue) and
+the sort bit for bit.  The flash kernel in bfloat16
 (the tensor-core kernel) within ``atol=1e-2`` on O (one bf16 ulp at
 |o| <= 2 is 7.8e-3) and ``atol=rtol=1e-5`` on its float32 LSE; in
 float32 (the CUDA-core kernel) within ``atol=rtol=1e-5`` on both.
 """
+
+import re
 
 import pytest
 import torch
@@ -44,13 +49,15 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(dev, fmt, S=3, Hkv=2, D=16, page=8, maxp=4, seed=0):
+def _case(dev, fmt, S=3, Hkv=2, D=16, page=8, maxp=4, seed=0, bf16=False):
+    """Pools and tables (S, maxp) of distinct pages (page 0 = trash); with
+    ``bf16`` the values are bf16 before kv_quant (fp pools stay bf16)."""
     gen = torch.Generator(dev).manual_seed(seed)
     n = S * maxp + 1
     pools = {}
     for name in ("k", "v"):
-        qd = kv_quant(torch.randn((n, page, Hkv, D), generator=gen,
-                                  device=dev), fmt)
+        x = torch.randn((n, page, Hkv, D), generator=gen, device=dev)
+        qd = kv_quant(x.to(torch.bfloat16) if bf16 else x, fmt)
         pools[f"{name}_pages"] = qd["q"].contiguous()
         if "scale" in qd:
             pools[f"{name}_scale"] = qd["scale"].contiguous()
@@ -157,6 +164,261 @@ def test_launch_refuses_layouts_above_the_shared_memory_cap(cuda):
                        match=r"approx_bsn needs 524292 bytes of shared"):
         approx_bsn_cuda(counts, in_bsl=8, stages=((1, 0, 1), (2 ** 17, 0, 1)))
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+# ---------------------------------------------------------------------------
+# bf16 q over bf16 / int8 / sc pools: the split decode and the tensor-core
+# prefill (O within 1e-2: one bf16 ulp at |o| <= 2 is 7.8e-3)
+# ---------------------------------------------------------------------------
+
+BF16_O = dict(rtol=0, atol=1e-2)
+
+
+def _bf16_decode_case(dev, fmt, lens, maxp, Hkv=2, G=4, D=64, page=16,
+                      seed=0):
+    """Lanes with distinct pages; a lane of length 0 is a padded lane
+    (all-trash table)."""
+    S = len(lens)
+    gen, pools, tables, aux = _case(dev, fmt, S, Hkv, D, page, maxp, seed,
+                                    bf16=True)
+    for s, n in enumerate(lens):
+        if n == 0:
+            tables[s] = 0
+    q = torch.randn((S, Hkv, G, D), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    return q, pools, aux, tables, lengths
+
+
+def _decode_both(fmt, q, pools, aux, tables, lengths):
+    args = (q, pools["k_pages"], pools["v_pages"], tables, lengths)
+    return (paged_attn_decode_cuda(*args, kv_format=fmt, **aux),
+            paged_attn_decode_ref(*args, kv_format=fmt, kv_aux=aux))
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+def test_decode_bf16_kernel_matches_plain(cuda, fmt):
+    """Lengths at page and split edges: a padded lane, the new token at a
+    page's first / last slot, one split exactly full, four splits."""
+    lens = [0, 15, 16, 511, 512, 1023, 2047]
+    got, want = _decode_both(fmt, *_bf16_decode_case(cuda, fmt, lens, 128))
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+def test_decode_bf16_lane_is_invariant_to_the_batch(cuda, fmt):
+    """Bit for bit: a lane run alone with its own table width equals the
+    same lane among 32 lanes of width 256 with padded lanes."""
+    gen = torch.Generator(cuda).manual_seed(3)
+    lens = torch.randint(1, 4095, (32,), generator=gen,
+                         device=cuda).tolist()
+    lens[5] = lens[20] = 0
+    q, pools, aux, tables, lengths = _bf16_decode_case(cuda, fmt, lens, 256,
+                                                       seed=3)
+    batch, _ = _decode_both(fmt, q, pools, aux, tables, lengths)
+    for s in (0, 7, 31):
+        own = lens[s] // 16 + 1
+        alone, _ = _decode_both(fmt, q[s:s + 1].contiguous(), pools, aux,
+                                tables[s:s + 1, :own].contiguous(),
+                                lengths[s:s + 1])
+        assert torch.equal(alone[0], batch[s]), s
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+@pytest.mark.parametrize("D,G,page", [(16, 2, 8), (32, 8, 4), (128, 4, 16),
+                                      (64, 1, 32), (64, 16, 16),
+                                      (128, 16, 16)])
+def test_decode_bf16_kernel_head_geometries(cuda, fmt, D, G, page):
+    lens = [3, page, 700, 1500]
+    case = _bf16_decode_case(cuda, fmt, lens, 1536 // page, G=G, D=D,
+                             page=page, seed=D + G)
+    got, want = _decode_both(fmt, *case)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+
+
+def _bf16_prefill_case(dev, fmt, G, C, start, Hkv=2, Gq=4, D=64, page=16,
+                       seed=0):
+    width = (start + C) // page + 2
+    gen, pools, tables, aux = _case(dev, fmt, G, Hkv, D, page, width, seed,
+                                    bf16=True)
+    q = torch.randn((G, C, Hkv, Gq, D), generator=gen, device=dev) \
+        .to(torch.bfloat16)
+    return q, pools, aux, tables
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+@pytest.mark.parametrize("C,start", [(16, 0), (64, 64), (64, 960),
+                                     (32, 2048)])
+def test_prefill_bf16_kernel_matches_plain(cuda, fmt, C, start):
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 3, C, start)
+    args = (q, pools["k_pages"], pools["v_pages"], tables)
+    got = paged_attn_prefill_cuda(*args, start=start, kv_format=fmt, **aux)
+    want = paged_attn_prefill_ref(*args, start, kv_format=fmt, kv_aux=aux)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+def test_prefill_bf16_rows_are_invariant_to_block_q_and_chunk(cuda, fmt):
+    """Bit for bit: block_q 8, 16, 24 and 32 give the same output, and
+    the chunk [1024, 1088) equals the same rows of the chunk [960, 1088)
+    (which crosses a 1024-key split)."""
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 2, 128, 960)
+    args = (pools["k_pages"], pools["v_pages"], tables)
+    outs = [paged_attn_prefill_cuda(q, *args, start=960, block_q=bq,
+                                    kv_format=fmt, **aux)
+            for bq in (32, 16, 8, 24)]
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    late = paged_attn_prefill_cuda(q[:, 64:].contiguous(), *args, start=1024,
+                                   kv_format=fmt, **aux)
+    assert torch.equal(late, outs[0][:, 64:])
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+@pytest.mark.parametrize("Gq,C,start,block_q", [
+    (4, 32, 1008, 32), (4, 128, 960, 24), (6, 64, 992, 32),
+    (5, 64, 2016, 32)])
+def test_prefill_bf16_q_blocks_straddling_a_key_split(cuda, fmt, Gq, C,
+                                                      start, block_q):
+    """A q-block whose positions cross a 1024-key split (block_q not
+    dividing 1024, or 128 / Gq not a power of two): its rows before the
+    split come from the first split's block alone.  Enough requests that
+    the later split's blocks run after the first split's have finished.
+    Against the plain version, and bit for bit against block_q 8 (whose
+    q-blocks never straddle)."""
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 32, C, start,
+                                               Hkv=8, Gq=Gq)
+    args = (q, pools["k_pages"], pools["v_pages"], tables)
+    got = paged_attn_prefill_cuda(*args, start=start, block_q=block_q,
+                                  kv_format=fmt, **aux)
+    aligned = paged_attn_prefill_cuda(*args, start=start, block_q=8,
+                                      kv_format=fmt, **aux)
+    want = paged_attn_prefill_ref(*args, start, kv_format=fmt, kv_aux=aux)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+    assert torch.equal(got, aligned)
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+@pytest.mark.parametrize("D,Gq,page", [(16, 2, 8), (32, 8, 4), (128, 4, 16),
+                                       (64, 1, 32), (64, 32, 16)])
+def test_prefill_bf16_kernel_head_geometries(cuda, fmt, D, Gq, page):
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 2, 32, 1024 + 32,
+                                               Gq=Gq, D=D, page=page,
+                                               seed=D + Gq)
+    args = (q, pools["k_pages"], pools["v_pages"], tables)
+    got = paged_attn_prefill_cuda(*args, start=1056, kv_format=fmt, **aux)
+    want = paged_attn_prefill_ref(*args, 1056, kv_format=fmt, kv_aux=aux)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+
+
+def _poisoned(pools, pages):
+    out = {k: v.clone() for k, v in pools.items()}
+    idx = torch.as_tensor(sorted(pages), device=next(iter(pools.values()))
+                          .device, dtype=torch.long)
+    for v in out.values():
+        v[idx] = 127 if v.dtype == torch.int8 else 3.0e4
+    return out
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+def test_bf16_poisoned_pages_stay_invisible_at_4096_tokens(cuda, fmt):
+    """Big codes and scales on the trash page and every page past a lane's
+    length (decode, 32 lanes of 1024-4095 tokens) or past the chunk
+    (prefill, the last chunk of a 4096-token prompt): bit-identical."""
+    lens = [1024 + 99 * i for i in range(32)]
+    lens[-1] = 4095
+    q, pools, aux, tables, lengths = _bf16_decode_case(cuda, fmt, lens, 256)
+    tab = tables.tolist()
+    dead = {0} | {tab[s][j] for s in range(32)
+                  for j in range(lens[s] // 16 + 1, 256)}
+    clean, _ = _decode_both(fmt, q, pools, aux, tables, lengths)
+    pp = _poisoned(pools, dead)
+    paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
+    pois, _ = _decode_both(fmt, q, pp, paux, tables, lengths)
+    assert torch.equal(clean, pois)
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 4, 64, 4032)
+    seen = 4096 // 16
+    tab = tables.tolist()
+    dead = {0} | {tab[g][j] for g in range(4) for j in range(seen, seen + 2)}
+    pp = _poisoned(pools, dead)
+    paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
+    clean = paged_attn_prefill_cuda(q, pools["k_pages"], pools["v_pages"],
+                                    tables, start=4032, kv_format=fmt, **aux)
+    pois = paged_attn_prefill_cuda(q, pp["k_pages"], pp["v_pages"], tables,
+                                   start=4032, kv_format=fmt, **paux)
+    assert torch.equal(clean, pois)
+
+
+def test_bf16_q_over_float32_pools_matches_plain(cuda):
+    """The route by dtype: bf16 q over float32 pools runs the CUDA-core
+    kernels."""
+    gen, pools, tables, aux = _case(cuda, "fp", 2, 2, 64, 16, 16, seed=5)
+    q = torch.randn((2, 2, 4, 64), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    lengths = torch.tensor([40, 255], dtype=torch.int32, device=cuda)
+    got, want = _decode_both("fp", q, pools, aux, tables, lengths)
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+    qp = torch.randn((2, 64, 2, 4, 64), generator=gen, device=cuda) \
+        .to(torch.bfloat16)
+    args = (qp, pools["k_pages"], pools["v_pages"], tables)
+    torch.testing.assert_close(
+        paged_attn_prefill_cuda(*args, start=128).float(),
+        paged_attn_prefill_ref(*args, 128).float(), **BF16_O)
+
+
+def test_paged_kernels_by_dtype_and_one_launch_per_call(cuda):
+    """By the profiler's kernel names: bf16 q runs the split decode (and
+    its combine when a lane has several splits) and the tensor-core
+    prefill (and its combine when the keys span several splits); float32
+    q the CUDA-core kernels.  Each call counts one launch.  The calls run
+    three times under the profiler, which now and then drops a session's
+    first kernel records."""
+    from torch.profiler import ProfilerActivity, profile
+    reps = 3
+    build.reset_launches()
+    names = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, pools, aux, tables, lengths = _bf16_decode_case(
+            cuda, "int8", [100, 1500], 96)
+        qp, ppools, paux, ptables = _bf16_prefill_case(cuda, "int8", 1, 64,
+                                                       1024)
+        q, qp = q.to(dtype), qp.to(dtype)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                paged_attn_decode_cuda(q, pools["k_pages"], pools["v_pages"],
+                                       tables, lengths, kv_format="int8",
+                                       **aux)
+                paged_attn_prefill_cuda(qp, ppools["k_pages"],
+                                        ppools["v_pages"], ptables,
+                                        start=1024, kv_format="int8", **paux)
+            torch.cuda.synchronize()
+        names[dtype] = sorted({re.search(r"(\w+_kernel)\b", e.key).group(1)
+                               for e in prof.key_averages()
+                               if "decode" in e.key or "prefill" in e.key})
+    assert names[torch.bfloat16] == [
+        "paged_decode_combine_kernel", "paged_decode_split_kernel",
+        "paged_prefill_combine_kernel", "paged_prefill_mma_kernel"]
+    assert names[torch.float32] == ["decode_kernel", "prefill_kernel"]
+    assert build.LAUNCHES["paged_attn_decode"] == 2 * reps
+    assert build.LAUNCHES["paged_attn_prefill"] == 2 * reps
+
+
+def test_bf16_paged_kernels_refuse_what_they_do_not_take(cuda):
+    lens = [10, 20]
+    q, pools, aux, tables, lengths = _bf16_decode_case(cuda, "fp", lens, 4,
+                                                       G=17)
+    with pytest.raises(RuntimeError, match="at most 16 query rows"):
+        _decode_both("fp", q, pools, aux, tables, lengths)
+    q, pools, aux, tables, lengths = _bf16_decode_case(cuda, "fp", lens, 4,
+                                                       page=12)
+    with pytest.raises(RuntimeError, match="power-of-two page"):
+        _decode_both("fp", q, pools, aux, tables, lengths)
+    q, pools, aux, tables, lengths = _bf16_decode_case(cuda, "int8", lens, 4,
+                                                       D=48)
+    with pytest.raises(RuntimeError, match="head dim 48"):
+        _decode_both("int8", q, pools, aux, tables, lengths)
 
 
 # ---------------------------------------------------------------------------
@@ -517,3 +779,46 @@ def test_train_step_on_the_card_equals_the_cpu(cuda):
     for name, tol in (("m", 5e-5), ("v", 1e-4)):
         for a, b in zip(tree_leaves(sg.opt[name]), tree_leaves(sc.opt[name])):
             assert (a.cpu() - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.parametrize("deterministic", [False, True])
+def test_train_step_on_the_card_repeats_bit_for_bit(cuda, deterministic):
+    """The float32 train step of the test above, four times on the card
+    from the same parameters: bit-equal every time; with
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` PyTorch
+    names no op of the step as lacking a deterministic kernel."""
+    import warnings
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg = get_arch("granite-3-2b").scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=64, vocab_pad_multiple=32, dtype="float32")
+    cfg = cfg.scaled(quant=cfg.quant.with_mode("none"))
+    init = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = SyntheticLM(vocab_size=64, seq_len=100, seed=0).batch(0, 4)
+    step = build_train_step(cfg, lambda s: warmup_cosine(s + 1, 1e-3, 2,
+                                                         10))
+
+    def run():
+        params = tree_map(lambda t: t.clone().to(cuda), init)
+        state, _ = step(init_train_state(params, cfg), batch)
+        return [t.detach().cpu() for t in tree_leaves(state.params)]
+
+    was = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            runs = [run() for _ in range(4)]
+    finally:
+        torch.use_deterministic_algorithms(was)
+    named = [str(w.message) for w in caught
+             if "deterministic" in str(w.message)]
+    assert named == []
+    for params in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(params, runs[0]))

@@ -1,14 +1,19 @@
 """The port's paged-attention plain versions against the reference's
-Pallas kernels (interpret mode), the dispatch rule, and the CUDA
-wrappers' input checks.
+Pallas kernels (interpret mode), the dispatch rule, the CUDA wrappers'
+input checks, and the kernels' ctypes signatures against their C sources.
 
 The plain versions (``repro_torch.kernels.ref``) are what the CPU runs
 and what the CUDA kernels are held against on the card; here they are
 held against ``paged_attn_*_pallas(interpret=True)`` on the same numpy
-inputs.  Float32 throughout; tolerance ``atol=2e-6, rtol=2e-5`` (the
-reference's own kernel-vs-reference tolerance: the two softmaxes sum in
-different orders).
+inputs.  Float32: tolerance ``atol=2e-6, rtol=2e-5`` (the reference's own
+kernel-vs-reference tolerance: the two softmaxes sum in different
+orders).  bf16 q at granite-3-2b's head geometry (G 4, D 64, page 16):
+both sides compute in float32 and round to bf16, so an output may land
+one bf16 ulp apart: ``atol=1e-2`` (one ulp at |o| <= 2 is 7.8e-3).
 """
+
+import ctypes
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +35,7 @@ from repro_torch.kernels.ref import (paged_attn_decode_ref,
 from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
 
 TOL = dict(rtol=2e-5, atol=2e-6)
+BF16_TOL = dict(rtol=0, atol=1e-2)
 POISON = 3.0e4
 
 
@@ -37,15 +43,23 @@ def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 
 
-def _case(seed, S, Hkv, D, page, maxp, fmt):
+def _bf16_values(a):
+    """float32 numpy values exactly representable in bf16."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+def _case(seed, S, Hkv, D, page, maxp, fmt, bf16=False):
     """Pools the way the allocator hands pages out (page 0 = trash,
     distinct pages per slot), quantized with the reference's kv_quant
-    (op by op) so both sides read identical codes and scales."""
+    (op by op) so both sides read identical codes and scales; ``bf16``
+    draws values exact in bf16 (an fp pool is then cast to bf16)."""
     rng = np.random.default_rng(seed)
     n = S * maxp + 1
     pools = {}
     for name in ("k", "v"):
         x = rng.standard_normal((n, page, Hkv, D)).astype(np.float32)
+        if bf16:
+            x = _bf16_values(x)
         qd = jkv.kv_quant(jnp.asarray(x), fmt)
         pools[f"{name}_pages"] = np.asarray(qd["q"])
         if "scale" in qd:
@@ -217,3 +231,107 @@ def test_build_flags_target_sm90a_with_a_plain_c_interface():
                     "ternary_matmul.cu"]
     for p in build.CSRC.glob("*.cu*"):
         assert "torch/extension.h" not in p.read_text()
+
+
+# ---------------------------------------------------------------------------
+# bf16 q at granite-3-2b's head geometry: the serving path's dtypes
+# ---------------------------------------------------------------------------
+
+GRANITE_HEADS = dict(G=4, D=64, page=16)
+
+
+def _jnp(a, bf16=False):
+    x = jnp.asarray(a)
+    return x.astype(jnp.bfloat16) if bf16 else x
+
+
+def _torch(a, bf16=False):
+    x = _t(a)
+    return x.to(torch.bfloat16) if bf16 else x
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+@pytest.mark.parametrize("num_splits", [1, 4])
+def test_decode_plain_vs_pallas_bf16_long_lanes(fmt, num_splits):
+    """Lengths 5, 1100 and 1791 span one, three and four of the CUDA
+    kernel's 512-position splits; the JAX side runs 1 or 4 splits."""
+    S, Hkv, maxp = 3, 2, 112
+    G, D, page = GRANITE_HEADS["G"], GRANITE_HEADS["D"], GRANITE_HEADS["page"]
+    rng, pools, tables = _case(31 + num_splits, S, Hkv, D, page, maxp, fmt,
+                               bf16=True)
+    q = _bf16_values(rng.standard_normal((S, Hkv, G, D)).astype(np.float32))
+    lengths = np.array([5, 1100, 1791], np.int32)
+    fp = fmt == "fp"
+    want = paged_attn_decode_pallas(
+        _jnp(q, True), _jnp(pools["k_pages"], fp), _jnp(pools["v_pages"], fp),
+        jnp.asarray(tables), jnp.asarray(lengths), num_splits=num_splits,
+        interpret=True, kv_format=fmt, **_aux(pools, jnp.asarray))
+    got = paged_attn_decode_ref(
+        _torch(q, True), _torch(pools["k_pages"], fp),
+        _torch(pools["v_pages"], fp), _t(tables), _t(lengths),
+        kv_format=fmt, kv_aux=_aux(pools, _t))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+def test_prefill_plain_vs_pallas_bf16_late_chunk(fmt):
+    """A 32-token chunk at start 256 (pages 0-17 seen) of two requests."""
+    Gr, C, Hkv, start = 2, 32, 2, 256
+    Gq, D, page = GRANITE_HEADS["G"], GRANITE_HEADS["D"], GRANITE_HEADS["page"]
+    maxp = (start + C) // page + 1
+    rng, pools, tables = _case(41, Gr, Hkv, D, page, maxp, fmt, bf16=True)
+    q = _bf16_values(rng.standard_normal((Gr, C, Hkv, Gq, D))
+                     .astype(np.float32))
+    fp = fmt == "fp"
+    want = paged_attn_prefill_pallas(
+        _jnp(q, True), _jnp(pools["k_pages"], fp), _jnp(pools["v_pages"], fp),
+        jnp.asarray(tables), start=start, block_q=16, interpret=True,
+        kv_format=fmt, **_aux(pools, jnp.asarray))
+    got = paged_attn_prefill_ref(
+        _torch(q, True), _torch(pools["k_pages"], fp),
+        _torch(pools["v_pages"], fp), _t(tables), start, kv_format=fmt,
+        kv_aux=_aux(pools, _t))
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               **BF16_TOL)
+
+
+# ---------------------------------------------------------------------------
+# the ctypes signatures against the C entry points (a mismatch would show
+# only on the card, as a wrong argument)
+# ---------------------------------------------------------------------------
+
+def _c_params(name):
+    """Kinds of the parameters of ``extern "C" int name(...)`` in csrc."""
+    pat = re.compile(r'extern "C" int\s+' + re.escape(name)
+                     + r"\s*\(([^)]*)\)", re.S)
+    found = [m.group(1) for p in sorted(build.CSRC.glob("*.cu"))
+             for m in pat.finditer(p.read_text())]
+    assert len(found) == 1, (name, found)
+    params = [x.strip() for x in found[0].split(",") if x.strip()]
+    if params == ["void"]:
+        params = []
+    kinds = []
+    for p in params:
+        if "*" in p:
+            kinds.append("pointer")
+        else:
+            kinds.append(p.split()[-2] if len(p.split()) > 1 else p)
+    return kinds
+
+
+def _ctypes_kind(t):
+    if t is ctypes.c_void_p or (isinstance(t, type)
+                                and issubclass(t, ctypes._Pointer)):
+        return "pointer"
+    return {ctypes.c_int: "int", ctypes.c_float: "float"}[t]
+
+
+@pytest.mark.parametrize("name", sorted(build._SIGNATURES))
+def test_ctypes_signature_matches_the_c_entry_point(name):
+    assert [_ctypes_kind(t) for t in build._SIGNATURES[name]] == \
+        _c_params(name)
