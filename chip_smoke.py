@@ -8,7 +8,9 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and read
    their machine code (``cuobjdump -sass``): the bf16 flash and paged-
    prefill kernels must use the tensor cores (HMMA) and, at D 64, they
-   and the split paged-decode kernel use no local memory;
+   and the split paged-decode kernel use no local memory; the ternary
+   matmul's tensor-core kernel must use the integer tensor cores (IGMMA)
+   and no local memory;
 3. hold each kernel against its plain PyTorch version at the shapes its
    path gives it (the BSN adders, the ternary matmul with and without
    its SI epilogue, and the sort bit-exact; attention within a stated
@@ -17,13 +19,17 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    contexts: 32 decode lanes of 1024-4095 tokens, the last 64-token
    prefill chunk of a 4096-token prompt), with kernel / plain / library-
    yardstick times and a roofline bound (the paged kernels' device times
-   from torch.profiler beside their times per call with the host);
+   from torch.profiler beside their times per call with the host; the
+   ternary matmul on both sides of its dp4a / tensor-core crossover,
+   over the full int8 range too, against ``torch._int_mm`` with w in
+   the reference's (K, N) layout and column-major);
 4. serve full-width granite-3-2b (bf16, random weights from a seed)
    through ``ServeEngine`` on qat x fp, sc_int x int8 (every projection
    through the ternary matmul kernel) and sc_int_approx x sc: every
    kernel on the path must have launched, the batched tokens must equal
    ``sequential_generate``'s, and a tiny float32 config must give the
-   same tokens on the card as on the CPU;
+   same tokens on the card as on the CPU; one sc_int prefill is profiled
+   by ternary-matmul kernel instance;
 5. the SC integer datapath at published width: the paper's TNN
    (784-256-256-10, seeded random QAT parameters) exported and fed a
    batch of 256 through the fused-SI ternary matmul, the exact BSN's
@@ -36,7 +42,8 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    of ``SyntheticLM`` through ``build_train_step``: every attention
    forward and its recompute runs the flash kernel (40 x 2 x 3 launches),
    losses and gradient norms are finite, step 1 (learning rate 0) changes
-   no parameter and step 2 changes them; one more step is profiled, and
+   no parameter and step 2 changes every watched one whose AdamW update
+   does not round away in bf16; one more step is profiled, and
    all its 80 flash forwards must be the tensor-core kernel; and
    a tiny float32 config's train step on the card equals the same step on
    the CPU within a stated tolerance.
@@ -125,7 +132,7 @@ def bound(nbytes, ops, ops_rate):
 
 SASS_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
                 "bsn_sort_reg_kernel", "paged_decode_split_kernel",
-                "paged_prefill_mma_kernel")
+                "paged_prefill_mma_kernel", "ternary_matmul_mma_kernel")
 
 
 def read_sass(so_path):
@@ -133,7 +140,9 @@ def read_sass(so_path):
     built library (``cuobjdump -sass``): per kernel instance its tensor-
     core (HMMA / HGMMA) and local-memory (LDL / STL) instructions.  Each
     bf16 flash and paged-prefill instance must use the tensor cores; at
-    D 64 the flash, paged-prefill and paged-decode kernels spill nothing."""
+    D 64 the flash, paged-prefill and paged-decode kernels spill nothing;
+    every int8 ternary-matmul tensor-core instance uses the integer tensor
+    cores (IGMMA, wgmma's; or IMMA, mma.sync's) and no local memory."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -151,23 +160,30 @@ def read_sass(so_path):
         tmpl = re.search(r"kernelI(.*?)E+v", name)
         tmpl = tmpl.group(1) if tmpl else ""
         d64 = re.match(r"Li64(E|$)", tmpl) is not None
-        if kernel in ("flash_fwd_mma_kernel", "bsn_sort_reg_kernel") or (
+        if kernel in ("flash_fwd_mma_kernel", "bsn_sort_reg_kernel",
+                      "ternary_matmul_mma_kernel") or (
                 kernel.startswith("paged_") and d64):
             kept.append("Function : " + block)
         found.append(dict(kernel=kernel, template=tmpl, d64=d64,
                           hmma=len(re.findall(r"\bH(?:G)?MMA\b", block)),
+                          imma=len(re.findall(r"\bI(?:G)?MMA\b", block)),
                           ldl=len(re.findall(r"\bLDL\b", block)),
                           stl=len(re.findall(r"\bSTL\b", block))))
     (OUT_DIR / "sass.txt").write_text("".join(kept))
     for f in found:
         log(f"sass {f['kernel']}<{f['template']}>: {f['hmma']} HMMA, "
-            f"{f['ldl']} LDL, {f['stl']} STL")
+            f"{f['imma']} IMMA / IGMMA, {f['ldl']} LDL, {f['stl']} STL")
     for kernel, count in (("flash_fwd_mma_kernel", 4),
                           ("paged_prefill_mma_kernel", 12)):
         inst = [f for f in found if f["kernel"] == kernel]
         if len(inst) != count or not all(f["hmma"] > 0 for f in inst):
             raise AssertionError(f"{kernel}: tensor-core instructions "
                                  f"missing: {inst}")
+    inst = [f for f in found if f["kernel"] == "ternary_matmul_mma_kernel"]
+    if len(inst) != 2 or not all(f["imma"] > 0 and f["ldl"] + f["stl"] == 0
+                                 for f in inst):
+        raise AssertionError(f"ternary_matmul_mma_kernel: IMMA missing or "
+                             f"local memory used: {inst}")
     for kernel in ("flash_fwd_mma_kernel", "paged_prefill_mma_kernel",
                    "paged_decode_split_kernel"):
         d64 = [f for f in found if f["kernel"] == kernel and f["d64"]]
@@ -259,7 +275,53 @@ def _int_mm_ms(torch, x, w):
     return device_ms_per_call(torch, lambda: torch._int_mm(x, w))
 
 
-def check_ternary_matmul(torch, dev, gen):
+def int_mm_yardstick(torch, x, w):
+    """``torch._int_mm``'s device ms on the same operands, with ``w`` in
+    the reference's (K, N) row-major layout and column-major (what
+    cuBLASLt's int8 kernels prefer), both laid out outside the timed
+    region; ``library_ms`` is the faster.  ``_int_mm`` refuses M <= 16,
+    so a decode row times it on x zero-padded to 32 rows."""
+    import torch.nn.functional as F
+    m = x.shape[0]
+    padded = m <= 16
+    if padded:
+        x = F.pad(x, (0, 0, 0, 32 - m))
+    w_cm = w.t().contiguous().t()
+    kn, cm = _int_mm_ms(torch, x, w), _int_mm_ms(torch, x, w_cm)
+    known = [t for t in (kn, cm) if t is not None]
+    return dict(library_ms=min(known) if known else None,
+                int_mm_kn_ms=kn, int_mm_cm_ms=cm,
+                library_note="_int_mm padded to 32 rows" if padded
+                else "_int_mm")
+
+
+def _full_range(torch, gen, dev, shape):
+    return torch.randint(-128, 128, shape, generator=gen, device=dev,
+                         dtype=torch.int8)
+
+
+# (label, M, K, N, out_bsl): decode at 4 lanes, the B = 1 oracle's
+# 64-row prefill chunk, the engine's 256-row chunks (4 requests x 64),
+# a stress shape the engine never runs (it takes logits only for each
+# request's last row, so lm_head runs at M <= 4)
+TERNARY_SHAPES = (
+    [(f"decode {k}", 4, *GRANITE_PROJ[k], 0) for k in GRANITE_PROJ]
+    + [(f"oracle prefill {k}", 64, *GRANITE_PROJ[k], 0)
+       for k in ("q/o", "gate/up", "down")]
+    + [(f"prefill {k}", 256, *GRANITE_PROJ[k], 0)
+       for k in ("q/o", "k/v", "gate/up", "down")]
+    + [("stress 256 x 2048 x 49408 (not on the serving path)", 256,
+        *GRANITE_PROJ["lm_head"], 0),
+       ("decode q/o SI", 4, 2048, 2048, 8),
+       ("TNN layer SI", 256, 256, 256, 8),
+       ("full int8 range", 256, 2048, 2048, 0),
+       ("full int8 range SI", 64, 784, 256, 32),
+       ("ragged", 5, 1001, 1003, 0), ("ragged SI", 5, 1001, 1003, 8),
+       ("ragged M 64", 64, 1001, 1003, 0),
+       ("ragged M 64 SI", 64, 1001, 1003, 8)])
+
+
+def check_ternary_matmul(torch, dev, gen, shapes=TERNARY_SHAPES):
     from repro_torch.kernels import ops
     from repro_torch.kernels.ref import ternary_matmul_ref
     from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
@@ -268,19 +330,19 @@ def check_ternary_matmul(torch, dev, gen):
         return torch.round(torch.matmul(x.to(torch.float32),
                                         w.to(torch.float32))).to(torch.int32)
 
-    shapes = [(f"decode {k}", 4, *GRANITE_PROJ[k], 0) for k in GRANITE_PROJ]
-    shapes += [(f"prefill {k}", 256, *GRANITE_PROJ[k], 0)
-               for k in GRANITE_PROJ]
-    shapes += [("decode q/o SI", 4, 2048, 2048, 8),
-               ("TNN layer SI", 256, 256, 256, 8),
-               ("ragged", 5, 1001, 1003, 0), ("ragged SI", 5, 1001, 1003, 8)]
     cases = []
     for label, m, k, n, out_bsl in shapes:
-        x = _levels(torch, gen, dev, (m, k))
-        w = _ternary(torch, gen, dev, (k, n))
+        if label.startswith("full"):
+            x = _full_range(torch, gen, dev, (m, k))
+            w = _full_range(torch, gen, dev, (k, n))
+        else:
+            x = _levels(torch, gen, dev, (m, k))
+            w = _ternary(torch, gen, dev, (k, n))
         t = None
         if out_bsl:
-            t = torch.sort(torch.randint(-k, k + 1, (n, out_bsl),
+            lim = 128 * 128 * math.isqrt(k) if label.startswith("full") \
+                else k
+            t = torch.sort(torch.randint(-lim, lim + 1, (n, out_bsl),
                                          generator=gen, device=dev,
                                          dtype=torch.int32), dim=-1).values
         run = ops.ternary_matmul if label.startswith("ragged") \
@@ -291,23 +353,31 @@ def check_ternary_matmul(torch, dev, gen):
         if not torch.equal(got, want):
             raise AssertionError(f"ternary_matmul {label}: kernel != plain")
         ms = device_ms_per_call(torch, lambda: run(x, w, t))
-        call_ms = time_ms(lambda: run(x, w, t))
+        # with the host: the least of 5 means over 50 back-to-back calls
+        # (host time on a shared machine scatters upward)
+        call_ms = min(time_ms(lambda: run(x, w, t), iters=50)
+                      for _ in range(5))
         plain_ms = device_ms_per_call(torch,
                                       lambda: ternary_matmul_ref(x, w, t))
-        lib_ms = None if t is not None else _int_mm_ms(torch, x, w)
-        stop_ms = None if t is not None else device_ms_per_call(
-            torch, lambda: stopgap(x, w))
+        lib = dict(library_ms=None, library_note="none")
+        stop_ms = None
+        if t is None:
+            lib = int_mm_yardstick(torch, x, w)
+            stop_ms = device_ms_per_call(torch, lambda: stopgap(x, w))
         nbytes = m * k + k * n + 4 * m * n + 4 * n * out_bsl
         b_ms, b_by = bound(nbytes, 2 * m * n * k + m * n * out_bsl,
                            INT8_OPS)
         cases.append(dict(label=label, M=m, K=k, N=n, out_bsl=out_bsl,
                           max_abs_err=0, ms=ms, call_ms=call_ms,
-                          plain_ms=plain_ms, library_ms=lib_ms,
-                          stopgap_ms=stop_ms, bound_ms=b_ms, bound_by=b_by))
+                          plain_ms=plain_ms, stopgap_ms=stop_ms,
+                          bound_ms=b_ms, bound_by=b_by, **lib))
         log(f"ternary_matmul {label}: M={m} K={k} N={n} out_bsl={out_bsl} "
             f"bit-exact device ms={ms:.4f} (per call with the host "
-            f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms(_int_mm)="
-            f"{lib_ms} stopgap_ms={stop_ms} bound_ms={b_ms:.4f} ({b_by})")
+            f"{call_ms:.4f}) plain_ms={plain_ms:.4f} library_ms="
+            f"{lib['library_ms']} ({lib['library_note']}; (K, N) "
+            f"{lib.get('int_mm_kn_ms')}, column-major "
+            f"{lib.get('int_mm_cm_ms')}) stopgap_ms={stop_ms} "
+            f"bound_ms={b_ms:.4f} ({b_by}) bound/ms={b_ms / ms:.3f}")
     return cases
 
 
@@ -798,7 +868,7 @@ def profile_decode_step(torch, eng, label, step_ms):
     ours_ms = sum(_dev_us(e) for e in events if e.device_type == cuda and any(
         k in e.key for k in ("decode_kernel", "prefill_kernel",
                              "paged_decode_", "paged_prefill_",
-                             "approx_bsn_kernel", "ternary_matmul_kernel",
+                             "approx_bsn_kernel", "ternary_matmul_",
                              "bsn_sort_reg_kernel"))) / 1e3
     idle = 1 - busy_ms / wall_ms
     idle_unprofiled = 1 - busy_ms / step_ms
@@ -811,6 +881,38 @@ def profile_decode_step(torch, eng, label, step_ms):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle,
                 idle_share_unprofiled=idle_unprofiled,
                 port_kernels_ms=ours_ms, top=top)
+
+
+def profile_prefill(torch, eng, label):
+    """The engine's batched chunked prefill of its queued prompts under
+    torch.profiler: device ms and launches of each ``ternary_matmul``
+    kernel instance (by the profiler's kernel names), and the device busy
+    ms of the whole prefill."""
+    import re
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        eng._admit()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    kernels = {}
+    for e in events:
+        hit = re.search(r"(ternary_matmul\w*_kernel<[^>]*>)", e.key)
+        if hit:
+            k = kernels.setdefault(hit.group(1), dict(ms=0.0, launches=0))
+            k["ms"] += _dev_us(e) / 1e3
+            k["launches"] += e.count
+    res = dict(device_busy_ms=sum(_dev_us(e) for e in events) / 1e3,
+               ternary_matmul_ms=sum(k["ms"] for k in kernels.values()),
+               ternary_matmul_kernels=kernels)
+    log(f"profile prefill {label}: device_busy_ms="
+        f"{res['device_busy_ms']:.2f} ternary_matmul device ms="
+        f"{res['ternary_matmul_ms']:.3f} by kernel: "
+        + "; ".join(f"{name} {k['ms']:.3f} ms x{k['launches']}"
+                    for name, k in sorted(kernels.items())))
+    return res
 
 
 def _dense_weights(tree):
@@ -961,6 +1063,9 @@ def serve(torch, dev, layers):
         eng.step()
         res["profile"] = profile_decode_step(torch, eng, f"{datapath}_{fmt}",
                                              res["decode_ms_per_step"])
+        if datapath == "sc_int":
+            res["profile_prefill"] = profile_prefill(
+                torch, engine(datapath, fmt), f"{datapath}_{fmt}")
         del eng
     return results, totals, product_cost(torch, dev, params, cfg)
 
@@ -1168,6 +1273,30 @@ def _watch(params):
             "lm_head/w": params["lm_head"]["w"]}
 
 
+def _rounded_away(torch, state, lr):
+    """Per watched leaf, the largest ratio of the last AdamW update to half
+    an ulp of the entry it was added to, recomputed from the optimizer's
+    own m / v / count exactly as ``optim.adamw_update`` forms it: below 1
+    the update rounds away in the leaf's dtype, and the leaf stays."""
+    import inspect
+    from repro_torch.optim import adamw_update
+    arg = {k: p.default for k, p in
+           inspect.signature(adamw_update).parameters.items()}
+    c = float(state.opt["count"])
+    bc1, bc2 = 1 - arg["b1"] ** c, 1 - arg["b2"] ** c
+    ratios = {}
+    for (k, p), m, v in zip(_watch(state.params).items(),
+                            _watch(state.opt["m"]).values(),
+                            _watch(state.opt["v"]).values()):
+        step = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + arg["eps"])
+        if p.ndim + k.startswith("layers/") >= 2:      # train.decay_mask
+            step = step + arg["weight_decay"] * p.float()
+        ulp = torch.finfo(p.dtype).eps * torch.exp2(torch.floor(torch.log2(
+            p.float().abs().clamp(min=torch.finfo(p.dtype).tiny))))
+        ratios[k] = (lr * step.abs() / (ulp / 2)).max().item()
+    return ratios
+
+
 MMA_KERNEL = "flash_fwd_mma_kernel"     # the bf16 tensor-core forward
 
 
@@ -1253,6 +1382,8 @@ def train(torch, dev, layers):
         steps.append(dict({k: float(v) for k, v in m.items()}, sec=sec))
         changed.append({k: (v != initial[k]).float().mean().item()
                         for k, v in _watch(state.params).items()})
+        if i == 1:
+            rounded = _rounded_away(torch, state, steps[-1]["lr"])
         log(f"train step {i + 1}: loss={steps[-1]['loss']:.4f} grad_norm="
             f"{steps[-1]['grad_norm']:.4f} lr={steps[-1]['lr']:.3g} "
             f"{sec:.2f} s; share of watched entries changed: "
@@ -1272,14 +1403,22 @@ def train(torch, dev, layers):
     if any(changed[0].values()):
         raise AssertionError(f"step 1 (lr 0) changed parameters: "
                              f"{changed[0]}")
-    if not all(changed[1].values()):
+    # step 2 must move every watched leaf, except one whose AdamW update
+    # (recomputed from the optimizer state) is below half an ulp of all
+    # its entries: at random init the clip by a ~1e12 gradient norm leaves
+    # some step sizes' updates that small (ROADMAP Queue 3 item 7)
+    stuck = {k: rounded[k] for k, c in changed[1].items() if c == 0}
+    log(f"step 2: largest update / half-ulp per watched leaf: "
+        + ", ".join(f"{k} {r:.3g}" for k, r in rounded.items()))
+    if not any(changed[1].values()) or any(r >= 1 for r in stuck.values()):
         raise AssertionError(f"step 2 left parameters unchanged: "
-                             f"{changed[1]}")
+                             f"{changed[1]}; update / half-ulp {rounded}")
     later = [s["sec"] for s in steps[1:]]
     sec_per_step = sum(later) / len(later)
     res = dict(layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
                quant=cfg.quant.mode, remat=cfg.remat, lr=TRAIN_LR,
                setup_s=setup_s, steps=steps, changed=changed,
+               update_over_half_ulp=rounded,
                sec_per_step=sec_per_step,
                tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / sec_per_step,
                max_memory_allocated=peak, launches=launches)

@@ -185,7 +185,9 @@ def sc_linear_int(int_params: dict, x_q: torch.Tensor) -> torch.Tensor:
     :func:`_si_epilogue` bit for bit.
     """
     from ..kernels.ops import ternary_matmul       # kernels build on core
-    w_int = torch.as_tensor(int_params["w_int"], device=x_q.device)
+    w_int = int_params["w_int"]
+    if not (isinstance(w_int, torch.Tensor) and w_int.device == x_q.device):
+        w_int = torch.as_tensor(w_int, device=x_q.device)
     thresholds = int_params.get("thresholds")
     t_q = None
     if thresholds is not None:

@@ -3,13 +3,11 @@ chain (port of ``repro.data.synthetic.SyntheticLM``).
 
 Every batch is a pure function of (seed, step), so a restarted job
 replays nothing.  The transition table is the reference's exactly
-(``np.random.default_rng(seed)``).  The start states and the choices of
-successor differ from the reference's: it draws them from ``jax.random``
-threefry keys, which the port does not have until threefry is ported
-(ROADMAP Queue 1 item 8), so the port draws them from a numpy generator
-keyed by ``(seed, step)``.  The language is the same; the samples are
-not.  Tests that hold the port against the reference feed both the same
-numpy batch.
+(``np.random.default_rng(seed)``), and so are the start states and the
+choices of successor: they come from the same threefry keys
+(``fold_in(key(seed), step)``, split in two) through the port's copy of
+``jax.random`` (``repro_torch.prng``), so a batch equals the reference's
+bit for bit.
 """
 
 from __future__ import annotations
@@ -18,6 +16,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from .. import prng
 
 __all__ = ["SyntheticLM"]
 
@@ -38,10 +38,10 @@ class SyntheticLM:
         """``tokens`` / ``targets`` (B, S) int32 and ``loss_mask`` (B, S)
         float32, on the CPU; a pure function of ``step``."""
         trans = self._transitions()
-        rng = np.random.default_rng([self.seed, step])
-        state = rng.integers(0, self.vocab_size, (batch_size,))
-        choice = rng.integers(0, self.branching,
-                              (batch_size, self.seq_len + 1))
+        k0, k1 = prng.split(prng.fold_in(prng.key(self.seed), step))
+        state = prng.randint(k0, (batch_size,), 0, self.vocab_size).numpy()
+        choice = prng.randint(k1, (batch_size, self.seq_len + 1), 0,
+                              self.branching).numpy()
         seq = np.empty((batch_size, self.seq_len + 1), np.int64)
         for t in range(self.seq_len + 1):
             state = trans[state, choice[:, t]]

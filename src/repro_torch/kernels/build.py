@@ -82,6 +82,7 @@ class BuildResult:
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
+_entries: dict[str, ctypes._CFuncPtr] = {}     # bound once, by name
 
 
 def _sources() -> list[Path]:
@@ -175,10 +176,12 @@ def stream_of(t: torch.Tensor) -> int:
 
 def launch(kernel: str, entry: str, *args) -> None:
     """Call C entry point ``entry`` and count one launch of ``kernel``."""
-    lib = library()
-    rc = getattr(lib, entry)(*args)
+    fn = _entries.get(entry)
+    if fn is None:
+        fn = _entries.setdefault(entry, getattr(library(), entry))
+    rc = fn(*args)
     if rc != 0:
-        msg = lib.repro_kernels_error_string(rc).decode()
+        msg = library().repro_kernels_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: launch failed ({rc}: {msg})")
     LAUNCHES[kernel] += 1
 

@@ -9,10 +9,14 @@
 //     out[m, n] = #{j : sum >= t[n, j]} - out_bsl / 2.
 // x is (M, K) int8, w keeps the reference's (K, N) int8 layout.
 //
-// What bounds it: reading the weights.  At decode M is 4 lanes, so each
-// weight byte feeds 4 multiply-adds: the (K, N) int8 read at 3.35 TB/s is
-// the limit (granite-3-2b: 0.755 ms for one 4-lane step's 2.53e9 bytes).
-// Design:
+// What bounds it.  At decode (M <= 16 rows) reading the weights: each
+// weight byte feeds at most 16 multiply-adds, so the (K, N) int8 read at
+// 3.35 TB/s is the limit (granite-3-2b: 0.755 ms for one 4-lane step's
+// 2.53e9 bytes).  At prefill (the engine's chunks of up to 256 rows) the
+// products: 256 x 2048 x 8192 is 8.6e9 operations against 2.2e7 bytes,
+// so only the int8 tensor cores keep it near its byte bound.
+//
+// Decode, M <= 16: ternary_matmul_kernel (dp4a on the CUDA cores).
 // - A block owns 128 output columns and MT (4 or 16) rows of x.  Lane l
 //   of every warp owns columns 4l..4l+3 and reads one 32-bit word of a
 //   weight row, so a warp reads 128 consecutive bytes (coalesced) and
@@ -23,12 +27,36 @@
 // - x's rows for the block's K range sit in shared memory, read as
 //   broadcasts.  The warps' partial tiles are summed with shared-memory
 //   atomics.
-// - When the (column, row) tiles alone cannot fill the card (decode), the
-//   K range is split over blocks (grid z) and the partial sums are added
-//   into the zeroed output with global atomics.  The sums are integers,
-//   so neither split nor order changes a bit.  The SI variant needs the
-//   whole sum in one block, so it never splits K; its thresholds for the
-//   block's columns are loaded once into shared memory.
+// - When the (column, row) tiles alone cannot fill the card, the K range
+//   is split over blocks (grid z) and the partial sums are added into the
+//   zeroed output with global atomics.
+//
+// Prefill, M > 16: ternary_matmul_mma_kernel (wgmma m64n128k32 s8).
+// - A block owns 128 x 128 outputs: two warpgroups of 64 rows, each one
+//   wgmma chain with 64 int32 accumulators a thread.  Row tiles of one
+//   column tile are neighbours in the grid (blockIdx.x), so they run
+//   together and the weights come from device memory about once.
+// - x (M, K) row-major is already the K-major A operand; cp.async (16
+//   bytes a thread, rows and K past the end zero-filled) writes its
+//   128-byte K slices straight into wgmma's 128B-swizzle layout.
+// - int8 operands of wgmma must be K-major and nothing on sm_90 transposes
+//   bytes on the way in, while w keeps the reference's (K, N) row-major
+//   layout.  So each 128 x 128 w slice lands as it is (chunks swizzled
+//   so the transpose reads hit 32 banks) and the block transposes it
+//   once in shared memory, 16 k x 4 columns a thread with the same
+//   __byte_perm transpose4 as the decode kernel, into a K-major copy in
+//   the 128B-swizzle layout that both warpgroups' wgmma read.
+// - A ring of 4 slots runs 2 slices ahead; the transposed copy is double-
+//   buffered, so a slice's wgmma chain runs while the next is transposed.
+// - Split K (grid z, at most 8 ways) only when the tiles cannot fill the
+//   card; the partial sums are added into the zeroed output with int32
+//   atomics.
+//
+// Both kernels give exact int32 sums, so neither the kernel choice, nor
+// a K split, nor the order of the atomics changes a bit.
+// The SI variants need the whole sum in one block, so they never split
+// K; their thresholds for the block's columns are loaded once into
+// shared memory.
 
 #include <climits>
 
@@ -41,6 +69,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int TILE_N = 128;        // 32 lanes x 4 columns
 constexpr int UNROLL = 4;          // row groups a warp has in flight
 constexpr int MAX_OUT_BSL = 32;
+constexpr int DP4A_MAX_ROWS = 16;      // larger M runs the tensor cores
 
 // 4 rows' words (w0..w3 hold columns c..c+3 of rows k..k+3) -> 4 column
 // words, col[c] = (w0.c, w1.c, w2.c, w3.c), lowest byte first.
@@ -212,30 +241,301 @@ int run(const int8_t* x, const int8_t* w, const int* thr, int* out, int M,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// M > 16: the int8 tensor cores (wgmma)
+// ---------------------------------------------------------------------------
+
+constexpr int TC_BM = 128;             // rows a block: 2 warpgroups x 64
+constexpr int TC_BN = 128;             // columns a block
+constexpr int TC_BK = 128;             // K bytes a ring stage holds
+constexpr int TC_STAGES = 4;           // ring of x / w slices; 2 ahead
+constexpr int TC_TILE = TC_BM * TC_BK; // bytes of one 128 x 128 slice
+constexpr int TC_FILL_BLOCKS = 132;    // split K below this many tiles
+constexpr int TC_MAX_SPLITS = 8;       // more splits measured slower
+
+// 128-byte rows whose 16-byte chunks are XOR-swizzled by the row's low 3
+// bits: wgmma's 128B-swizzle layout (the tile starts 1024-byte aligned)
+__device__ __forceinline__ uint32_t swz128(int row, int chunk) {
+  return row * 128 + ((chunk ^ (row & 7)) << 4);
+}
+
+// wgmma shared-memory descriptor of a K-major operand in that layout:
+// 8-row groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_b128(uint32_t saddr) {
+  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+// d (64 x 128 int32, the warpgroup's fragments) += a (64 x 32) * b (32 x
+// 128), both int8 from shared memory
+__device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Shared memory (from a 1024-byte aligned base): TC_STAGES x (x slice
+// 128 rows x 128 K bytes, wgmma layout; w slice 128 K rows x 128 bytes,
+// chunks swizzled by (row / 16) % 8), then two transposed w slices (128
+// columns x 128 K bytes, wgmma layout), then (SI) thr[out_bsl][128] int.
+template <bool SI>
+__global__ void __launch_bounds__(THREADS)
+ternary_matmul_mma_kernel(const int8_t* __restrict__ x,
+                          const int8_t* __restrict__ w,
+                          const int* __restrict__ thr, int* __restrict__ out,
+                          int M, int N, int K, int ktiles_per_split,
+                          int out_bsl) {
+  extern __shared__ __align__(1024) uint8_t tmm_smem[];
+  const uint32_t base = (smem_u32(tmm_smem) + 1023) & ~1023u;
+  uint8_t* const sbase = tmm_smem + (base - smem_u32(tmm_smem));
+  uint8_t* const bt = sbase + TC_STAGES * 2 * TC_TILE;
+  int* const thr_s = reinterpret_cast<int*>(bt + 2 * TC_TILE);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wg = warp >> 2;                 // warpgroup: rows 64 wg..
+  const int m0 = blockIdx.x * TC_BM, n0 = blockIdx.y * TC_BN;
+  const int kt0 = blockIdx.z * ktiles_per_split;
+  const int nkt = min((K + TC_BK - 1) / TC_BK, kt0 + ktiles_per_split) - kt0;
+  const bool live = m0 + 64 * wg < M;       // the warpgroup has rows
+
+  if constexpr (SI) {
+    for (int i = tid; i < TC_BN * out_bsl; i += THREADS) {
+      const int b = i / TC_BN, j = i - b * TC_BN;
+      thr_s[i] = n0 + j < N ? thr[static_cast<size_t>(n0 + j) * out_bsl + b]
+                            : INT_MAX;
+    }
+  }
+
+  // slice kt0 + i into ring slot `slot`.  K % 16 == 0 and N % 16 == 0,
+  // so a 16-byte chunk is wholly inside or outside the operand; outside
+  // chunks are zero-filled, their source never addressed.
+  auto load = [&](int slot, int i) {
+    uint8_t* as = sbase + slot * 2 * TC_TILE;
+    uint8_t* ws = as + TC_TILE;
+    const int k0 = (kt0 + i) * TC_BK;
+#pragma unroll
+    for (int j = 0; j < TC_TILE / 16 / THREADS; ++j) {
+      const int q = j * THREADS + tid, r = q >> 3, c = q & 7;
+      const bool in = m0 + r < M && k0 + 16 * c < K;
+      cp_async16(smem_u32(as + swz128(r, c)),
+                 in ? x + static_cast<size_t>(m0 + r) * K + k0 + 16 * c : x,
+                 in);
+    }
+#pragma unroll
+    for (int j = 0; j < TC_TILE / 16 / THREADS; ++j) {
+      const int q = j * THREADS + tid, r = q >> 3, c = q & 7;
+      const bool in = k0 + r < K && n0 + 16 * c < N;
+      cp_async16(smem_u32(ws + r * 128 + ((c ^ ((r >> 4) & 7)) << 4)),
+                 in ? w + static_cast<size_t>(k0 + r) * N + n0 + 16 * c : w,
+                 in);
+    }
+  };
+
+  int acc[64];
+#pragma unroll
+  for (int e = 0; e < 64; ++e) acc[e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 2; ++s) {
+    if (s < nkt) load(s, s);
+    cp_async_commit();
+  }
+
+  // the transpose: a thread takes 16 K rows (16 kc..16 kc + 15) x 4
+  // columns (4 nq..4 nq + 3); a warp's lanes 8 kc's x 4 nq's, so its word
+  // reads (w rows' chunks swizzled by kc) hit 32 banks and each 8-lane
+  // phase of its 16-byte writes (one column, 8 kc chunks) 8 bank groups
+  const int kc = lane & 7, nq = 4 * warp + (lane >> 3);
+  for (int i = 0; i < nkt; ++i) {
+    cp_async_wait<TC_STAGES - 3>();
+    __syncthreads();          // slice i landed; wgmma(i - 2) retired
+    if (i + TC_STAGES - 2 < nkt)
+      load((i + TC_STAGES - 2) % TC_STAGES, i + TC_STAGES - 2);
+    cp_async_commit();
+
+    const uint8_t* ws = sbase + (i % TC_STAGES) * 2 * TC_TILE + TC_TILE +
+                        16 * kc * 128 + (((nq >> 2) ^ kc) << 4) +
+                        4 * (nq & 3);
+    uint8_t* bti = bt + (i & 1) * TC_TILE;
+    int col[4][4];                // [k-quad][column]
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t wv[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        wv[r] = *reinterpret_cast<const uint32_t*>(ws + (4 * q + r) * 128);
+      transpose4(wv[0], wv[1], wv[2], wv[3], col[q]);
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      *reinterpret_cast<int4*>(bti + swz128(4 * nq + c, kc)) =
+          make_int4(col[0][c], col[1][c], col[2][c], col[3][c]);
+    }
+    fence_async_smem();       // this thread's x chunks and w words, seen
+    __syncthreads();          //   by every warpgroup's wgmma
+
+    if (live) {
+      const uint32_t a = base + (i % TC_STAGES) * 2 * TC_TILE + wg * 64 * 128;
+      const uint32_t b = smem_u32(bti);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < TC_BK / 32; ++ks)
+        wgmma_s8(acc, desc_b128(a + 32 * ks), desc_b128(b + 32 * ks));
+      wgmma_commit();
+      wgmma_wait<1>();
+    }
+  }
+  cp_async_wait<0>();
+  wgmma_wait<0>();
+  if constexpr (SI) __syncthreads();     // thr_s, even with no K slice
+
+  // acc[4 j + e]: row 16 (warp % 4) + g (+ 8 for e >= 2) of the
+  // warpgroup's 64, columns 8 j + 2 t + (e & 1)
+  if (!live) return;
+  const int g = lane >> 2, t = lane & 3;
+  const int row0 = 64 * wg + 16 * (warp & 3) + g;   // tile rows row0, +8
+  if constexpr (SI) {
+    // threshold-outer, so each threshold pair is read once for all the
+    // thread's 64 sums and the 16 reads of a step are independent
+    int cnt[64];
+#pragma unroll
+    for (int e = 0; e < 64; ++e) cnt[e] = 0;
+    for (int b = 0; b < out_bsl; ++b) {
+      const int* tb = thr_s + b * TC_BN + 2 * t;
+#pragma unroll
+      for (int j = 0; j < TC_BN / 8; ++j) {
+        const int2 th = *reinterpret_cast<const int2*>(tb + 8 * j);
+        cnt[4 * j] += acc[4 * j] >= th.x;
+        cnt[4 * j + 1] += acc[4 * j + 1] >= th.y;
+        cnt[4 * j + 2] += acc[4 * j + 2] >= th.x;
+        cnt[4 * j + 3] += acc[4 * j + 3] >= th.y;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 64; ++e) acc[e] = cnt[e] - out_bsl / 2;
+  }
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int gm = m0 + row0 + 8 * hr;
+    if (gm >= M) continue;
+#pragma unroll
+    for (int j = 0; j < TC_BN / 8; ++j) {
+      const int jn = 8 * j + 2 * t;
+      if (n0 + jn >= N) continue;           // N % 16: both or neither
+      const int v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
+      int* dst = out + static_cast<size_t>(gm) * N + n0 + jn;
+      if (!SI && gridDim.z > 1) {
+        atomicAdd(dst, v0);
+        atomicAdd(dst + 1, v1);
+      } else {
+        *reinterpret_cast<int2*>(dst) = make_int2(v0, v1);
+      }
+    }
+  }
+}
+
+template <bool SI>
+int run_mma(const int8_t* x, const int8_t* w, const int* thr, int* out,
+            int M, int N, int K, int out_bsl, cudaStream_t stream) {
+  const int row_tiles = (M + TC_BM - 1) / TC_BM;
+  const int col_tiles = (N + TC_BN - 1) / TC_BN;
+  const int kt = (K + TC_BK - 1) / TC_BK;
+  int kps = kt;                          // K slices per split
+  if (!SI && kt > 0) {
+    // split K (a function of the shape alone) when the tiles leave most
+    // of the card idle
+    const long tiles = static_cast<long>(row_tiles) * col_tiles;
+    long splits = tiles < TC_FILL_BLOCKS ? TC_FILL_BLOCKS / tiles : 1;
+    if (splits > TC_MAX_SPLITS) splits = TC_MAX_SPLITS;
+    kps = static_cast<int>((kt + splits - 1) / splits);
+  }
+  const int splits = kt > 0 ? (kt + kps - 1) / kps : 1;
+  if (col_tiles > 65535)
+    return refuse("ternary_matmul: N=%d has too many column tiles", N);
+  const size_t smem = 1024 + static_cast<size_t>(TC_STAGES + 1) * 2 * TC_TILE +
+                      (SI ? static_cast<size_t>(TC_BN) * out_bsl * sizeof(int)
+                          : 0);
+  int rc = prepare_smem(ternary_matmul_mma_kernel<SI>, smem,
+                        "ternary_matmul");
+  if (rc) return rc;
+  if (splits > 1) {
+    rc = static_cast<int>(cudaMemsetAsync(
+        out, 0, static_cast<size_t>(M) * N * sizeof(int), stream));
+    if (rc) return rc;
+  }
+  const dim3 grid(row_tiles, col_tiles, splits);
+  ternary_matmul_mma_kernel<SI><<<grid, THREADS, smem, stream>>>(
+      x, w, thr, out, M, N, K, kps, out_bsl);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x (M, K) int8, w (K, N) int8, thr (N, out_bsl) int32 or null, out
 // (M, N) int32, all contiguous on the card (checked by the Python
-// wrapper, kernels/ternary_matmul.py).  Returns a CUDA error code.
+// wrapper, kernels/ternary_matmul.py).  M <= DP4A_MAX_ROWS runs the dp4a
+// kernel (K, N multiples of 4, x and w 4-byte aligned), larger M the
+// tensor-core kernel (K, N multiples of 16, x and w 16-byte aligned).
+// Returns a CUDA error code.
 extern "C" int ternary_matmul_launch(const void* x, const void* w,
                                      const void* thr, void* out, int M,
                                      int N, int K, int out_bsl,
                                      void* stream) {
   if (M < 0 || N < 0 || K < 0)
     return refuse("ternary_matmul: negative shape M=%d N=%d K=%d", M, N, K);
-  if (K % 4 || N % 4)
-    return refuse("ternary_matmul: K and N must be multiples of 4 (the "
-                  "kernel reads 4-byte words), got K=%d N=%d", K, N);
-  if (reinterpret_cast<uintptr_t>(x) % 4 ||
-      reinterpret_cast<uintptr_t>(w) % 4)
-    return refuse("ternary_matmul: x and w must start on a 4-byte "
-                  "boundary");
+  const bool mma = M > DP4A_MAX_ROWS;
+  const int mult = mma ? 16 : 4;
+  if (K % mult || N % mult)
+    return refuse("ternary_matmul: K and N must be multiples of %d at M=%d "
+                  "(the kernel reads %d-byte words), got K=%d N=%d", mult,
+                  M, mult, K, N);
+  if (reinterpret_cast<uintptr_t>(x) % mult ||
+      reinterpret_cast<uintptr_t>(w) % mult)
+    return refuse("ternary_matmul: x and w must start on a %d-byte "
+                  "boundary at M=%d", mult, M);
   if (thr && (out_bsl < 1 || out_bsl > MAX_OUT_BSL))
     return refuse("ternary_matmul: the SI epilogue takes 1..%d threshold "
                   "columns, got out_bsl=%d", MAX_OUT_BSL, out_bsl);
-  if ((M + 15) / 16 > 65535)
-    return refuse("ternary_matmul: M=%d has too many rows for one launch",
-                  M);
   if (M == 0 || N == 0) return 0;
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
@@ -246,6 +546,10 @@ extern "C" int ternary_matmul_launch(const void* x, const void* w,
     return thr ? run<4, true>(xp, wp, tp, op, M, N, K, out_bsl, s)
                : run<4, false>(xp, wp, tp, op, M, N, K, out_bsl, s);
   }
-  return thr ? run<16, true>(xp, wp, tp, op, M, N, K, out_bsl, s)
-             : run<16, false>(xp, wp, tp, op, M, N, K, out_bsl, s);
+  if (!mma) {
+    return thr ? run<16, true>(xp, wp, tp, op, M, N, K, out_bsl, s)
+               : run<16, false>(xp, wp, tp, op, M, N, K, out_bsl, s);
+  }
+  return thr ? run_mma<true>(xp, wp, tp, op, M, N, K, out_bsl, s)
+             : run_mma<false>(xp, wp, tp, op, M, N, K, out_bsl, s);
 }

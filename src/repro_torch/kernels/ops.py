@@ -16,9 +16,9 @@ import torch.nn.functional as F
 
 from . import ref
 from .bsn_sort import bsn_sort_cuda, bsn_sort_plain
-from .ternary_matmul import ternary_matmul_cuda
+from .ternary_matmul import operand_multiple, ternary_matmul_cuda
 
-__all__ = ["ternary_matmul", "bsn_sort", "sort_rows"]
+__all__ = ["ternary_matmul", "pad_operands", "bsn_sort", "sort_rows"]
 
 # never-firing SI threshold of a padded output channel
 _NEVER = torch.iinfo(torch.int32).max
@@ -28,6 +28,23 @@ def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
 
 
+def pad_operands(x2: torch.Tensor, w_int: torch.Tensor,
+                 thresholds_q: torch.Tensor | None, multiple: int):
+    """Zero-pad K and N of ``x2 (M, K)`` and ``w_int (K, N)`` to
+    ``multiple``; padded output channels get a never-firing threshold.
+    Operands already on the multiple come back as they are."""
+    k, n = w_int.shape
+    kp, np_ = _round_up(k, multiple), _round_up(n, multiple)
+    if kp != k:
+        x2 = F.pad(x2, (0, kp - k))
+    if (kp, np_) != (k, n):
+        w_int = F.pad(w_int, (0, np_ - n, 0, kp - k))
+        if thresholds_q is not None:
+            thresholds_q = F.pad(thresholds_q, (0, 0, 0, np_ - n),
+                                 value=_NEVER)
+    return x2, w_int, thresholds_q
+
+
 def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
                    thresholds_q: torch.Tensor | None = None) -> torch.Tensor:
     """SC integer datapath matmul: ``(..., K)`` x ``(K, N)`` -> ``(..., N)``
@@ -35,9 +52,10 @@ def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
     domain) is given.
 
     ``x_q``: int8 activation levels; ``w_int``: int8 ternary weights.  On
-    the card, K and N are zero-padded to the kernel's multiple of 4 when
-    they are ragged (padded output channels get a never-firing threshold
-    and are cropped); any M is taken as it is.
+    the card, K and N are zero-padded to the multiple the kernel for this
+    many rows reads (4 for the dp4a kernel, 16 for the tensor-core one)
+    when they are ragged (padded output channels get a never-firing
+    threshold and are cropped); any M is taken as it is.
     """
     *batch, k = x_q.shape
     k2, n = w_int.shape
@@ -50,17 +68,12 @@ def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
     if not x_q.is_cuda:
         out = ref.ternary_matmul_ref(x2, w_int, t2)
     else:
-        kp, np_ = _round_up(k, 4), _round_up(n, 4)
-        if kp != k:
-            x2 = F.pad(x2, (0, kp - k))
-        w2 = w_int
-        if (kp, np_) != (k, n):
-            w2 = F.pad(w_int, (0, np_ - n, 0, kp - k))
-            if t2 is not None:
-                t2 = F.pad(t2, (0, 0, 0, np_ - n), value=_NEVER)
+        x2, w2, t2 = pad_operands(x2, w_int, t2, operand_multiple(m))
         out = ternary_matmul_cuda(
             x2.contiguous(), w2.contiguous(),
-            None if t2 is None else t2.contiguous())[:, :n]
+            None if t2 is None else t2.contiguous())
+        if out.shape[1] != n:
+            out = out[:, :n]
     return out.reshape(*batch, n) if batch else out[0]
 
 

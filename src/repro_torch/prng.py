@@ -1,0 +1,118 @@
+"""Threefry-2x32 keys and draws, bit-equal to ``jax.random``'s.
+
+The parts of ``jax.random`` that the port's seeded streams need, in torch
+integer ops: uint32 values held in int64 tensors and masked to 32 bits
+after every add, multiply and shift, so the same code runs on the CPU and
+on the card.  They follow jax's default PRNG as jax 0.9.0 computes it with
+``jax_threefry_partitionable`` on (its default since jax 0.5): the
+fold-like ``split`` and the counter layout of ``random_bits`` are those of
+that mode.  The names are the counterparts' in ``jax/_src/prng.py``
+(``threefry_seed``, ``iota_2x32_shape``, ``threefry2x32``) and
+``jax/_src/random.py`` (``key``, ``fold_in``, ``split``, ``randint``).
+
+A key is a ``(2,)`` int64 tensor holding the two uint32 words of jax's
+raw key data, ``jax.random.key_data(k)``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+__all__ = ["threefry2x32", "threefry_seed", "key", "fold_in", "split",
+           "iota_2x32_shape", "random_bits", "randint"]
+
+MASK = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & MASK
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """``a * b`` modulo 2**32 for uint32 ``a`` and ``b``, without leaving
+    int64's range."""
+    return (a * (b & 0xFFFF) + ((a * (b >> 16) & 0xFFFF) << 16)) & MASK
+
+
+def threefry2x32(k1, k2, x1: torch.Tensor, x2: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The Threefry-2x32 hash, 20 rounds, of count words ``(x1, x2)``
+    under key words ``(k1, k2)`` (broadcast against each other)."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x = [(x1 + ks[0]) & MASK, (x2 + ks[1]) & MASK]
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x[0] = (x[0] + x[1]) & MASK
+            x[1] = _rotl(x[1], r) ^ x[0]
+        x[0] = (x[0] + ks[(i + 1) % 3]) & MASK
+        x[1] = (x[1] + ks[(i + 2) % 3] + i + 1) & MASK
+    return x[0], x[1]
+
+
+def threefry_seed(seed: int, *, x64: bool = False) -> torch.Tensor:
+    """The raw key of integer ``seed``: its 64-bit two's complement split
+    into (high word, low word).  jax canonicalises a Python int seed to 32
+    bits unless ``jax_enable_x64`` is on, so by default (``x64=False``, as
+    the reference runs) the high word is 0 and the low word is ``seed``
+    modulo 2**32."""
+    s = seed & (2 ** 64 - 1)
+    hi = s >> 32 if x64 else 0
+    return torch.tensor([hi, s & MASK], dtype=torch.int64)
+
+
+def key(seed: int, *, x64: bool = False) -> torch.Tensor:
+    """``jax.random.key(seed)`` as raw key data (see :func:`threefry_seed`)."""
+    return threefry_seed(seed, x64=x64)
+
+
+def fold_in(k: torch.Tensor, data: int) -> torch.Tensor:
+    """``jax.random.fold_in``: the hash of the count ``(0, data)`` (``data``
+    as uint32) under ``k``."""
+    zero = torch.zeros((1,), dtype=torch.int64, device=k.device)
+    y1, y2 = threefry2x32(k[0], k[1], zero, zero + (data & MASK))
+    return torch.cat([y1, y2])
+
+
+def iota_2x32_shape(shape: tuple[int, ...], device=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """A row-major 64-bit iota of ``shape`` as (high words, low words)."""
+    i = torch.arange(math.prod(shape), dtype=torch.int64,
+                     device=device).reshape(shape)
+    return i >> 32, i & MASK
+
+
+def split(k: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split`` (fold-like): ``(num, 2)`` keys, key ``i`` the
+    hash of the 64-bit count ``i`` under ``k``."""
+    hi, lo = iota_2x32_shape((num,), k.device)
+    y1, y2 = threefry2x32(k[0], k[1], hi, lo)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def random_bits(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """32 random bits per element (jax's ``_random_bits`` at bit width 32):
+    the two hash words of each element's 64-bit counter, xor-ed."""
+    hi, lo = iota_2x32_shape(tuple(shape), k.device)
+    y1, y2 = threefry2x32(k[0], k[1], hi, lo)
+    return y1 ^ y2
+
+
+def randint(k: torch.Tensor, shape: tuple[int, ...], minval: int,
+            maxval: int) -> torch.Tensor:
+    """``jax.random.randint(k, shape, minval, maxval)`` at its default
+    int32 dtype: two draws of 32 bits, ``(hi % span * 2**32 % span + lo %
+    span) % span`` in uint32 arithmetic, plus ``minval``."""
+    if not -2 ** 31 <= minval <= maxval < 2 ** 31:
+        raise ValueError(f"randint takes int32 bounds with minval <= "
+                         f"maxval, got [{minval}, {maxval})")
+    span = max(maxval - minval, 1)
+    k1, k2 = split(k)
+    higher, lower = random_bits(k1, shape), random_bits(k2, shape)
+    multiplier = (2 ** 16) % span
+    multiplier = (multiplier * multiplier & MASK) % span
+    offset = _mul32(higher % span, multiplier) + lower % span
+    offset = (offset & MASK) % span
+    return (offset + minval).to(torch.int32)

@@ -455,6 +455,101 @@ def test_ternary_matmul_kernel_bit_exact(cuda, m, k, n, out_bsl):
     assert torch.equal(got, ternary_matmul_ref(x, w, t))
 
 
+def _full_range_case(dev, m, k, n, out_bsl, seed=0):
+    """x and w over all of int8; thresholds spread over the sums' range."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randint(-128, 128, (m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    t = None
+    if out_bsl:
+        lim = 128 * 128 * (int(k ** 0.5) + 1)
+        t = torch.sort(torch.randint(-lim, lim + 1, (n, out_bsl),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32), dim=-1).values
+    return x, w, t
+
+
+@pytest.mark.parametrize("m", [16, 17, 64, 255, 256, 257])
+@pytest.mark.parametrize("k", [32, 784, 1004, 2048, 8192])
+@pytest.mark.parametrize("n", [4, 12, 512, 1003, 2048])
+@pytest.mark.parametrize("out_bsl", [0, 8])
+def test_ternary_matmul_both_kernels_bit_exact(cuda, m, k, n, out_bsl):
+    """Both sides of the dp4a / tensor-core crossover (M 16 | 17), ragged
+    M tiles, K and N that the tensor-core path pads to 16 (1004, 12,
+    1003), split K (M 64 x K 8192), over the full int8 range."""
+    x, w, t = _full_range_case(cuda, m, k, n, out_bsl)
+    got = ops.ternary_matmul(x, w, t)
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got, ternary_matmul_ref(x, w, t))
+
+
+@pytest.mark.parametrize("m", [16, 17, 64, 255, 256, 257])
+@pytest.mark.parametrize("out_bsl", [1, 32])
+def test_ternary_matmul_both_kernels_si_widths(cuda, m, out_bsl):
+    x, w, t = _full_range_case(cuda, m, 784, 1003, out_bsl, seed=m)
+    assert torch.equal(ops.ternary_matmul(x, w, t),
+                       ternary_matmul_ref(x, w, t))
+
+
+@pytest.mark.parametrize("m", [4, 16, 64, 256])
+def test_ternary_matmul_sums_reach_the_int8_extremes(cuda, m):
+    """All-+-127 x against all-+-1 w gives sums of +-K*127; all -128 x
+    against all -128 w gives K*16384 (K 8192: 1.3e8, inside int32)."""
+    k, n = 8192, 64
+    gen = torch.Generator(cuda).manual_seed(m)
+    sign = torch.randint(0, 2, (m, k), generator=gen, device=cuda) * 2 - 1
+    x = (127 * sign).to(torch.int8)
+    w = torch.randint(0, 2, (k, n), generator=gen, device=cuda) * 2 - 1
+    w[:, 0], w[:, 1] = sign[0], -sign[0]          # +-K*127 on row 0
+    w = w.to(torch.int8)
+    got = ops.ternary_matmul(x, w)
+    assert torch.equal(got, ternary_matmul_ref(x, w))
+    assert int(got[0, 0]) == 127 * k and int(got[0, 1]) == -127 * k
+    lo = torch.full((m, k), -128, dtype=torch.int8, device=cuda)
+    got = ops.ternary_matmul(lo, torch.full((k, n), -128, dtype=torch.int8,
+                                            device=cuda))
+    assert bool((got == 16384 * k).all())
+
+
+def test_ternary_matmul_picks_the_kernel_by_rows(cuda):
+    """By the profiler's kernel names: 64 rows run the tensor-core kernel,
+    4 and 16 rows the dp4a one; one launch each."""
+    from torch.profiler import ProfilerActivity, profile
+    names = {}
+    for m in (4, 16, 64):
+        x, w, _ = _full_range_case(cuda, m, 2048, 512, 0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):      # the profiler may drop a first record
+                ternary_matmul_cuda(x, w)
+            torch.cuda.synchronize()
+        names[m] = {re.search(r"(ternary_matmul\w*_kernel)", e.key).group(1)
+                    for e in prof.key_averages()
+                    if "ternary_matmul" in e.key}
+    assert names[64] == {"ternary_matmul_mma_kernel"}
+    assert names[4] == names[16] == {"ternary_matmul_kernel"}
+
+
+def test_ternary_matmul_tensor_core_path_refuses_what_it_does_not_take(
+        cuda):
+    """Above 16 rows the kernel reads 16-byte chunks: K and N must be
+    multiples of 16 (``ops.ternary_matmul`` pads) and x and w 16-byte
+    aligned; the C entry point refuses, and nothing launches."""
+    build.reset_launches()
+    x, w, _ = _full_range_case(cuda, 32, 1004, 64, 0)
+    with pytest.raises(RuntimeError, match="multiples of 16 at M=32"):
+        ternary_matmul_cuda(x, w)
+    x, w, _ = _full_range_case(cuda, 32, 1024, 64, 0)
+    flat = torch.zeros(32 * 1024 + 4, dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="16-byte boundary at M=32"):
+        ternary_matmul_cuda(flat[4:].view(32, 1024), w)
+    assert build.LAUNCHES["ternary_matmul"] == 0
+    assert torch.equal(ops.ternary_matmul(x[:, :1004], w[:1004]),
+                       ternary_matmul_ref(x[:, :1004], w[:1004]))
+
+
 def test_ternary_matmul_padded_channels_never_fire(cuda):
     """N = 1003 is padded to 1004 with a never-firing threshold; the kernel
     on the padded operands gives the padded channel the lowest code."""

@@ -266,6 +266,36 @@ def _si_table(rng, n, k, out_bsl):
     return t.astype(np.int32)
 
 
+@pytest.mark.parametrize("m,k,n", [(4, 1001, 1003), (16, 62, 10),
+                                   (17, 1001, 1003), (64, 784, 10),
+                                   (256, 2048, 512)])
+@pytest.mark.parametrize("with_si", [False, True])
+def test_ternary_matmul_operands_padded_for_each_kernel(m, k, n, with_si):
+    """On the card ``ops.ternary_matmul`` pads K and N to the multiple the
+    kernel for M rows reads (4 for dp4a up to 16 rows, 16 for the tensor
+    cores above): the padded operands through the plain version, cropped,
+    equal the reference's Pallas kernel on the unpadded ones, and aligned
+    operands come back as they are (no copy)."""
+    from repro_torch.kernels.ternary_matmul import operand_multiple
+    rng = np.random.default_rng(m + k + n)
+    x = rng.integers(-128, 128, (m, k)).astype(np.int8)
+    w = rng.integers(-1, 2, (k, n)).astype(np.int8)
+    t = _si_table(rng, n, k, 8) if with_si else None
+    mult = operand_multiple(m)
+    assert mult == (4 if m <= 16 else 16)
+    xt, wt, tt = _t(x), _t(w), None if t is None else _t(t)
+    xp, wp, tp = ops.pad_operands(xt, wt, tt, mult)
+    assert xp.shape[1] % mult == 0 and wp.shape[1] % mult == 0
+    assert wp.shape[0] == xp.shape[1]
+    if k % mult == 0 and n % mult == 0:
+        assert xp is xt and wp is wt and tp is tt
+    got = ref.ternary_matmul_ref(xp, wp, tp)[:, :n]
+    want = _n(jops.ternary_matmul(
+        jnp.asarray(x), jnp.asarray(w),
+        None if t is None else jnp.asarray(t), **JMM))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 @pytest.mark.parametrize("shape", [(13, 70, 37), (4, 64, 32), (1, 9, 5),
                                    ((2, 3), 21, 11), ((), 33, 6)],
                          ids=str)
