@@ -22,7 +22,9 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    from torch.profiler beside their times per call with the host; the
    ternary matmul on both sides of its dp4a / tensor-core crossover,
    over the full int8 range too, against ``torch._int_mm`` with w in
-   the reference's (K, N) layout and column-major);
+   the reference's (K, N) layout and column-major; its batched launch at
+   qwen3-moe's expert shapes, decode and prefill, and a dbrx-like one,
+   with empty expert rows, against E back-to-back ``_int_mm`` calls);
 4. serve full-width granite-3-2b (bf16, random weights from a seed)
    through ``ServeEngine`` on qat x fp, sc_int x int8 (every projection
    through the ternary matmul kernel) and sc_int_approx x sc: every
@@ -46,7 +48,18 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    does not round away in bf16; one more step is profiled, and
    all its 80 flash forwards must be the tensor-core kernel; and
    a tiny float32 config's train step on the card equals the same step on
-   the CPU within a stated tolerance.
+   the CPU within a stated tolerance;
+7. serve full-width qwen3-moe-235b-a22b (128 experts top-8, qk_norm,
+   bf16, seeded random weights, ``--moe-layers`` of its 94 layers,
+   capacity factor E / k = 16 so no token drops) on the same three pairs
+   and traffic (8 new tokens): batched tokens equal
+   ``sequential_generate``'s, the paged kernels at G 16 and, under both
+   integer datapaths, one batched ``ternary_matmul`` launch per expert
+   product (3 a layer in each prefill chunk round and decode step; the
+   dense projections take the single kernel under sc_int and the BSN
+   adder under sc_int_approx); one decode step and the batched prefill
+   profiled per pair; and tiny float32 qwen3 and dbrx configs give the
+   same tokens on the card as on the CPU.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at a ragged bidirectional GQA shape
@@ -57,8 +70,8 @@ does to O.
 
 Run from the repository root::
 
-    python3 chip_smoke.py                 # full run (40 layers)
-    python3 chip_smoke.py --layers 2      # quick check of the same paths
+    python3 chip_smoke.py                 # full run (40 / 8 layers)
+    python3 chip_smoke.py --layers 2 --moe-layers 1   # quick check
 
 Phase 4 also profiles one decode step per datapath (torch.profiler):
 device busy time, the device's idle share, and the PyTorch ops that take
@@ -378,6 +391,80 @@ def check_ternary_matmul(torch, dev, gen, shapes=TERNARY_SHAPES):
             f"{lib.get('int_mm_kn_ms')}, column-major "
             f"{lib.get('int_mm_cm_ms')}) stopgap_ms={stop_ms} "
             f"bound_ms={b_ms:.4f} ({b_by}) bound/ms={b_ms / ms:.3f}")
+    return cases
+
+
+# (label, E, M, K, N): qwen3-moe-235b-a22b's expert products at decode
+# (4 lanes: capacity 4 a expert) and at the engine's 256-row prefill
+# chunk rounds (capacity 256 at cf = E / k), and a dbrx-like shape
+BATCHED_SHAPES = (
+    ("qwen3 decode gate/up", 128, 4, 4096, 1536),
+    ("qwen3 decode down", 128, 4, 1536, 4096),
+    ("qwen3 prefill gate/up", 128, 256, 4096, 1536),
+    ("qwen3 prefill down", 128, 256, 1536, 4096),
+    ("dbrx-like", 16, 32, 6144, 10752))
+
+
+def _expert_operands(torch, gen, dev, e, m, k, n):
+    """Full int8 range, with the empty expert rows of a dispatch: every
+    third expert's x all zero, and each expert's rows past a random fill
+    of its capacity zero."""
+    x = _full_range(torch, gen, dev, (e, m, k))
+    w = _full_range(torch, gen, dev, (e, k, n))
+    x[::3] = 0
+    fill = torch.randint(0, m + 1, (e, 1), generator=gen, device=dev)
+    x[torch.arange(m, device=dev)[None, :].expand(e, m) >= fill] = 0
+    return x, w
+
+
+def int_mm_experts_ms(torch, x, w):
+    """Device ms of E back-to-back ``torch._int_mm`` calls, one per
+    expert, w column-major and x zero-padded to 32 rows where M <= 16
+    (``_int_mm`` refuses fewer), all laid out outside the timed region."""
+    import torch.nn.functional as F
+    e, m = x.shape[:2]
+    xs = [F.pad(x[i], (0, 0, 0, 32 - m)) if m <= 16 else x[i]
+          for i in range(e)]
+    ws = [w[i].t().contiguous().t() for i in range(e)]
+
+    def run():
+        for a, b in zip(xs, ws):
+            torch._int_mm(a, b)
+    return device_ms_per_call(torch, run, calls=3)
+
+
+def check_ternary_matmul_batched(torch, dev, gen, shapes=BATCHED_SHAPES):
+    """The batched ternary matmul (E products, one launch) against its
+    plain version, bit for bit, at the MoE expert shapes."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    cases = []
+    for label, e, m, k, n in shapes:
+        x, w = _expert_operands(torch, gen, dev, e, m, k, n)
+        got = ops.ternary_matmul(x, w)
+        want = ternary_matmul_ref(x, w)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"batched ternary_matmul {label}: kernel "
+                                 f"!= plain")
+        del got, want
+        ms = device_ms_per_call(torch, lambda: ops.ternary_matmul(x, w))
+        plain_ms = device_ms_per_call(torch,
+                                      lambda: ternary_matmul_ref(x, w),
+                                      calls=2)
+        lib_ms = int_mm_experts_ms(torch, x, w)
+        nbytes = e * k * n + e * m * k + 4 * e * m * n
+        b_ms, b_by = bound(nbytes, 2 * e * m * n * k, INT8_OPS)
+        cases.append(dict(label=label, E=e, M=m, K=k, N=n, max_abs_err=0,
+                          ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                          library_note=f"{e} x _int_mm, w column-major",
+                          bound_ms=b_ms, bound_by=b_by))
+        log(f"ternary_matmul batched {label}: E={e} M={m} K={k} N={n} "
+            f"bit-exact device ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib_ms:.4f} ({e} x _int_mm, w column-major) "
+            f"bound_ms={b_ms:.4f} ({b_by}) bound/ms={b_ms / ms:.3f}")
+        del x, w
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -841,19 +928,54 @@ def _dev_us(e):
         or getattr(e, "self_cuda_time_total", 0)
 
 
+def _time_batched():
+    """Put a pair of CUDA events around every batched ternary matmul (the
+    MoE experts'), so that a profiled run reads their device time apart
+    from the single products' (the same kernels; the profiler does not
+    tie a kernel launched through ctypes to a ``record_function`` range).
+    Returns a function that undoes it and gives the device ms."""
+    import torch
+    from repro_torch.kernels import ops
+    inner = ops.ternary_matmul_cuda
+    pairs = []
+
+    def timed(x, w, t=None):
+        if x.ndim != 3:
+            return inner(x, w, t)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = inner(x, w, t)
+        end.record()
+        pairs.append((start, end))
+        return out
+    ops.ternary_matmul_cuda = timed
+
+    def finish():
+        ops.ternary_matmul_cuda = inner
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in pairs)
+    return finish
+
+
 def profile_decode_step(torch, eng, label, step_ms):
     """One decode step under torch.profiler: device time by kernel, and
     the device's idle share of the step, both against the profiled wall
     time (which the profiler's own host work inflates) and against
-    ``step_ms``, the same engine's unprofiled mean decode step."""
+    ``step_ms``, the same engine's unprofiled mean decode step; and the
+    device ms of the batched ternary matmul's launches (the MoE experts)."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng.step()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    finish = _time_batched()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        batched_ms = finish()
     events = prof.key_averages()
     # busy = the kernels themselves; the top list names the PyTorch ops
     # (host-side events) that launched them
@@ -875,28 +997,37 @@ def profile_decode_step(torch, eng, label, step_ms):
     log(f"profile {label}: step wall_ms={wall_ms:.1f} device_busy_ms="
         f"{busy_ms:.1f} idle_share={idle:.3f} (vs unprofiled step "
         f"{step_ms:.1f} ms: {idle_unprofiled:.3f}) port_kernels_ms="
-        f"{ours_ms:.2f} top ops: "
+        f"{ours_ms:.2f} batched_ternary_matmul_ms={batched_ms:.3f} top ops: "
         + "; ".join(f"{t['name']} {t['ms']:.2f} ms x{t['calls']}"
                     for t in top[:6]))
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, idle_share=idle,
                 idle_share_unprofiled=idle_unprofiled,
-                port_kernels_ms=ours_ms, top=top)
+                port_kernels_ms=ours_ms,
+                batched_ternary_matmul_ms=batched_ms, top=top)
 
 
 def profile_prefill(torch, eng, label):
     """The engine's batched chunked prefill of its queued prompts under
     torch.profiler: device ms and launches of each ``ternary_matmul``
-    kernel instance (by the profiler's kernel names), and the device busy
-    ms of the whole prefill."""
+    kernel instance (by the profiler's kernel names), the batched
+    launches' device ms, the device busy ms and idle share of the whole
+    prefill and the PyTorch ops that take the device time."""
     import re
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        eng._admit()
-        torch.cuda.synchronize()
+    finish = _time_batched()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng._admit()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        batched_ms = finish()
     cuda = torch.autograd.DeviceType.CUDA
-    events = [e for e in prof.key_averages() if e.device_type == cuda]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == cuda]
     kernels = {}
     for e in events:
         hit = re.search(r"(ternary_matmul\w*_kernel<[^>]*>)", e.key)
@@ -904,14 +1035,25 @@ def profile_prefill(torch, eng, label):
             k = kernels.setdefault(hit.group(1), dict(ms=0.0, launches=0))
             k["ms"] += _dev_us(e) / 1e3
             k["launches"] += e.count
-    res = dict(device_busy_ms=sum(_dev_us(e) for e in events) / 1e3,
+    busy = sum(_dev_us(e) for e in events) / 1e3
+    rows = sorted(((_dev_us(e), e.key, e.count) for e in averages
+                   if e.device_type != cuda and _dev_us(e) > 0),
+                  reverse=True)
+    res = dict(device_busy_ms=busy, wall_ms=wall_ms,
+               idle_share=1 - busy / wall_ms,
                ternary_matmul_ms=sum(k["ms"] for k in kernels.values()),
-               ternary_matmul_kernels=kernels)
-    log(f"profile prefill {label}: device_busy_ms="
-        f"{res['device_busy_ms']:.2f} ternary_matmul device ms="
-        f"{res['ternary_matmul_ms']:.3f} by kernel: "
+               batched_ternary_matmul_ms=batched_ms,
+               ternary_matmul_kernels=kernels,
+               top=[dict(name=k, ms=us / 1e3, calls=n)
+                    for us, k, n in rows[:10]])
+    log(f"profile prefill {label}: wall_ms={wall_ms:.1f} device_busy_ms="
+        f"{busy:.2f} idle_share={res['idle_share']:.3f} ternary_matmul "
+        f"device ms={res['ternary_matmul_ms']:.3f} (batched "
+        f"{res['batched_ternary_matmul_ms']:.3f}) by kernel: "
         + "; ".join(f"{name} {k['ms']:.3f} ms x{k['launches']}"
-                    for name, k in sorted(kernels.items())))
+                    for name, k in sorted(kernels.items()))
+        + " top ops: " + "; ".join(f"{t['name']} {t['ms']:.2f} ms "
+                                   f"x{t['calls']}" for t in res["top"][:6]))
     return res
 
 
@@ -978,11 +1120,85 @@ def product_cost(torch, dev, params, cfg, rows=4):
     return res
 
 
+def serve_pair(torch, dev, cfg, params, prompts, datapath, fmt,
+               new_tokens, kernels):
+    """Serve ``prompts`` through ``ServeEngine`` (4 slots, pages of 16,
+    prefill chunks of 64) on one datapath x kv_format pair, the launch
+    counts set to 0 just before and read just after: every kernel of
+    ``kernels`` must have launched and the batched tokens must equal
+    ``sequential_generate``'s.  Returns (result, a function that makes
+    the same engine afresh with the prompts queued)."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.serving import ServeEngine, sequential_generate
+
+    def engine():
+        eng = ServeEngine(params, cfg, max_slots=4, max_len=256,
+                          page_size=16, prefill_chunk=64, datapath=datapath,
+                          kv_format=fmt, device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=new_tokens)
+        return eng
+
+    eng = engine()
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._admit()                       # batched chunked prefill
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    done, steps = [], 0
+    t1 = time.perf_counter()
+    while eng.queue or any(s is not None for s in eng.slots):
+        done += eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t1
+    launches = dict(kbuild.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    tag = f"{cfg.name} {datapath}x{fmt}"
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    got = [r.generated for r in sorted(done, key=lambda r: r.rid)]
+    if len(got) != len(prompts):
+        raise AssertionError(f"{tag}: {len(got)} of {len(prompts)} "
+                             f"requests finished")
+    want = sequential_generate(params, cfg, prompts,
+                               max_new_tokens=new_tokens, max_len=256,
+                               datapath=datapath, kv_format=fmt,
+                               page_size=16, device=dev)
+    if got != want:
+        raise AssertionError(f"{tag}: batched tokens differ from "
+                             f"sequential_generate\n{got}\n{want}")
+    if any(not 0 <= t < cfg.vocab_size for g in got for t in g):
+        raise AssertionError(f"{tag}: token out of vocab")
+    n_tok = sum(len(g) for g in got)
+    res = dict(datapath=datapath, kv_format=fmt, layers=cfg.n_layers,
+               prompt_lens=[len(p) for p in prompts], new_tokens=new_tokens,
+               prefill_ms=t_prefill * 1e3, decode_steps=steps,
+               decode_ms_per_step=t_decode * 1e3 / max(steps, 1),
+               tokens_per_s=n_tok / (t_prefill + t_decode),
+               max_memory_allocated=peak, launches=launches,
+               tokens_equal_sequential=True)
+    log(f"serve {tag}: prefill_ms={res['prefill_ms']:.1f} "
+        f"decode_ms_per_step={res['decode_ms_per_step']:.1f} "
+        f"steps={steps} tokens/s={res['tokens_per_s']:.2f} "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB "
+        f"launches={launches} batched==sequential")
+    return res, engine
+
+
+def _prompts(torch, cfg, plens):
+    rng = torch.Generator().manual_seed(SEED)
+    return [torch.randint(0, cfg.vocab_size, (n,), generator=rng).tolist()
+            for n in plens]
+
+
 def serve(torch, dev, layers):
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build as kbuild
     from repro_torch.models import init_params
-    from repro_torch.serving import ServeEngine, sequential_generate
     cfg = get_arch("granite-3-2b")
     if layers != cfg.n_layers:
         cfg = cfg.scaled(n_layers=layers)
@@ -992,93 +1208,47 @@ def serve(torch, dev, layers):
     log(f"init_params granite-3-2b layers={layers} d_model={cfg.d_model} "
         f"vocab={cfg.padded_vocab} dtype={cfg.dtype}: "
         f"{time.perf_counter() - t0:.1f} s")
-    rng = torch.Generator().manual_seed(SEED)
-    plens = (32, 57, 96, 128)
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=rng)
-               .tolist() for n in plens]
+    prompts = _prompts(torch, cfg, (32, 57, 96, 128))
     totals = dict.fromkeys(kbuild.KERNELS, 0)
     results = []
-
-    def engine(datapath, fmt):
-        eng = ServeEngine(params, cfg, max_slots=4, max_len=256,
-                          page_size=16, prefill_chunk=64, datapath=datapath,
-                          kv_format=fmt, device=dev)
-        for p in prompts:
-            eng.submit(p, max_new_tokens=NEW_TOKENS)
-        return eng
-
     for datapath, fmt in PAIRS:
-        eng = engine(datapath, fmt)
-        torch.cuda.reset_peak_memory_stats()
-        kbuild.reset_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        eng._admit()                       # batched chunked prefill
-        torch.cuda.synchronize()
-        t_prefill = time.perf_counter() - t0
-        done, steps = [], 0
-        t1 = time.perf_counter()
-        while eng.queue or any(s is not None for s in eng.slots):
-            done += eng.step()
-            steps += 1
-        torch.cuda.synchronize()
-        t_decode = time.perf_counter() - t1
-        launches = dict(kbuild.LAUNCHES)
-        peak = torch.cuda.max_memory_allocated()
-        for k, v in launches.items():
+        res, engine = serve_pair(torch, dev, cfg, params, prompts, datapath,
+                                 fmt, NEW_TOKENS, PATH_KERNELS[datapath])
+        for k, v in res["launches"].items():
             totals[k] += v
-        missing = [k for k in PATH_KERNELS[datapath] if launches[k] == 0]
-        if missing:
-            raise AssertionError(f"{datapath}x{fmt}: kernels never "
-                                 f"launched: {missing}")
-        got = [r.generated for r in sorted(done, key=lambda r: r.rid)]
-        if len(got) != len(prompts):
-            raise AssertionError(f"{datapath}x{fmt}: {len(got)} of "
-                                 f"{len(prompts)} requests finished")
-        want = sequential_generate(params, cfg, prompts,
-                                   max_new_tokens=NEW_TOKENS, max_len=256,
-                                   datapath=datapath, kv_format=fmt,
-                                   page_size=16, device=dev)
-        if got != want:
-            raise AssertionError(f"{datapath}x{fmt}: batched tokens differ "
-                                 f"from sequential_generate\n{got}\n{want}")
-        if any(not 0 <= t < cfg.vocab_size for g in got for t in g):
-            raise AssertionError(f"{datapath}x{fmt}: token out of vocab")
-        n_tok = sum(len(g) for g in got)
-        res = dict(datapath=datapath, kv_format=fmt, layers=layers,
-                   prompt_lens=list(plens), new_tokens=NEW_TOKENS,
-                   prefill_ms=t_prefill * 1e3, decode_steps=steps,
-                   decode_ms_per_step=t_decode * 1e3 / max(steps, 1),
-                   tokens_per_s=n_tok / (t_prefill + t_decode),
-                   max_memory_allocated=peak, launches=launches,
-                   tokens_equal_sequential=True)
         results.append(res)
-        log(f"serve {datapath}x{fmt}: prefill_ms={res['prefill_ms']:.1f} "
-            f"decode_ms_per_step={res['decode_ms_per_step']:.1f} "
-            f"steps={steps} tokens/s={res['tokens_per_s']:.2f} "
-            f"max_memory_allocated={peak / 2**30:.2f} GiB "
-            f"launches={launches} batched==sequential")
-        eng = engine(datapath, fmt)         # profile a fresh third step
+        eng = engine()                      # profile a fresh third step
         eng.step()
         eng.step()
         res["profile"] = profile_decode_step(torch, eng, f"{datapath}_{fmt}",
                                              res["decode_ms_per_step"])
         if datapath == "sc_int":
             res["profile_prefill"] = profile_prefill(
-                torch, engine(datapath, fmt), f"{datapath}_{fmt}")
+                torch, engine(), f"{datapath}_{fmt}")
         del eng
     return results, totals, product_cost(torch, dev, params, cfg)
 
 
-def tiny_card_equals_cpu(torch, dev):
-    """The tiny float32 config: tokens on the card (kernels) equal tokens
-    on the CPU (plain versions), for each datapath x format pair."""
+TINY_SCALE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
+                  vocab_pad_multiple=32, dtype="float32")
+# tiny float32 configs held card == CPU: granite, and qwen3 / dbrx at the
+# reference's REDUCED MoE sizes (tests/test_models_smoke.py)
+TINY = {"granite-3-2b": dict(d_ff=128, vocab_size=64),
+        "qwen3-moe-235b-a22b": dict(d_ff=48, vocab_size=131, n_experts=8,
+                                    n_experts_per_tok=2, moe_group_size=16,
+                                    moe_capacity_factor=4.0),
+        "dbrx-132b": dict(d_ff=96, vocab_size=131, n_experts=4,
+                          n_experts_per_tok=2, moe_group_size=16,
+                          moe_capacity_factor=2.0)}
+
+
+def tiny_card_equals_cpu(torch, dev, arch="granite-3-2b"):
+    """A tiny float32 config: tokens on the card (kernels) equal tokens on
+    the CPU (plain versions), for each datapath x format pair."""
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.serving import ServeEngine
-    cfg = get_arch("granite-3-2b").scaled(
-        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-        vocab_size=64, vocab_pad_multiple=32, dtype="float32")
+    cfg = get_arch(arch).scaled(**TINY_SCALE, **TINY[arch])
     cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     gpu = _to(cpu, dev)
     prompts = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [10, 11, 12, 13, 14]]
@@ -1093,9 +1263,9 @@ def tiny_card_equals_cpu(torch, dev):
             toks.append([r.generated for r in sorted(
                 eng.run_to_completion(), key=lambda r: r.rid)])
         if toks[0] != toks[1]:
-            raise AssertionError(f"tiny {datapath}x{fmt}: card {toks[1]} "
-                                 f"!= cpu {toks[0]}")
-        log(f"tiny {datapath}x{fmt}: card tokens == cpu tokens")
+            raise AssertionError(f"tiny {arch} {datapath}x{fmt}: card "
+                                 f"{toks[1]} != cpu {toks[0]}")
+        log(f"tiny {arch} {datapath}x{fmt}: card tokens == cpu tokens")
 
 
 # ---------------------------------------------------------------------------
@@ -1492,6 +1662,78 @@ def tiny_train_card_equals_cpu(torch, dev):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 7: serving a mixture of experts at full width
+# ---------------------------------------------------------------------------
+
+MOE_ARCH = "qwen3-moe-235b-a22b"
+MOE_NEW_TOKENS = 8
+# the expert products run on the batched ternary matmul under both integer
+# datapaths (experts keep the exact accumulator under sc_int_approx)
+MOE_PATH_KERNELS = {"qat": ("paged_attn_decode", "paged_attn_prefill"),
+                    "sc_int": ("paged_attn_decode", "paged_attn_prefill",
+                               "ternary_matmul", "ternary_matmul_batched"),
+                    "sc_int_approx": ("paged_attn_decode",
+                                      "paged_attn_prefill", "approx_bsn",
+                                      "ternary_matmul_batched")}
+
+
+def serve_moe(torch, dev, layers):
+    """Phase 7: qwen3-moe-235b-a22b at its published widths (d 4096, 64 /
+    4 heads, 128 experts top-8, expert d_ff 1536, vocab 151936, bf16,
+    qk_norm), seeded random weights, ``layers`` of its 94 layers and
+    capacity factor E / k = 16 (no token drops, so batched == sequential
+    is defined), served on the three pairs.  Each pair's batched
+    ternary matmul must launch 3 times a layer in each prefill chunk
+    round and each decode step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import init_params
+    from repro_torch.serving.paging import pad_pow2
+    base = get_arch(MOE_ARCH)
+    cfg = base.scaled(n_layers=layers, moe_capacity_factor=float(
+        base.n_experts // base.n_experts_per_tok))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    weights_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"init_params {MOE_ARCH} layers={layers} d_model={cfg.d_model} "
+        f"experts={cfg.n_experts} top-{cfg.n_experts_per_tok} d_ff="
+        f"{cfg.d_ff} vocab={cfg.padded_vocab} cf="
+        f"{cfg.moe_capacity_factor} dtype={cfg.dtype}: "
+        f"{time.perf_counter() - t0:.1f} s, {weights_gib:.2f} GiB")
+    plens = (32, 57, 96, 128)
+    prompts = _prompts(torch, cfg, plens)
+    rounds = pad_pow2(max(plens)) // 64       # the engine's chunk rounds
+    totals = dict.fromkeys(kbuild.KERNELS, 0)
+    results = []
+    for datapath, fmt in PAIRS:
+        res, engine = serve_pair(torch, dev, cfg, params, prompts, datapath,
+                                 fmt, MOE_NEW_TOKENS,
+                                 MOE_PATH_KERNELS[datapath])
+        n = res["launches"]["ternary_matmul_batched"]
+        want = 0 if datapath == "qat" else \
+            3 * layers * (rounds + res["decode_steps"])
+        if n != want:
+            raise AssertionError(f"{MOE_ARCH} {datapath}x{fmt}: batched "
+                                 f"ternary_matmul launched {n} times, not "
+                                 f"{want}")
+        for k, v in res["launches"].items():
+            totals[k] += v
+        res["weights_gib"] = weights_gib
+        results.append(res)
+        eng = engine()                      # profile a fresh third step
+        eng.step()
+        eng.step()
+        res["profile"] = profile_decode_step(
+            torch, eng, f"moe_{datapath}_{fmt}", res["decode_ms_per_step"])
+        del eng
+        res["profile_prefill"] = profile_prefill(
+            torch, engine(), f"moe {datapath}_{fmt}")
+    return results, totals
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1505,6 +1747,9 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=40,
                     help="granite-3-2b depth to serve and train (full "
                          "width always)")
+    ap.add_argument("--moe-layers", type=int, default=8,
+                    help="qwen3-moe-235b-a22b depth to serve in phase 7 "
+                         "(of 94; full width always)")
     args = ap.parse_args()
 
     import torch
@@ -1548,6 +1793,7 @@ def main() -> int:
     dec = check_decode(torch, dev, gen)
     pre = check_prefill(torch, dev, gen)
     tmm = check_ternary_matmul(torch, dev, gen)
+    tmb = check_ternary_matmul_batched(torch, dev, gen)
     srt = check_bsn_sort(torch, dev, gen)
     fla = check_flash(torch, dev, gen)
 
@@ -1565,6 +1811,13 @@ def main() -> int:
     for k, v in training["launches"].items():
         launches[k] += v
     training["tiny_card_vs_cpu"] = tiny_train_card_equals_cpu(torch, dev)
+
+    # phase 7: a mixture of experts at full width, then tiny MoE card==cpu
+    moe_serving, moe_launches = serve_moe(torch, dev, args.moe_layers)
+    for k, v in moe_launches.items():
+        launches[k] += v
+    for arch in ("qwen3-moe-235b-a22b", "dbrx-132b"):
+        tiny_card_equals_cpu(torch, dev, arch)
 
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
@@ -1588,6 +1841,9 @@ def main() -> int:
         entry("ternary_matmul", csrc + "ternary_matmul.cu",
               "src/repro/kernels/ternary_matmul.py:81", tmm,
               "decode lm_head"),
+        entry("ternary_matmul_batched", csrc + "ternary_matmul.cu",
+              "src/repro/kernels/ternary_matmul.py:81", tmb,
+              "qwen3 decode gate/up"),
         entry("bsn_sort", csrc + "bsn_sort.cu",
               "src/repro/kernels/bsn_sort.py:54", srt,
               "exact BSN q_proj 4 tokens"),
@@ -1600,8 +1856,10 @@ def main() -> int:
          "sass": sass,
          "approx_bsn": bsn, "approx_bsn_temporal": tmp,
          "paged_attn_decode": dec, "paged_attn_prefill": pre,
-         "ternary_matmul": tmm, "bsn_sort": srt, "flash_attention": fla,
+         "ternary_matmul": tmm, "ternary_matmul_batched": tmb,
+         "bsn_sort": srt, "flash_attention": fla,
          "serving": serving, "sc_datapath": sc, "training": training,
+         "moe_serving": moe_serving,
          "float_products": products, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

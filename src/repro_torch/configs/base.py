@@ -21,7 +21,7 @@ __all__ = ["LayerSpec", "ModelConfig", "register_arch", "get_arch",
 class LayerSpec:
     """One layer within the repeating period."""
     mixer: str = "attn"        # attn (the only mixer ported so far)
-    ffn: str = "dense"         # dense (the only ffn ported so far)
+    ffn: str = "dense"         # dense | moe
 
 
 @dataclass(frozen=True)
@@ -36,13 +36,18 @@ class ModelConfig:
     vocab_size: int
     d_head: int = 0             # 0 -> d_model // n_heads
     period: tuple[LayerSpec, ...] = (LayerSpec(),)
-    norm: str = "rmsnorm"
-    ffn_act: str = "silu"
+    norm: str = "rmsnorm"       # rmsnorm | layernorm
+    ffn_act: str = "silu"       # silu | gelu | relu | relu2
     ffn_gated: bool = True
     rope_theta: float = 10000.0
     rope_fraction: float = 1.0
     causal: bool = True
-    qk_norm: bool = False
+    qk_norm: bool = False       # per-head q / k RMSNorm (qwen3)
+    # MoE
+    n_experts: int = 0
+    n_experts_per_tok: int = 0
+    moe_capacity_factor: float = 1.25
+    moe_group_size: int = 1024  # tokens per dispatch group (GShard-style)
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
     quant: SCQuantConfig = SC_OFF

@@ -40,9 +40,11 @@ BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+# "ternary_matmul_batched" counts the ternary matmul's launches that hold
+# a batch of products (the MoE experts'), "ternary_matmul" the single ones
 KERNELS = ("approx_bsn", "approx_bsn_temporal", "paged_attn_decode",
-           "paged_attn_prefill", "ternary_matmul", "bsn_sort",
-           "flash_attention")
+           "paged_attn_prefill", "ternary_matmul", "ternary_matmul_batched",
+           "bsn_sort", "flash_attention")
 # launches of each kernel since the last reset_launches()
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
@@ -63,8 +65,8 @@ _SIGNATURES = {
     # stream
     "paged_attn_prefill_launch": [_P] * 10 + [_I] * 11 + [_P],
     "paged_attn_prefill_split_tokens": [],
-    # x, w, thresholds (or null), out, M, N, K, out_bsl, stream
-    "ternary_matmul_launch": [_P] * 4 + [_I] * 4 + [_P],
+    # x, w, thresholds (or null), out, batch, M, N, K, out_bsl, stream
+    "ternary_matmul_launch": [_P] * 4 + [_I] * 5 + [_P],
     # in, out, rows, L, dtype code, descending, stream
     "bsn_sort_launch": [_P, _P, _I, _I, _I, _I, _P],
     # q, k, v, out, lse, B, S, Hq, Hkv, D, scale, causal, dtype, stream

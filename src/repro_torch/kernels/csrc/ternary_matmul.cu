@@ -9,6 +9,13 @@
 //     out[m, n] = #{j : sum >= t[n, j]} - out_bsl / 2.
 // x is (M, K) int8, w keeps the reference's (K, N) int8 layout.
 //
+// Batched: a launch may hold E independent products (E, M, K) x (E, K, N)
+// -> (E, M, N), one per MoE expert (src/repro/models/moe.py's
+// _expert_matmul einsums under sc_int).  Grid z enumerates (product, K
+// split) pairs, each block offsets x, w and out by its product's batch
+// stride, and both kernels count the E x tiles when they decide whether
+// K must split to fill the card.  The SI epilogue takes one product.
+//
 // What bounds it.  At decode (M <= 16 rows) reading the weights: each
 // weight byte feeds at most 16 multiply-adds, so the (K, N) int8 read at
 // 3.35 TB/s is the limit (granite-3-2b: 0.755 ms for one 4-lane step's
@@ -93,8 +100,8 @@ __global__ void __launch_bounds__(THREADS)
 ternary_matmul_kernel(const int8_t* __restrict__ x,
                       const int8_t* __restrict__ w,
                       const int* __restrict__ thr, int* __restrict__ out,
-                      int M, int N, int K, int groups_per_split,
-                      int out_bsl) {
+                      int M, int N, int K, int groups_per_split, int splits,
+                      size_t x_bs, size_t w_bs, size_t o_bs, int out_bsl) {
   extern __shared__ __align__(16) int smem[];
   int* red = smem;
   int* thr_s = red + MT * TILE_N;
@@ -103,8 +110,13 @@ ternary_matmul_kernel(const int8_t* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int n0 = blockIdx.x * TILE_N;
   const int m0 = blockIdx.y * MT;
+  const int split = blockIdx.z % splits;
+  const size_t b = blockIdx.z / splits;             // the product
+  x += b * x_bs;
+  w += b * w_bs;
+  out += b * o_bs;
   const int G = K / 4;                              // row groups of 4
-  const int g0 = blockIdx.z * groups_per_split;
+  const int g0 = split * groups_per_split;
   const int g1 = min(G, g0 + groups_per_split);
   const int ng = g1 - g0;
 
@@ -179,7 +191,7 @@ ternary_matmul_kernel(const int8_t* __restrict__ x,
       int cnt = 0;
       for (int b = 0; b < out_bsl; ++b) cnt += v >= t[b];
       *dst = cnt - out_bsl / 2;
-    } else if (gridDim.z > 1) {
+    } else if (splits > 1) {
       atomicAdd(dst, v);
     } else {
       *dst = v;
@@ -202,8 +214,8 @@ int sm_count() {
 }
 
 template <int MT, bool SI>
-int run(const int8_t* x, const int8_t* w, const int* thr, int* out, int M,
-        int N, int K, int out_bsl, cudaStream_t stream) {
+int run(const int8_t* x, const int8_t* w, const int* thr, int* out,
+        int batch, int M, int N, int K, int out_bsl, cudaStream_t stream) {
   const int G = K / 4;
   const int col_tiles = (N + TILE_N - 1) / TILE_N;
   const int row_tiles = (M + MT - 1) / MT;
@@ -214,7 +226,7 @@ int run(const int8_t* x, const int8_t* w, const int* thr, int* out, int M,
   if (!SI && G > 0) {
     // split K until about two blocks per SM are in flight, and so that
     // the block's x rows fit in shared memory
-    const long tiles = static_cast<long>(col_tiles) * row_tiles;
+    const long tiles = static_cast<long>(col_tiles) * row_tiles * batch;
     const long want = (2L * sm_count() + tiles - 1) / tiles;
     int splits = static_cast<int>(want < G ? want : G);
     gps = (G + splits - 1) / splits;
@@ -223,21 +235,23 @@ int run(const int8_t* x, const int8_t* w, const int* thr, int* out, int M,
     if (gps > fit) gps = static_cast<int>(fit);
   }
   const int splits = G > 0 ? (G + gps - 1) / gps : 1;
-  if (splits > 65535)
-    return refuse("ternary_matmul: K=%d needs %d splits, above a grid's "
-                  "65535", K, splits);
+  if (static_cast<long>(splits) * batch > 65535)
+    return refuse("ternary_matmul: %d products x %d K splits (K=%d) are "
+                  "above a grid's 65535", batch, splits, K);
   const size_t smem = fixed + static_cast<size_t>(MT) * gps * sizeof(int);
   int rc = prepare_smem(ternary_matmul_kernel<MT, SI>, smem,
                         "ternary_matmul");
   if (rc) return rc;
+  const size_t mn = static_cast<size_t>(M) * N;
   if (splits > 1) {
-    rc = static_cast<int>(cudaMemsetAsync(
-        out, 0, static_cast<size_t>(M) * N * sizeof(int), stream));
+    rc = static_cast<int>(
+        cudaMemsetAsync(out, 0, batch * mn * sizeof(int), stream));
     if (rc) return rc;
   }
-  const dim3 grid(col_tiles, row_tiles, splits);
+  const dim3 grid(col_tiles, row_tiles, batch * splits);
   ternary_matmul_kernel<MT, SI><<<grid, THREADS, smem, stream>>>(
-      x, w, thr, out, M, N, K, gps, out_bsl);
+      x, w, thr, out, M, N, K, gps, splits, static_cast<size_t>(M) * K,
+      static_cast<size_t>(K) * N, mn, out_bsl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -324,6 +338,7 @@ ternary_matmul_mma_kernel(const int8_t* __restrict__ x,
                           const int8_t* __restrict__ w,
                           const int* __restrict__ thr, int* __restrict__ out,
                           int M, int N, int K, int ktiles_per_split,
+                          int splits, size_t x_bs, size_t w_bs, size_t o_bs,
                           int out_bsl) {
   extern __shared__ __align__(1024) uint8_t tmm_smem[];
   const uint32_t base = (smem_u32(tmm_smem) + 1023) & ~1023u;
@@ -334,7 +349,11 @@ ternary_matmul_mma_kernel(const int8_t* __restrict__ x,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wg = warp >> 2;                 // warpgroup: rows 64 wg..
   const int m0 = blockIdx.x * TC_BM, n0 = blockIdx.y * TC_BN;
-  const int kt0 = blockIdx.z * ktiles_per_split;
+  const size_t bz = blockIdx.z / splits;    // the product
+  x += bz * x_bs;
+  w += bz * w_bs;
+  out += bz * o_bs;
+  const int kt0 = (blockIdx.z % splits) * ktiles_per_split;
   const int nkt = min((K + TC_BK - 1) / TC_BK, kt0 + ktiles_per_split) - kt0;
   const bool live = m0 + 64 * wg < M;       // the warpgroup has rows
 
@@ -464,7 +483,7 @@ ternary_matmul_mma_kernel(const int8_t* __restrict__ x,
       if (n0 + jn >= N) continue;           // N % 16: both or neither
       const int v0 = acc[4 * j + 2 * hr], v1 = acc[4 * j + 2 * hr + 1];
       int* dst = out + static_cast<size_t>(gm) * N + n0 + jn;
-      if (!SI && gridDim.z > 1) {
+      if (!SI && splits > 1) {
         atomicAdd(dst, v0);
         atomicAdd(dst + 1, v1);
       } else {
@@ -476,15 +495,16 @@ ternary_matmul_mma_kernel(const int8_t* __restrict__ x,
 
 template <bool SI>
 int run_mma(const int8_t* x, const int8_t* w, const int* thr, int* out,
-            int M, int N, int K, int out_bsl, cudaStream_t stream) {
+            int batch, int M, int N, int K, int out_bsl,
+            cudaStream_t stream) {
   const int row_tiles = (M + TC_BM - 1) / TC_BM;
   const int col_tiles = (N + TC_BN - 1) / TC_BN;
   const int kt = (K + TC_BK - 1) / TC_BK;
   int kps = kt;                          // K slices per split
   if (!SI && kt > 0) {
-    // split K (a function of the shape alone) when the tiles leave most
-    // of the card idle
-    const long tiles = static_cast<long>(row_tiles) * col_tiles;
+    // split K (a function of the shape alone) when the tiles of all the
+    // products leave most of the card idle
+    const long tiles = static_cast<long>(row_tiles) * col_tiles * batch;
     long splits = tiles < TC_FILL_BLOCKS ? TC_FILL_BLOCKS / tiles : 1;
     if (splits > TC_MAX_SPLITS) splits = TC_MAX_SPLITS;
     kps = static_cast<int>((kt + splits - 1) / splits);
@@ -492,37 +512,46 @@ int run_mma(const int8_t* x, const int8_t* w, const int* thr, int* out,
   const int splits = kt > 0 ? (kt + kps - 1) / kps : 1;
   if (col_tiles > 65535)
     return refuse("ternary_matmul: N=%d has too many column tiles", N);
+  if (static_cast<long>(splits) * batch > 65535)
+    return refuse("ternary_matmul: %d products x %d K splits are above a "
+                  "grid's 65535", batch, splits);
   const size_t smem = 1024 + static_cast<size_t>(TC_STAGES + 1) * 2 * TC_TILE +
                       (SI ? static_cast<size_t>(TC_BN) * out_bsl * sizeof(int)
                           : 0);
   int rc = prepare_smem(ternary_matmul_mma_kernel<SI>, smem,
                         "ternary_matmul");
   if (rc) return rc;
+  const size_t mn = static_cast<size_t>(M) * N;
   if (splits > 1) {
-    rc = static_cast<int>(cudaMemsetAsync(
-        out, 0, static_cast<size_t>(M) * N * sizeof(int), stream));
+    rc = static_cast<int>(
+        cudaMemsetAsync(out, 0, batch * mn * sizeof(int), stream));
     if (rc) return rc;
   }
-  const dim3 grid(row_tiles, col_tiles, splits);
+  const dim3 grid(row_tiles, col_tiles, batch * splits);
   ternary_matmul_mma_kernel<SI><<<grid, THREADS, smem, stream>>>(
-      x, w, thr, out, M, N, K, kps, out_bsl);
+      x, w, thr, out, M, N, K, kps, splits, static_cast<size_t>(M) * K,
+      static_cast<size_t>(K) * N, mn, out_bsl);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (M, K) int8, w (K, N) int8, thr (N, out_bsl) int32 or null, out
-// (M, N) int32, all contiguous on the card (checked by the Python
-// wrapper, kernels/ternary_matmul.py).  M <= DP4A_MAX_ROWS runs the dp4a
-// kernel (K, N multiples of 4, x and w 4-byte aligned), larger M the
-// tensor-core kernel (K, N multiples of 16, x and w 16-byte aligned).
-// Returns a CUDA error code.
+// x (batch, M, K) int8, w (batch, K, N) int8, thr (N, out_bsl) int32 or
+// null (one product only), out (batch, M, N) int32, all contiguous on the
+// card (checked by the Python wrapper, kernels/ternary_matmul.py).
+// M <= DP4A_MAX_ROWS runs the dp4a kernel (K, N multiples of 4, x and w
+// 4-byte aligned), larger M the tensor-core kernel (K, N multiples of 16,
+// x and w 16-byte aligned).  Returns a CUDA error code.
 extern "C" int ternary_matmul_launch(const void* x, const void* w,
-                                     const void* thr, void* out, int M,
-                                     int N, int K, int out_bsl,
+                                     const void* thr, void* out, int batch,
+                                     int M, int N, int K, int out_bsl,
                                      void* stream) {
-  if (M < 0 || N < 0 || K < 0)
-    return refuse("ternary_matmul: negative shape M=%d N=%d K=%d", M, N, K);
+  if (batch < 0 || M < 0 || N < 0 || K < 0)
+    return refuse("ternary_matmul: negative shape batch=%d M=%d N=%d K=%d",
+                  batch, M, N, K);
+  if (thr && batch > 1)
+    return refuse("ternary_matmul: the SI epilogue takes one product, got "
+                  "batch=%d", batch);
   const bool mma = M > DP4A_MAX_ROWS;
   const int mult = mma ? 16 : 4;
   if (K % mult || N % mult)
@@ -536,20 +565,21 @@ extern "C" int ternary_matmul_launch(const void* x, const void* w,
   if (thr && (out_bsl < 1 || out_bsl > MAX_OUT_BSL))
     return refuse("ternary_matmul: the SI epilogue takes 1..%d threshold "
                   "columns, got out_bsl=%d", MAX_OUT_BSL, out_bsl);
-  if (M == 0 || N == 0) return 0;
+  if (batch == 0 || M == 0 || N == 0) return 0;
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* tp = static_cast<const int*>(thr);
   auto* op = static_cast<int*>(out);
   auto s = static_cast<cudaStream_t>(stream);
+  const int B = batch;
   if (M <= 4) {
-    return thr ? run<4, true>(xp, wp, tp, op, M, N, K, out_bsl, s)
-               : run<4, false>(xp, wp, tp, op, M, N, K, out_bsl, s);
+    return thr ? run<4, true>(xp, wp, tp, op, B, M, N, K, out_bsl, s)
+               : run<4, false>(xp, wp, tp, op, B, M, N, K, out_bsl, s);
   }
   if (!mma) {
-    return thr ? run<16, true>(xp, wp, tp, op, M, N, K, out_bsl, s)
-               : run<16, false>(xp, wp, tp, op, M, N, K, out_bsl, s);
+    return thr ? run<16, true>(xp, wp, tp, op, B, M, N, K, out_bsl, s)
+               : run<16, false>(xp, wp, tp, op, B, M, N, K, out_bsl, s);
   }
-  return thr ? run_mma<true>(xp, wp, tp, op, M, N, K, out_bsl, s)
-             : run_mma<false>(xp, wp, tp, op, M, N, K, out_bsl, s);
+  return thr ? run_mma<true>(xp, wp, tp, op, B, M, N, K, out_bsl, s)
+             : run_mma<false>(xp, wp, tp, op, B, M, N, K, out_bsl, s);
 }

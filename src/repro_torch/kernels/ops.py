@@ -30,10 +30,10 @@ def _round_up(x: int, m: int) -> int:
 
 def pad_operands(x2: torch.Tensor, w_int: torch.Tensor,
                  thresholds_q: torch.Tensor | None, multiple: int):
-    """Zero-pad K and N of ``x2 (M, K)`` and ``w_int (K, N)`` to
+    """Zero-pad K and N of ``x2 (..., M, K)`` and ``w_int (..., K, N)`` to
     ``multiple``; padded output channels get a never-firing threshold.
     Operands already on the multiple come back as they are."""
-    k, n = w_int.shape
+    k, n = w_int.shape[-2:]
     kp, np_ = _round_up(k, multiple), _round_up(n, multiple)
     if kp != k:
         x2 = F.pad(x2, (0, kp - k))
@@ -49,7 +49,9 @@ def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
                    thresholds_q: torch.Tensor | None = None) -> torch.Tensor:
     """SC integer datapath matmul: ``(..., K)`` x ``(K, N)`` -> ``(..., N)``
     int32, then the SI epilogue when ``thresholds_q (N, out_bsl)`` (q
-    domain) is given.
+    domain) is given.  A 3-d ``w_int (E, K, N)`` takes ``x_q (E, M, K)``
+    to ``(E, M, N)``: E independent products (the MoE experts'), one
+    kernel launch on the card, no SI.
 
     ``x_q``: int8 activation levels; ``w_int``: int8 ternary weights.  On
     the card, K and N are zero-padded to the multiple the kernel for this
@@ -57,6 +59,8 @@ def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
     when they are ragged (padded output channels get a never-firing
     threshold and are cropped); any M is taken as it is.
     """
+    if w_int.ndim == 3:
+        return _batched(x_q, w_int, thresholds_q)
     *batch, k = x_q.shape
     k2, n = w_int.shape
     if k != k2:
@@ -75,6 +79,23 @@ def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
         if out.shape[1] != n:
             out = out[:, :n]
     return out.reshape(*batch, n) if batch else out[0]
+
+
+def _batched(x_q: torch.Tensor, w_int: torch.Tensor,
+             thresholds_q: torch.Tensor | None) -> torch.Tensor:
+    """``(E, M, K)`` x ``(E, K, N)`` -> ``(E, M, N)`` int32."""
+    if thresholds_q is not None:
+        raise ValueError("the SI epilogue takes one product, not a batch")
+    if (x_q.ndim != 3 or x_q.shape[0] != w_int.shape[0]
+            or x_q.shape[2] != w_int.shape[1]):
+        raise ValueError(f"expected x_q (E, M, K) and w_int (E, K, N), got "
+                         f"{tuple(x_q.shape)} and {tuple(w_int.shape)}")
+    if not x_q.is_cuda:
+        return ref.ternary_matmul_ref(x_q, w_int)
+    n = w_int.shape[2]
+    x2, w2, _ = pad_operands(x_q, w_int, None, operand_multiple(x_q.shape[1]))
+    out = ternary_matmul_cuda(x2.contiguous(), w2.contiguous())
+    return out if out.shape[2] == n else out[..., :n]
 
 
 def sort_rows(x: torch.Tensor, *, descending: bool = True) -> torch.Tensor:

@@ -34,7 +34,8 @@ def ternary_matmul_ref(x_q: torch.Tensor, w_int: torch.Tensor,
                        thresholds_q: torch.Tensor | None = None
                        ) -> torch.Tensor:
     """int8 activation levels ``(..., K)`` x int8 ternary weights ``(K, N)``
-    -> int32 sums, then the optional SI epilogue.
+    -> int32 sums, then the optional SI epilogue; or, batched, ``(E, M,
+    K)`` x ``(E, K, N)`` -> ``(E, M, N)`` (``torch.matmul``'s broadcast).
 
     The product runs in float64 on every device: CUDA ``torch.matmul`` has
     no integer product, and float64 holds every partial sum exactly

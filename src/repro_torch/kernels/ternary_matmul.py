@@ -3,7 +3,8 @@
 Port of ``repro.kernels.ternary_matmul`` (``ternary_matmul_pallas``):
 int8 activation levels ``(M, K)`` x int8 ternary weights ``(K, N)`` ->
 int32 sums, optionally through the fused SI epilogue ``#{j : sum >=
-t[n, j]} - out_bsl // 2``.  The kernel source is
+t[n, j]} - out_bsl // 2``; or a batch of E such products (the MoE
+experts') in one launch.  The kernel source is
 ``csrc/ternary_matmul.cu``; its plain version is
 ``kernels.ref.ternary_matmul_ref``, and ``kernels.ops.ternary_matmul`` is
 the front door (batching, ragged shapes, the device rule).
@@ -32,10 +33,12 @@ def ternary_matmul_cuda(x_q: torch.Tensor, w_int: torch.Tensor,
                         ) -> torch.Tensor:
     """Launch ``csrc/ternary_matmul.cu``: ``x_q (M, K)`` int8 @ ``w_int
     (K, N)`` int8 -> ``(M, N)`` int32, with the SI epilogue when
-    ``thresholds_q (N, out_bsl)`` int32 (q domain) is given.  K and N must
-    be multiples of :func:`operand_multiple` ``(M)`` (``ops.ternary_matmul``
-    pads) and ``out_bsl`` at most 32.  Raises on anything the kernel does
-    not take (the C entry point checks the multiples and alignment)."""
+    ``thresholds_q (N, out_bsl)`` int32 (q domain) is given; or E products
+    in one launch, ``x_q (E, M, K)`` @ ``w_int (E, K, N)`` -> ``(E, M, N)``
+    (no SI).  K and N must be multiples of :func:`operand_multiple`
+    ``(M)`` (``ops.ternary_matmul`` pads) and ``out_bsl`` at most 32.
+    Raises on anything the kernel does not take (the C entry point checks
+    the multiples and alignment)."""
     si = thresholds_q is not None
     if not (x_q.is_cuda and w_int.is_cuda
             and (not si or thresholds_q.is_cuda)):
@@ -43,29 +46,39 @@ def ternary_matmul_cuda(x_q: torch.Tensor, w_int: torch.Tensor,
     if x_q.dtype != torch.int8 or w_int.dtype != torch.int8:
         raise ValueError(f"x_q and w_int must be int8, got {x_q.dtype} and "
                          f"{w_int.dtype}")
-    if x_q.ndim != 2 or w_int.ndim != 2 or x_q.shape[1] != w_int.shape[0]:
-        raise ValueError(f"expected x_q (M, K) and w_int (K, N), got "
-                         f"{tuple(x_q.shape)} and {tuple(w_int.shape)}")
+    batched = x_q.ndim == 3
+    if (x_q.ndim not in (2, 3) or w_int.ndim != x_q.ndim
+            or x_q.shape[-1] != w_int.shape[-2]
+            or (batched and x_q.shape[0] != w_int.shape[0])):
+        raise ValueError(f"expected x_q (M, K) and w_int (K, N), or (E, M, "
+                         f"K) and (E, K, N), got {tuple(x_q.shape)} and "
+                         f"{tuple(w_int.shape)}")
     if not (x_q.is_contiguous() and w_int.is_contiguous()
             and (not si or thresholds_q.is_contiguous())):
         raise ValueError("ternary_matmul_cuda needs contiguous tensors")
-    m, k = x_q.shape
-    n = w_int.shape[1]
+    e = x_q.shape[0] if batched else 1
+    m, k = x_q.shape[-2:]
+    n = w_int.shape[-1]
     out_bsl = 0
     if si:
+        if batched:
+            raise ValueError("the SI epilogue takes one product, not a "
+                             "batch of them")
         if (thresholds_q.dtype != torch.int32 or thresholds_q.ndim != 2
                 or thresholds_q.shape[0] != n):
             raise ValueError(f"thresholds_q must be ({n}, out_bsl) int32, "
                              f"got {tuple(thresholds_q.shape)} "
                              f"{thresholds_q.dtype}")
         out_bsl = thresholds_q.shape[1]
-    if m >= 2 ** 31 or n >= 2 ** 31 or k >= 2 ** 31:
-        raise ValueError(f"shape ({m}, {k}) x ({k}, {n}) exceeds int32 "
-                         f"indexing")
-    out = torch.empty((m, n), dtype=torch.int32, device=x_q.device)
-    if m == 0 or n == 0:
+    if max(e, m, n, k) >= 2 ** 31:
+        raise ValueError(f"shape {tuple(x_q.shape)} x {tuple(w_int.shape)} "
+                         f"exceeds int32 indexing")
+    out = torch.empty((*x_q.shape[:-1], n), dtype=torch.int32,
+                      device=x_q.device)
+    if out.numel() == 0:
         return out
-    launch("ternary_matmul", "ternary_matmul_launch", x_q.data_ptr(),
+    launch("ternary_matmul_batched" if batched else "ternary_matmul",
+           "ternary_matmul_launch", x_q.data_ptr(),
            w_int.data_ptr(), thresholds_q.data_ptr() if si else None,
-           out.data_ptr(), m, n, k, out_bsl, stream_of(x_q))
+           out.data_ptr(), e, m, n, k, out_bsl, stream_of(x_q))
     return out

@@ -30,7 +30,8 @@ __all__ = ["reduced_config", "main"]
 
 def reduced_config(cfg: ModelConfig, factor: int, seq: int) -> ModelConfig:
     """The reference's reduction: widths and depth divided by ``factor``,
-    vocabulary cut to 2048, float32 (MoE fields are not ported)."""
+    vocabulary cut to 2048, float32, at most 8 experts of which 2 per
+    token, in groups of 64 tokens."""
     if factor <= 1:
         return cfg
     period = len(cfg.period)
@@ -43,10 +44,13 @@ def reduced_config(cfg: ModelConfig, factor: int, seq: int) -> ModelConfig:
     return cfg.scaled(
         n_layers=layers, d_model=d_model, n_heads=heads, n_kv_heads=kv,
         d_ff=max(128, cfg.d_ff // factor // 32 * 32),
-        vocab_size=min(cfg.vocab_size, 2048), vocab_pad_multiple=64,
-        dtype="float32", attn_q_chunk=min(cfg.attn_q_chunk,
-                                          max(seq // 2, 16)),
-        d_head=64)
+        vocab_size=min(cfg.vocab_size, 2048),
+        n_experts=min(cfg.n_experts, 8) if cfg.n_experts else 0,
+        n_experts_per_tok=min(cfg.n_experts_per_tok, 2)
+        if cfg.n_experts else 0,
+        vocab_pad_multiple=64, dtype="float32",
+        attn_q_chunk=min(cfg.attn_q_chunk, max(seq // 2, 16)),
+        moe_group_size=64, d_head=64)
 
 
 def main(argv: list[str] | None = None):

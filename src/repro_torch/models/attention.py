@@ -2,7 +2,9 @@
 KV cache (serving decode + chunked prefill).
 
 Port of ``repro.models.attention`` for attention layers.  ``attn_train``
-runs the differentiable flash attention over the whole sequence.
+runs the differentiable flash attention over the whole sequence.  With
+``cfg.qk_norm`` (qwen3) q and k are RMS-normalized per head, after the
+projection and before RoPE, on every path.
 
 In the paged cache, slot ``s``'s position ``t`` lives at physical page
 ``page_tables[s, t // page]``, offset ``t % page``; padded table lanes
@@ -27,7 +29,7 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.kv_quant import kv_format_of, kv_quant
 from ..kernels import dispatch
-from .common import apply_rope, dense_apply, dense_init
+from .common import apply_rope, dense_apply, dense_init, norm_apply, norm_init
 
 __all__ = ["attn_init", "attn_train", "attn_decode_paged",
            "attn_prefill_paged", "flash_attention"]
@@ -37,15 +39,17 @@ _AUX_KEYS = ("k_scale", "v_scale", "k_resid", "v_resid")
 
 def attn_init(cfg: ModelConfig, *, generator: torch.Generator,
               device: torch.device) -> dict:
-    if cfg.qk_norm:
-        raise NotImplementedError("qk_norm is not ported yet")
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
     kw = dict(generator=generator, device=device,
               dtype=getattr(torch, cfg.dtype))
-    return {"wq": dense_init(cfg.d_model, hq * dh, cfg.quant, **kw),
-            "wk": dense_init(cfg.d_model, hkv * dh, cfg.quant, **kw),
-            "wv": dense_init(cfg.d_model, hkv * dh, cfg.quant, **kw),
-            "wo": dense_init(hq * dh, cfg.d_model, cfg.quant, **kw)}
+    p = {"wq": dense_init(cfg.d_model, hq * dh, cfg.quant, **kw),
+         "wk": dense_init(cfg.d_model, hkv * dh, cfg.quant, **kw),
+         "wv": dense_init(cfg.d_model, hkv * dh, cfg.quant, **kw),
+         "wo": dense_init(hq * dh, cfg.d_model, cfg.quant, **kw)}
+    if cfg.qk_norm:
+        p["q_norm"] = norm_init(dh, "rmsnorm", device)
+        p["k_norm"] = norm_init(dh, "rmsnorm", device)
+    return p
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -56,6 +60,9 @@ def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     q = dense_apply(p["wq"], x, cfg.quant, **kw).reshape(B, S, hq, dh)
     k = dense_apply(p["wk"], x, cfg.quant, **kw).reshape(B, S, hkv, dh)
     v = dense_apply(p["wv"], x, cfg.quant, **kw).reshape(B, S, hkv, dh)
+    if "q_norm" in p:
+        q = norm_apply(p["q_norm"], q, "rmsnorm")
+        k = norm_apply(p["k_norm"], k, "rmsnorm")
     q = apply_rope(q, positions, dh, cfg.rope_fraction, cfg.rope_theta)
     k = apply_rope(k, positions, dh, cfg.rope_fraction, cfg.rope_theta)
     return q, k, v

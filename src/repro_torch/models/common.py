@@ -1,4 +1,5 @@
-"""Shared building blocks: SC-aware dense, RMSNorm, RoPE, activations.
+"""Shared building blocks: SC-aware dense, RMSNorm / LayerNorm, RoPE,
+activations.
 
 Port of ``repro.models.common``.  Every projection routes through
 :func:`dense_apply`: a plain product with quantization off, the
@@ -9,7 +10,7 @@ Batch invariance.  The serving engine's batched decode must give each
 request the tokens it gets alone (``sequential_generate``), so a row's
 result may not depend on how many rows share a call.  The integer
 datapaths are exact; the float row reductions here (the QAT/plain
-product and RMSNorm's mean square) accumulate in float64 and round once
+product and the norms' statistics) accumulate in float64 and round once
 to the working dtype.  That makes the result very likely, not certain,
 to be independent of the batch: the library may still sum in another
 order for another row count, and a float64 difference flips the rounding
@@ -26,12 +27,13 @@ import math
 from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from ..core.quant import ternary_weight_quant, thermometer_act_quant
 from ..core.sc_layers import SCQuantConfig, sc_linear_int_from_qat
 
-__all__ = ["dense_init", "dense_apply", "matmul_rows", "norm_apply",
-           "rope_freqs", "apply_rope", "ACT_FNS", "big_neg"]
+__all__ = ["dense_init", "dense_apply", "matmul_rows", "norm_init",
+           "norm_apply", "rope_freqs", "apply_rope", "ACT_FNS", "big_neg"]
 
 
 def big_neg(dtype: torch.dtype) -> float:
@@ -80,16 +82,35 @@ def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
     return product(x_fq, w_fq.to(x_fq.dtype))
 
 
+def norm_init(d: int, kind: str, device: torch.device) -> dict:
+    """``scale`` ones, plus a ``bias`` of zeros for LayerNorm (float32)."""
+    p = {"scale": torch.ones(d, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros(d, device=device)
+    return p
+
+
+def _mean64(x: torch.Tensor, square: bool = False) -> torch.Tensor:
+    """Mean (of squares) over the last axis, taken in float64 (a float32
+    square is exact there), as float32."""
+    x64 = x.to(torch.float64)
+    return torch.mean(x64 * x64 if square else x64, dim=-1,
+                      keepdim=True).to(torch.float32)
+
+
 def norm_apply(p: dict, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    """RMSNorm in float32 (mean square accumulated in float64), output in
-    ``x.dtype``."""
-    if kind != "rmsnorm":
-        raise NotImplementedError(f"norm {kind!r} is not ported yet")
+    """RMSNorm or LayerNorm in float32 (the statistics accumulated in
+    float64), output in ``x.dtype``."""
     xf = x.to(torch.float32)
-    var = torch.mean(xf.to(torch.float64) ** 2, dim=-1,
-                     keepdim=True).to(torch.float32)
-    out = xf * torch.rsqrt(var + eps) * p["scale"]
+    if kind == "rmsnorm":
+        out = xf * torch.rsqrt(_mean64(xf, square=True) + eps) * p["scale"]
+    elif kind == "layernorm":
+        xc = xf - _mean64(xf)
+        out = xc * torch.rsqrt(_mean64(xc, square=True) + eps) \
+            * p["scale"] + p["bias"]
+    else:
+        raise ValueError(f"unknown norm {kind!r}")
     return out.to(x.dtype)
 
 
@@ -119,6 +140,10 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, head_dim: int,
     return torch.cat([yr.to(x.dtype), xp], dim=-1)
 
 
+# jax.nn.gelu defaults to the tanh approximation
 ACT_FNS: dict[str, Callable[[torch.Tensor], torch.Tensor]] = {
     "silu": lambda x: x * torch.sigmoid(x),
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": torch.relu,
+    "relu2": lambda x: torch.square(torch.relu(x)),
 }

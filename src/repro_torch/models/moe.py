@@ -1,0 +1,227 @@
+"""Mixture-of-Experts with GShard-style grouped dispatch, SC-quantized.
+
+Port of ``repro.models.moe``.  Tokens are split into groups of
+``sg = min(moe_group_size, B * S)``; each expert takes at most ``cap =
+max(4, ceil4(ceil(k * sg * cf / E)))`` tokens of a group, in token-major
+order of the (token, slot) pairs routed to it, and a token past its
+expert's capacity drops to the residual path.  The router runs in
+float32 (softmax, top-k, renormalised weights); the experts' FFN goes
+through :func:`_expert_matmul` under the same SC quantization as the
+dense layers; the output is the router-weighted sum of each token's
+expert outputs.  The aux loss is the Switch load-balance loss plus
+``1e-3 x`` the router z-loss.
+
+Where the reference contracts dense one-hot tensors (``gsec,gsd->egcd``
+and ``gsec,egcd->gsd``), the port moves rows by index: dispatch copies a
+token's row into its (expert, group, slot) row, which is what the
+one-hot product gives exactly, and the combine gathers each token's k
+expert rows back.
+
+Ties and batch invariance.  ``jax.lax.top_k`` takes the lower expert
+index first on equal probabilities; ``torch.topk`` promises no order on
+the card, so the port sorts descending with a stable sort and keeps the
+first k.  The serving engine needs a token's output to ignore the other
+tokens of the call (see ``common``): with ``batch_invariant`` the router
+product and softmax run in float64 (rounded once to float32), the expert
+products are exact integers (``sc_int``) or float64 (``sc_qat``, off),
+and each token's k weighted terms are summed one after another, in slot
+order, in float64.  Tokens do share capacity: at ``cf >= E / k`` no
+token can drop and a token's output is its own (the serving convention,
+``tests/test_paged_kv.py``); below it drops depend on the group's other
+tokens, as in the reference.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..configs.base import ModelConfig
+from ..core.quant import ternary_weight_quant, thermometer_act_quant
+from ..core.sc_layers import SCQuantConfig
+from ..kernels.ops import ternary_matmul
+from .common import ACT_FNS, matmul_rows
+
+__all__ = ["moe_init", "moe_apply", "route"]
+
+# experts are quantized and multiplied in chunks whose float64 weight copy
+# stays below this many bytes (experts are independent: chunking changes
+# no bit, and keeps a full-width layer's temporaries to about a GiB)
+CHUNK_BYTES = 1 << 30
+
+
+def _expert_dense_init(e: int, d_in: int, d_out: int, quant: SCQuantConfig,
+                       *, generator: torch.Generator, device: torch.device,
+                       dtype: torch.dtype) -> dict:
+    std = 1.0 / math.sqrt(d_in)
+    w = torch.randn((e, d_in, d_out), generator=generator, device=device,
+                    dtype=torch.float32) * std
+    p = {"w": w.to(dtype)}
+    if quant.enabled:
+        shape = (e, 1, d_out) if quant.per_channel else (e,)
+        p["alpha_w"] = torch.full(shape, 1.4 * std * 0.8,
+                                  dtype=torch.float32, device=device)
+        p["alpha_a"] = torch.tensor(
+            2.0 / math.sqrt(max(quant.act_half, 1)), dtype=torch.float32,
+            device=device)
+    return p
+
+
+def moe_init(cfg: ModelConfig, *, generator: torch.Generator,
+             device: torch.device) -> dict:
+    """``router`` (D, E) float32 ~ N(0, 0.02^2) and the experts' ``w_up``,
+    ``w_down`` (and ``w_gate``), ``w`` (E, d_in, d_out), in the
+    reference's shapes and initialisation."""
+    e, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    kw = dict(generator=generator, device=device,
+              dtype=getattr(torch, cfg.dtype))
+    p = {"router": torch.randn((d, e), generator=generator, device=device,
+                               dtype=torch.float32) * 0.02,
+         "w_up": _expert_dense_init(e, d, f, cfg.quant, **kw),
+         "w_down": _expert_dense_init(e, f, d, cfg.quant, **kw)}
+    if cfg.ffn_gated:
+        p["w_gate"] = _expert_dense_init(e, d, f, cfg.quant, **kw)
+    return p
+
+
+def _chunks(w: torch.Tensor) -> list[slice]:
+    """Slices of the expert axis, each under ``CHUNK_BYTES`` in float64."""
+    per = max(1, w[0].numel() * 8)
+    n = max(1, CHUNK_BYTES // per)
+    return [slice(e, e + n) for e in range(0, w.shape[0], n)]
+
+
+def _expert_matmul(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
+                   batch_invariant: bool = True) -> torch.Tensor:
+    """``x (E, T, d_in)`` @ each expert's ``w (E, d_in, d_out)`` under the
+    dense layers' SC discipline (``common.dense_apply``):
+
+    * ``sc_int`` (and ``sc_int_approx``, whose experts keep the exact
+      accumulator, as the reference's): int8 levels ``round(x / alpha_a)``
+      in ``x.dtype`` x ternary ``round(w / alpha_w)`` in float32 -> int32
+      sums, one ``ternary_matmul`` launch for all E products, rescaled by
+      ``alpha_a * alpha_w`` in float32 and rounded to ``x.dtype``;
+    * ``sc_qat``: fake-quantized x and w, then a float product;
+    * off: the float product.
+
+    Float products are float64 rounded once (``matmul_rows``) when
+    ``batch_invariant``, else ``torch.matmul`` in ``x.dtype`` (training).
+    """
+    w = p["w"]
+    if quant.enabled and quant.mode == "sc_int":
+        half = quant.act_half
+        aa = p["alpha_a"].to(x.dtype)
+        aw = p["alpha_w"].to(torch.float32)
+        aw_b = aw if aw.ndim > 1 else aw[:, None, None]
+        x_q = torch.clamp(torch.round(x / aa), -half, half).to(torch.int8)
+        w_int = torch.empty(w.shape, dtype=torch.int8, device=w.device)
+        for sl in _chunks(w):
+            w_int[sl] = torch.clamp(torch.round(w[sl].to(torch.float32)
+                                                / aw_b[sl]), -1, 1)
+        sum_q = ternary_matmul(x_q, w_int)                # (E, T, d_out)
+        scale = aa.to(torch.float32) * aw        # (E, 1, d_out) or (E,)
+        if scale.ndim == 1:
+            scale = scale[:, None, None]
+        return (sum_q.to(torch.float32) * scale).to(x.dtype)
+    qat = quant.enabled and quant.mode == "sc_qat"
+    if qat:
+        x = thermometer_act_quant(x, p["alpha_a"], quant.act_bsl)
+    if not batch_invariant:
+        if qat:
+            w = ternary_weight_quant(w, p["alpha_w"])
+        return torch.matmul(x, w.to(x.dtype))
+    out = torch.empty((*x.shape[:-1], w.shape[-1]), dtype=x.dtype,
+                      device=x.device)
+    for sl in _chunks(w):
+        wc = ternary_weight_quant(w[sl], p["alpha_w"][sl]) if qat else w[sl]
+        out[sl] = matmul_rows(x[sl], wc.to(x.dtype))
+    return out
+
+
+def route(router: torch.Tensor, xt: torch.Tensor, k: int, *,
+          batch_invariant: bool = True):
+    """Router logits (float32), softmax probabilities, and each token's top
+    k (weights renormalised to sum 1, expert ids), ties to the lower id.
+    xt: (G, sg, D) -> logits, probs (G, sg, E); top_w, top_i (G, sg, k)."""
+    if batch_invariant:
+        logits64 = torch.matmul(xt.to(torch.float64),
+                                router.to(torch.float64))
+        logits = logits64.to(torch.float32)
+        probs = torch.softmax(logits.to(torch.float64), dim=-1) \
+            .to(torch.float32)
+    else:
+        logits = torch.matmul(xt.to(torch.float32), router)
+        probs = torch.softmax(logits, dim=-1)
+    srt = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_w, top_i = srt.values[..., :k], srt.indices[..., :k]
+    total = top_w[..., 0]
+    for j in range(1, k):                 # in slot order, on every device
+        total = total + top_w[..., j]
+    top_w = top_w / torch.clamp(total, min=1e-9)[..., None]
+    return logits, probs, top_w, top_i
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              batch_invariant: bool = True):
+    """x: (B, S, D) -> (y (B, S, D), aux loss); see the module docstring.
+    The serving engine calls it on (S, 1, D) decode lanes and (G, C, D)
+    prefill chunks; training passes ``batch_invariant=False``."""
+    B, S, D = x.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    T = B * S
+    sg = min(cfg.moe_group_size, T)
+    if T % sg:
+        raise ValueError(f"{T} tokens do not split into groups of {sg}")
+    G = T // sg
+    cap = int(-(-k * sg * cfg.moe_capacity_factor // E))
+    cap = max(4, -(-cap // 4) * 4)                 # pad to a multiple of 4
+
+    xt = x.reshape(G, sg, D)
+    logits, probs, top_w, top_i = route(p["router"], xt, k,
+                                        batch_invariant=batch_invariant)
+
+    # position of each (token, slot) in its expert's queue, token-major
+    onehot = F.one_hot(top_i, E)                                # (G,sg,k,E)
+    queue = torch.cumsum(onehot.reshape(G, sg * k, E), dim=1) - 1
+    pos = torch.gather(queue, 2, top_i.reshape(G, sg * k, 1)) \
+        .reshape(G, sg, k)
+    keep = (pos < cap) & (top_w > 0)
+
+    # dispatch: row (e, g, c) of the (E, G, cap) expert slots; dropped
+    # pairs go to one spare row past the end, which is cut off
+    g_idx = torch.arange(G, device=x.device)[:, None, None]
+    dest = torch.where(keep, (top_i * G + g_idx) * cap + pos,
+                       E * G * cap).reshape(-1)
+    src = xt[:, :, None, :].expand(G, sg, k, D).reshape(-1, D)
+    rows = x.new_zeros((E * G * cap + 1, D)).index_put((dest,), src)
+    ein = rows[:-1].reshape(E, G * cap, D)
+
+    act = ACT_FNS[cfg.ffn_act]
+    kw = dict(batch_invariant=batch_invariant)
+    if cfg.ffn_gated:
+        h = act(_expert_matmul(p["w_gate"], ein, cfg.quant, **kw)) \
+            * _expert_matmul(p["w_up"], ein, cfg.quant, **kw)
+    else:
+        h = act(_expert_matmul(p["w_up"], ein, cfg.quant, **kw))
+    eout = _expert_matmul(p["w_down"], h, cfg.quant, **kw)   # (E, G*cap, D)
+
+    # combine: each token's k expert rows, weighted (the weights rounded
+    # to x.dtype, as the reference's combine tensor), summed in slot order
+    eflat = torch.cat([eout.reshape(E * G * cap, D),
+                       eout.new_zeros((1, D))])
+    picked = eflat[dest].reshape(G, sg, k, D)
+    wts = torch.where(keep, top_w, 0.0).to(x.dtype)
+    acc_dt = torch.float64 if batch_invariant else torch.float32
+    y = wts[..., 0, None].to(acc_dt) * picked[:, :, 0].to(acc_dt)
+    for j in range(1, k):
+        y = y + wts[..., j, None].to(acc_dt) * picked[:, :, j].to(acc_dt)
+    y = y.to(x.dtype).reshape(B, S, D)
+
+    # Switch-style load-balance loss + router z-loss
+    density = onehot.sum(2).to(torch.float32).mean(1)          # (G, E)
+    p_mean = probs.mean(1)                                     # (G, E)
+    aux = E * torch.mean(torch.sum(density * p_mean, dim=-1))
+    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+    return y, aux + 1e-3 * zloss

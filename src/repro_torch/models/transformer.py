@@ -1,5 +1,5 @@
-"""Decoder LM (attention + dense FFN layers): training forward and loss,
-and serving over the paged cache.
+"""Decoder LM (attention + dense FFN or MoE layers): training forward and
+loss, and serving over the paged cache.
 
 Port of ``repro.models.transformer``: parameter init in the reference's
 shapes, the training forward with per-period recomputation and the loss
@@ -7,6 +7,10 @@ shapes, the training forward with per-period recomputation and the loss
 the chunked paged prefill.  The reference stacks layers over a leading
 ``n_periods`` axis and scans them; the port keeps one parameter dict and
 one pool dict per layer and loops over them in Python.
+
+Each layer is the ``LayerSpec`` of its place in ``cfg.period``: an
+attention mixer, then a dense FFN (``ffn.py``) or a mixture of experts
+(``moe.py``, whose balance loss is the forward's ``aux``).
 
 High-precision residual (paper §III): under ``sc_qat`` (the ``qat``
 serving datapath) the residual stream re-quantizes at ``resid_bsl`` after
@@ -20,12 +24,12 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..configs.base import ModelConfig
+from ..configs.base import LayerSpec, ModelConfig
 from ..core.kv_quant import check_kv_format
 from ..core.quant import lsq_fake_quant
 from ..device import resolve_device
-from . import attention, ffn
-from .common import dense_apply, dense_init, norm_apply
+from . import attention, ffn, moe
+from .common import ACT_FNS, dense_apply, dense_init, norm_apply, norm_init
 
 __all__ = ["init_params", "forward", "loss_fn", "init_paged_cache",
            "paged_decode_step", "paged_prefill"]
@@ -33,12 +37,20 @@ __all__ = ["init_params", "forward", "loss_fn", "init_paged_cache",
 
 def _check_ported(cfg: ModelConfig) -> None:
     for spec in cfg.period:
-        if (spec.mixer, spec.ffn) != ("attn", "dense"):
+        if spec.mixer != "attn" or spec.ffn not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name}: layer {spec} is not ported yet (attention + "
-                f"dense FFN only)")
+                f"dense FFN or MoE only)")
     if cfg.is_encoder or cfg.logit_softcap or cfg.tie_embeddings:
         raise NotImplementedError(f"{cfg.name}: not ported yet")
+    if cfg.norm not in ("rmsnorm", "layernorm") \
+            or cfg.ffn_act not in ACT_FNS:
+        raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r} / "
+                                  f"activation {cfg.ffn_act!r} not ported")
+
+
+def _spec(cfg: ModelConfig, i: int) -> LayerSpec:
+    return cfg.period[i % len(cfg.period)]
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -53,18 +65,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     table = torch.randn((cfg.padded_vocab, cfg.d_model), dtype=torch.float32,
                         **kw) * (1.0 / math.sqrt(cfg.d_model))
     layers = []
-    for _ in range(cfg.n_layers):
-        lp = {"norm1": {"scale": torch.ones(cfg.d_model, device=dev)},
+    for i in range(cfg.n_layers):
+        ffn_init = moe.moe_init if _spec(cfg, i).ffn == "moe" \
+            else ffn.ffn_init
+        lp = {"norm1": norm_init(cfg.d_model, cfg.norm, dev),
               "mixer": attention.attn_init(cfg, **kw),
-              "norm2": {"scale": torch.ones(cfg.d_model, device=dev)},
-              "ffn": ffn.ffn_init(cfg, **kw)}
+              "norm2": norm_init(cfg.d_model, cfg.norm, dev),
+              "ffn": ffn_init(cfg, **kw)}
         if cfg.quant.enabled:
             lp["alpha_r1"] = torch.tensor(0.05, device=dev)
             lp["alpha_r2"] = torch.tensor(0.05, device=dev)
         layers.append(lp)
     return {"embed": {"table": table.to(dt)},
             "layers": layers,
-            "final_norm": {"scale": torch.ones(cfg.d_model, device=dev)},
+            "final_norm": norm_init(cfg.d_model, cfg.norm, dev),
             "lm_head": dense_init(cfg.d_model, cfg.padded_vocab, cfg.quant,
                                   dtype=dt, **kw)}
 
@@ -105,15 +119,21 @@ def _residual_add(x, dx, lp, name, cfg: ModelConfig):
     return y
 
 
-def _apply_layer(lp: dict, x: torch.Tensor, cfg: ModelConfig, mixer,
-                 batch_invariant: bool = True):
-    """norm -> attention (``mixer(h)``) -> residual -> norm -> FFN ->
-    residual."""
+def _apply_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
+                 cfg: ModelConfig, mixer, batch_invariant: bool = True):
+    """norm -> attention (``mixer(h)``) -> residual -> norm -> dense FFN
+    or MoE -> residual.  Returns (x, the layer's MoE aux loss or None)."""
     h = norm_apply(lp["norm1"], x, cfg.norm)
     x = _residual_add(x, mixer(h), lp, "alpha_r1", cfg)
     h2 = norm_apply(lp["norm2"], x, cfg.norm)
-    dx = ffn.ffn_apply(lp["ffn"], h2, cfg, batch_invariant=batch_invariant)
-    return _residual_add(x, dx, lp, "alpha_r2", cfg)
+    aux = None
+    if spec.ffn == "moe":
+        dx, aux = moe.moe_apply(lp["ffn"], h2, cfg,
+                                batch_invariant=batch_invariant)
+    else:
+        dx = ffn.ffn_apply(lp["ffn"], h2, cfg,
+                           batch_invariant=batch_invariant)
+    return _residual_add(x, dx, lp, "alpha_r2", cfg), aux
 
 
 def _vocab_bias(cfg: ModelConfig, dtype: torch.dtype,
@@ -129,7 +149,7 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
 
     Returns (logits (B, S, V), aux), or with ``return_hidden`` the final
     normed hidden state (B, S, D) in place of the logits; ``aux`` is the
-    MoE balance loss, 0 for the dense layers ported so far.  With
+    sum of the MoE layers' balance losses (0 without MoE layers).  With
     ``cfg.remat == "full"`` each period of layers runs under
     ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
     period body: only the period's input is kept and the backward runs
@@ -148,22 +168,26 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
                              device=x.device).expand(B, S)
 
     def period(layers, x):
-        for lp in layers:
-            x = _apply_layer(
-                lp, x, cfg, lambda h, lp=lp: attention.attn_train(
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for spec, lp in zip(cfg.period, layers):
+            x, a = _apply_layer(
+                lp, spec, x, cfg, lambda h, lp=lp: attention.attn_train(
                     lp["mixer"], h, cfg, positions)[0],
                 batch_invariant=False)
-        return x
+            if a is not None:
+                aux = aux + a
+        return x, aux
 
     n = len(cfg.period)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in range(0, cfg.n_layers, n):
         layers = params["layers"][i:i + n]
         if cfg.remat == "full":
-            x = checkpoint(period, layers, x, use_reentrant=False)
+            x, a = checkpoint(period, layers, x, use_reentrant=False)
         else:
-            x = period(layers, x)
+            x, a = period(layers, x)
+        aux = aux + a
     x = norm_apply(params["final_norm"], x, cfg.norm)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_hidden:
         return x, aux
     logits = dense_apply(params["lm_head"], x, cfg.quant,
@@ -238,11 +262,12 @@ def paged_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     """
     del slot_ids
     x = params["embed"]["table"][tokens.long()][:, None, :]      # (S, 1, D)
-    for lp, pools in zip(params["layers"], cache["layers"]):
+    for i, (lp, pools) in enumerate(zip(params["layers"], cache["layers"])):
         cst = dict(pools, page_tables=page_tables)
-        x = _apply_layer(lp, x, cfg, lambda h, cst=cst, lp=lp:
-                         attention.attn_decode_paged(
-                             lp["mixer"], h, cfg, cst, lengths)[0])
+        x, _ = _apply_layer(lp, _spec(cfg, i), x, cfg,
+                            lambda h, cst=cst, lp=lp:
+                            attention.attn_decode_paged(
+                                lp["mixer"], h, cfg, cst, lengths)[0])
     return _logits(params, x, cfg)[:, 0], cache
 
 
@@ -270,11 +295,13 @@ def paged_prefill(params: dict, cache: dict, tokens: torch.Tensor,
     for c in range(L // chunk):
         start = c * chunk
         x = table[tokens[:, start:start + chunk].long()]         # (G, C, D)
-        for lp, pools in zip(params["layers"], cache["layers"]):
+        for i, (lp, pools) in enumerate(zip(params["layers"],
+                                            cache["layers"])):
             cst = dict(pools, page_tables=page_tables)
-            x = _apply_layer(lp, x, cfg, lambda h, cst=cst, lp=lp, s=start:
-                             attention.attn_prefill_paged(
-                                 lp["mixer"], h, cfg, cst, s)[0])
+            x, _ = _apply_layer(lp, _spec(cfg, i), x, cfg,
+                                lambda h, cst=cst, lp=lp, s=start:
+                                attention.attn_prefill_paged(
+                                    lp["mixer"], h, cfg, cst, s)[0])
         # keep the hidden state of each request's last real token
         last = prompt_lens.long() - 1 - start
         rows = torch.gather(x, 1, last.clamp(0, chunk - 1)[:, None, None]

@@ -64,8 +64,8 @@ def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
                      grad_accum: int = 1, max_grad_norm: float = 1.0,
                      grad_compress: bool = False):
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
-    are 0-d tensors (loss, plus ce / aux without accumulation, grad_norm,
-    lr, step)."""
+    are 0-d tensors: loss, ce and aux (the MoE balance loss; with
+    accumulation, means over the microbatches), grad_norm, lr, step."""
     if grad_compress:
         _no_compression()
     if grad_accum < 1:
@@ -94,15 +94,15 @@ def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
             mb = n // grad_accum
             grads = [torch.zeros(p.shape, dtype=torch.float32, device=dev)
                      for p in leaves]
-            lsum = 0.0
+            sums = dict.fromkeys(("loss", "ce", "aux"), 0.0)
             for i in range(grad_accum):
                 micro = {k: v[i * mb:(i + 1) * mb] for k, v in batch.items()}
                 m, g = value_and_grad(leaves, params, micro)
                 for acc, gi in zip(grads, g):
                     acc += gi
-                lsum = lsum + m["loss"]
+                sums = {k: v + m[k] for k, v in sums.items()}
             grads = [g / grad_accum for g in grads]
-            metrics = {"loss": lsum / grad_accum}
+            metrics = {k: v / grad_accum for k, v in sums.items()}
         for p in leaves:
             p.requires_grad_(False)
         # grads: a flat list in tree_leaves(params) order

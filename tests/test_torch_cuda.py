@@ -123,6 +123,8 @@ def test_dispatch_launches_the_kernels_on_cuda_tensors(cuda):
                         default_approx_spec(256, 8), cycles=2)
     ops.ternary_matmul(torch.zeros((3, 8), dtype=torch.int8, device=cuda),
                        torch.zeros((8, 4), dtype=torch.int8, device=cuda))
+    ops.ternary_matmul(torch.zeros((2, 3, 8), dtype=torch.int8, device=cuda),
+                       torch.zeros((2, 8, 4), dtype=torch.int8, device=cuda))
     ops.bsn_sort(torch.zeros((3, 8), dtype=torch.int8, device=cuda))
     qkv = torch.zeros((1, 8, 2, 16), device=cuda)
     dispatch.flash_attention(qkv, qkv, qkv)
@@ -662,6 +664,114 @@ def test_sc_kernels_refuse_what_they_do_not_take(cuda):
         approx_bsn_temporal_cuda(torch.zeros((2, 100), dtype=torch.int32,
                                              device=cuda),
                                  in_bsl=8, stages=((16, 0, 1),), cycles=3)
+    assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
+
+
+# ---------------------------------------------------------------------------
+# the batched ternary matmul: E products (the MoE experts') in one launch
+# ---------------------------------------------------------------------------
+
+def _batched_case(dev, e, m, k, n, seed=0):
+    """x (E, M, K) and w (E, K, N) over the full int8 range, with empty
+    experts as the MoE dispatch leaves them: every third expert's x all
+    zero, every fifth expert's w all zero, and the rows past a random
+    fill of each expert's capacity zero."""
+    gen = torch.Generator(dev).manual_seed(seed)
+    x = torch.randint(-128, 128, (e, m, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = torch.randint(-128, 128, (e, k, n), generator=gen, device=dev,
+                      dtype=torch.int8)
+    x[::3] = 0
+    w[::5] = 0
+    fill = torch.randint(0, m + 1, (e, 1), generator=gen, device=dev)
+    x[torch.arange(m, device=dev)[None, :].expand(e, m) >= fill] = 0
+    return x, w
+
+
+@pytest.mark.parametrize("e,m,k,n", [
+    (1, 4, 2048, 512),        # one product: the single kernel's path
+    (16, 4, 256, 128),        # decode lanes, dp4a
+    (128, 4, 512, 384),       # qwen3-like expert count at decode
+    (128, 16, 256, 132),      # the last dp4a row count, N padded
+    (16, 17, 1001, 1003),     # the first tensor-core row count, ragged
+    (16, 64, 1024, 256),
+    (128, 64, 256, 128),
+    (2, 4, 8192, 128),        # few tiles: K splits over (product, split)
+    (2, 64, 8192, 128),       # the same on the tensor cores
+    (1, 256, 2048, 512),
+])
+def test_batched_ternary_matmul_bit_exact(cuda, e, m, k, n):
+    """Bit for bit against the plain version and a loop over the experts'
+    single products; one launch, counted as batched."""
+    x, w = _batched_case(cuda, e, m, k, n)
+    build.reset_launches()
+    got = ops.ternary_matmul(x, w)
+    assert build.LAUNCHES["ternary_matmul_batched"] == 1
+    assert build.LAUNCHES["ternary_matmul"] == 0
+    assert got.dtype == torch.int32 and got.shape == (e, m, n)
+    assert torch.equal(got, ternary_matmul_ref(x, w))
+    loop = torch.stack([ternary_matmul_ref(x[i], w[i]) for i in range(e)])
+    assert torch.equal(got, loop)
+
+
+@pytest.mark.parametrize("m", [4, 16, 17, 64])
+def test_batched_ternary_matmul_sums_reach_the_int8_extremes(cuda, m):
+    """+-K*127 sums in every expert, and K*16384 from all -128 operands."""
+    e, k, n = 3, 8192, 32
+    gen = torch.Generator(cuda).manual_seed(m)
+    sign = torch.randint(0, 2, (e, m, k), generator=gen, device=cuda) * 2 - 1
+    x = (127 * sign).to(torch.int8)
+    w = torch.randint(0, 2, (e, k, n), generator=gen, device=cuda) * 2 - 1
+    w[:, :, 0], w[:, :, 1] = sign[:, 0], -sign[:, 0]
+    w = w.to(torch.int8)
+    got = ops.ternary_matmul(x, w)
+    assert torch.equal(got, ternary_matmul_ref(x, w))
+    assert bool((got[:, 0, 0] == 127 * k).all())
+    assert bool((got[:, 0, 1] == -127 * k).all())
+    lo = torch.full((e, m, k), -128, dtype=torch.int8, device=cuda)
+    got = ops.ternary_matmul(lo, torch.full((e, k, n), -128,
+                                            dtype=torch.int8, device=cuda))
+    assert bool((got == 16384 * k).all())
+
+
+@pytest.mark.parametrize("mode", ["sc_int", "sc_qat", "none"])
+def test_moe_layer_on_the_card_equals_the_cpu(cuda, mode):
+    """One tiny float32 MoE layer (8 experts, top 2, two groups of 16
+    tokens): under sc_int its three expert products are three batched
+    launches, and on every datapath the card's output is the CPU's within
+    float32 rounding (the router's float64 product and the combine sum
+    in another order; the expert sums are exact)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe
+    cfg = get_arch("qwen3-moe-235b-a22b").scaled(
+        d_model=64, d_ff=48, n_experts=8, n_experts_per_tok=2,
+        moe_group_size=16, moe_capacity_factor=4.0, dtype="float32")
+    cfg = cfg.scaled(quant=cfg.quant.with_mode(mode))
+    gen = torch.Generator().manual_seed(0)
+    p = moe.moe_init(cfg, generator=gen, device=torch.device("cpu"))
+    x = torch.randn((2, 16, 64), generator=gen)
+    want, want_aux = moe.moe_apply(p, x, cfg)
+    build.reset_launches()
+    got, aux = moe.moe_apply(
+        {k: {kk: vv.to(cuda) for kk, vv in v.items()}
+         if isinstance(v, dict) else v.to(cuda) for k, v in p.items()},
+        x.to(cuda), cfg)
+    assert build.LAUNCHES["ternary_matmul_batched"] == \
+        (3 if mode == "sc_int" else 0)
+    torch.testing.assert_close(got.cpu(), want, **TOL)
+    torch.testing.assert_close(aux.cpu(), want_aux, **TOL)
+
+
+def test_batched_ternary_matmul_refuses_what_it_does_not_take(cuda):
+    build.reset_launches()
+    x, w = _batched_case(cuda, 2, 4, 64, 32)
+    t = torch.zeros((32, 8), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one product"):
+        ternary_matmul_cuda(x, w, t)
+    with pytest.raises(ValueError, match="one product"):
+        ops.ternary_matmul(x, w, t)
+    with pytest.raises(ValueError, match=r"\(E, K, N\)"):
+        ternary_matmul_cuda(x, w[:1].contiguous())
     assert build.LAUNCHES == dict.fromkeys(build.KERNELS, 0)
 
 
