@@ -23,10 +23,14 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    ternary matmul on both sides of its dp4a / tensor-core crossover,
    over the full int8 range too, against ``torch._int_mm`` with w in
    the reference's (K, N) layout and column-major; its batched launch at
-   qwen3-moe's expert shapes, decode and prefill, and a dbrx-like one,
-   with empty expert rows, against E back-to-back ``_int_mm`` calls);
-4. serve full-width granite-3-2b (bf16, random weights from a seed)
-   through ``ServeEngine`` on qat x fp, sc_int x int8 (every projection
+   qwen3-moe's and jamba's expert shapes, decode and prefill, and a
+   dbrx-like one, with empty expert rows, against E back-to-back
+   ``_int_mm`` calls; the paged kernels and the single ternary matmul at
+   phase 8's shapes too: jamba's attention at head_dim 128, rwkv6's
+   channel mix and jamba's ``in_proj``);
+4. serve full-width granite-3-2b (bf16, random weights from a seed,
+   ``--layers`` of its 40 layers, 20 by default) through
+   ``ServeEngine`` on qat x fp, sc_int x int8 (every projection
    through the ternary matmul kernel) and sc_int_approx x sc: every
    kernel on the path must have launched, the batched tokens must equal
    ``sequential_generate``'s, and a tiny float32 config must give the
@@ -42,15 +46,17 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
 6. train full-width granite-3-2b (bf16, sc_qat, per-layer recompute,
    seeded random initial weights) for 3 AdamW steps on 2 x 4096 tokens
    of ``SyntheticLM`` through ``build_train_step``: every attention
-   forward and its recompute runs the flash kernel (40 x 2 x 3 launches),
+   forward and its recompute runs the flash kernel (layers x 2 x 3
+   launches),
    losses and gradient norms are finite, step 1 (learning rate 0) changes
    no parameter and step 2 changes every watched one whose AdamW update
    does not round away in bf16; one more step is profiled, and
-   all its 80 flash forwards must be the tensor-core kernel; and
+   all its layers x 2 flash forwards must be the tensor-core kernel; and
    a tiny float32 config's train step on the card equals the same step on
    the CPU within a stated tolerance;
 7. serve full-width qwen3-moe-235b-a22b (128 experts top-8, qk_norm,
-   bf16, seeded random weights, ``--moe-layers`` of its 94 layers,
+   bf16, seeded random weights, ``--moe-layers`` of its 94 layers, 4 by
+   default,
    capacity factor E / k = 16 so no token drops) on the same three pairs
    and traffic (8 new tokens): batched tokens equal
    ``sequential_generate``'s, the paged kernels at G 16 and, under both
@@ -59,7 +65,22 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    dense projections take the single kernel under sc_int and the BSN
    adder under sc_int_approx); one decode step and the batched prefill
    profiled per pair; and tiny float32 qwen3 and dbrx configs give the
-   same tokens on the card as on the CPU.
+   same tokens on the card as on the CPU;
+8. serve the recurrent mixers at full width (bf16, seeded random
+   weights) on the same three pairs and traffic (8 new tokens):
+   rwkv6-7b whole (``--rwkv-layers``, default its 32 layers; d 4096, 64
+   wkv heads of 64, d_ff 14336, vocab 65536) and jamba-1.5-large-398b at
+   ``--jamba-layers`` (default 5 of its 72: mamba + dense, mamba + MoE,
+   mamba + dense, mamba + MoE, attention + dense; d 8192, d_inner 16384,
+   16 experts top-2, capacity factor E / k = 8), each lane's recurrent
+   state in per-slot rows of the paged cache: batched tokens equal
+   ``sequential_generate``'s, every kernel of the pair's path launched
+   (on rwkv6 none under qat, the ternary matmul under sc_int, the BSN
+   adder under sc_int_approx; on jamba the paged kernels too and the
+   batched ternary matmul 3 times a MoE layer a round under both integer
+   datapaths), one decode step and the prefill profiled per pair; and
+   tiny float32 rwkv6 and jamba configs give the same tokens on the card
+   as on the CPU.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at a ragged bidirectional GQA shape
@@ -70,8 +91,9 @@ does to O.
 
 Run from the repository root::
 
-    python3 chip_smoke.py                 # full run (40 / 8 layers)
-    python3 chip_smoke.py --layers 2 --moe-layers 1   # quick check
+    python3 chip_smoke.py                 # full run (20 / 4 / 32 / 5 layers)
+    python3 chip_smoke.py --layers 2 --moe-layers 1 --rwkv-layers 2 \
+        --jamba-layers 2                  # quick check
 
 Phase 4 also profiles one decode step per datapath (torch.profiler):
 device busy time, the device's idle share, and the PyTorch ops that take
@@ -184,8 +206,15 @@ def read_sass(so_path):
                           stl=len(re.findall(r"\bSTL\b", block))))
     (OUT_DIR / "sass.txt").write_text("".join(kept))
     for f in found:
+        f["d128"] = re.match(r"Li128(E|$)", f["template"]) is not None
         log(f"sass {f['kernel']}<{f['template']}>: {f['hmma']} HMMA, "
             f"{f['imma']} IMMA / IGMMA, {f['ldl']} LDL, {f['stl']} STL")
+    # jamba's head dim: a spill there is recorded, not refused
+    d128 = [f for f in found if f["kernel"].startswith("paged_")
+            and f["d128"]]
+    log("paged kernels at D 128 (local memory): " + "; ".join(
+        f"{f['kernel']}<{f['template']}> {f['ldl']} LDL {f['stl']} STL"
+        for f in d128))
     for kernel, count in (("flash_fwd_mma_kernel", 4),
                           ("paged_prefill_mma_kernel", 12)):
         inst = [f for f in found if f["kernel"] == kernel]
@@ -275,7 +304,13 @@ def device_ms_per_call(torch, fn, calls=10):
         ms = device_ms(torch, lambda: [fn() for _ in range(calls)]) / calls
         if ms > 0:
             return ms
-    raise AssertionError("torch.profiler recorded no device time")
+    # some library calls' kernels escape the profiler's trace: time them
+    # with CUDA events over back-to-back calls (the host's launch work
+    # included, where it outlasts the kernel)
+    ms = time_ms(fn)
+    log(f"device_ms_per_call: torch.profiler traced no kernel of "
+        f"{getattr(fn, '__name__', fn)}; CUDA events give {ms:.4f} ms")
+    return ms
 
 
 def _int_mm_ms(torch, x, w):
@@ -331,7 +366,15 @@ TERNARY_SHAPES = (
        ("full int8 range SI", 64, 784, 256, 32),
        ("ragged", 5, 1001, 1003, 0), ("ragged SI", 5, 1001, 1003, 8),
        ("ragged M 64", 64, 1001, 1003, 0),
-       ("ragged M 64 SI", 64, 1001, 1003, 8)])
+       ("ragged M 64 SI", 64, 1001, 1003, 8)]
+    # phase 8's widest single products: rwkv6-7b's channel mix (d 4096,
+    # d_ff 14336) and jamba-1.5-large's mamba in_proj (8192 -> 2 x 16384),
+    # at 4 decode lanes and the engine's 256-row prefill chunks
+    + [(f"{tag} {k}", m, kk, n, 0)
+       for tag, m in (("decode", 4), ("prefill", 256))
+       for k, kk, n in (("rwkv6 cmix wk", 4096, 14336),
+                        ("rwkv6 cmix wv", 14336, 4096),
+                        ("jamba in_proj", 8192, 32768))])
 
 
 def check_ternary_matmul(torch, dev, gen, shapes=TERNARY_SHAPES):
@@ -402,7 +445,14 @@ BATCHED_SHAPES = (
     ("qwen3 decode down", 128, 4, 1536, 4096),
     ("qwen3 prefill gate/up", 128, 256, 4096, 1536),
     ("qwen3 prefill down", 128, 256, 1536, 4096),
-    ("dbrx-like", 16, 32, 6144, 10752))
+    ("dbrx-like", 16, 32, 6144, 10752),
+    # jamba-1.5-large's experts (16, d 8192, d_ff 24576; phase 8) at
+    # decode and at the 256-row prefill chunk rounds (capacity 256 at
+    # cf = E / k = 8)
+    ("jamba decode gate/up", 16, 4, 8192, 24576),
+    ("jamba decode down", 16, 4, 24576, 8192),
+    ("jamba prefill gate/up", 16, 256, 8192, 24576),
+    ("jamba prefill down", 16, 256, 24576, 8192))
 
 
 def _expert_operands(torch, gen, dev, e, m, k, n):
@@ -625,13 +675,19 @@ def _decode_shapes(page):
             ("4096 ", 32, 256, long_lens))
 
 
-def check_decode(torch, dev, gen):
+# jamba-1.5-large's attention (phase 8: Hkv 8, G 8, D 128): its 4 decode
+# lanes of 32-135 tokens (phase 8's traffic) and a padded lane
+JAMBA_ATTN = dict(G=8, D=128)
+JAMBA_DECODE_SHAPES = (("jamba D128 ", 5, 16, [0, 32, 57, 96, 135]),)
+
+
+def check_decode(torch, dev, gen, G=4, D=64, shapes=None):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attn_decode_cuda
     from repro_torch.kernels.ref import paged_attn_decode_ref
-    Hkv, G, D, page = 8, 4, 64, 16
+    Hkv, page = 8, 16
     cases = []
-    for prefix, S, maxp, lens in _decode_shapes(page):
+    for prefix, S, maxp, lens in shapes or _decode_shapes(page):
         N = S * maxp + 1
         perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
         tables = perm[:S * maxp].reshape(S, maxp).to(torch.int32)
@@ -703,15 +759,16 @@ def check_decode(torch, dev, gen):
 # chunk of a 128-token prompt; "4096": the last 64-token chunk of a
 # 4096-token prompt at the engine's default prefill_chunk.
 PREFILL_SHAPES = (("", 64, 8), ("4096 ", 4032, 256))
+JAMBA_PREFILL_SHAPES = (("jamba D128 ", 64, 8),)
 
 
-def check_prefill(torch, dev, gen):
+def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attn_prefill_cuda
     from repro_torch.kernels.ref import paged_attn_prefill_ref
-    Gr, C, Hkv, Gq, D, page = 4, 64, 8, 4, 64, 16
+    Gr, C, Hkv, Gq, page = 4, 64, 8, G, 16
     cases = []
-    for prefix, start, width in PREFILL_SHAPES:
+    for prefix, start, width in shapes:
         N = Gr * width + 1
         perm = torch.randperm(N - 1, generator=gen, device=dev) + 1
         tables = perm[:Gr * width].reshape(Gr, width).to(torch.int32) \
@@ -1231,9 +1288,17 @@ def serve(torch, dev, layers):
 
 TINY_SCALE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
                   vocab_pad_multiple=32, dtype="float32")
-# tiny float32 configs held card == CPU: granite, and qwen3 / dbrx at the
-# reference's REDUCED MoE sizes (tests/test_models_smoke.py)
+# tiny float32 configs held card == CPU: granite, and qwen3 / dbrx /
+# rwkv6 / jamba at the reference's REDUCED sizes (tests/
+# test_models_smoke.py)
 TINY = {"granite-3-2b": dict(d_ff=128, vocab_size=64),
+        "rwkv6-7b": dict(d_ff=128, vocab_size=131, n_kv_heads=4,
+                         rwkv_head_dim=16),
+        # one whole period: every kind of jamba layer
+        "jamba-1.5-large-398b": dict(n_layers=8, d_ff=96, vocab_size=131,
+                                     n_experts=4, n_experts_per_tok=2,
+                                     mamba_d_state=8, moe_group_size=16,
+                                     moe_capacity_factor=2.0),
         "qwen3-moe-235b-a22b": dict(d_ff=48, vocab_size=131, n_experts=8,
                                     n_experts_per_tok=2, moe_group_size=16,
                                     moe_capacity_factor=4.0),
@@ -1242,14 +1307,27 @@ TINY = {"granite-3-2b": dict(d_ff=128, vocab_size=64),
                           moe_capacity_factor=2.0)}
 
 
+def live_ssm(params):
+    """Mamba's ``conv_w`` at 10x its init draw, in place.  At the
+    reference's init scale every input of ``x_proj`` rounds to activation
+    level 0 on all three datapaths, so the SSM's B, C and dt are constants
+    and its state stays zero: the scaled taps put the recurrence on the
+    path that phase 8 holds batched == sequential."""
+    for lp in params["layers"]:
+        if "conv_w" in lp["mixer"]:
+            lp["mixer"]["conv_w"].mul_(10)
+    return params
+
+
 def tiny_card_equals_cpu(torch, dev, arch="granite-3-2b"):
     """A tiny float32 config: tokens on the card (kernels) equal tokens on
     the CPU (plain versions), for each datapath x format pair."""
     from repro_torch.configs import get_arch
     from repro_torch.models import init_params
     from repro_torch.serving import ServeEngine
-    cfg = get_arch(arch).scaled(**TINY_SCALE, **TINY[arch])
-    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    cfg = get_arch(arch).scaled(**{**TINY_SCALE, **TINY[arch]})
+    cpu = live_ssm(init_params(cfg, torch.Generator().manual_seed(SEED),
+                               "cpu"))
     gpu = _to(cpu, dev)
     prompts = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [10, 11, 12, 13, 14]]
     for datapath, fmt in PAIRS:
@@ -1667,42 +1745,62 @@ def tiny_train_card_equals_cpu(torch, dev):
 # ---------------------------------------------------------------------------
 
 MOE_ARCH = "qwen3-moe-235b-a22b"
-MOE_NEW_TOKENS = 8
-# the expert products run on the batched ternary matmul under both integer
-# datapaths (experts keep the exact accumulator under sc_int_approx)
-MOE_PATH_KERNELS = {"qat": ("paged_attn_decode", "paged_attn_prefill"),
-                    "sc_int": ("paged_attn_decode", "paged_attn_prefill",
-                               "ternary_matmul", "ternary_matmul_batched"),
-                    "sc_int_approx": ("paged_attn_decode",
-                                      "paged_attn_prefill", "approx_bsn",
-                                      "ternary_matmul_batched")}
+RWKV_ARCH, JAMBA_ARCH = "rwkv6-7b", "jamba-1.5-large-398b"
+ARCH_NEW_TOKENS = 8
 
 
-def serve_moe(torch, dev, layers):
-    """Phase 7: qwen3-moe-235b-a22b at its published widths (d 4096, 64 /
-    4 heads, 128 experts top-8, expert d_ff 1536, vocab 151936, bf16,
-    qk_norm), seeded random weights, ``layers`` of its 94 layers and
-    capacity factor E / k = 16 (no token drops, so batched == sequential
-    is defined), served on the three pairs.  Each pair's batched
-    ternary matmul must launch 3 times a layer in each prefill chunk
-    round and each decode step."""
+def arch_path_kernels(cfg, datapath):
+    """The port's kernels a pair's path runs on ``cfg``: the paged kernels
+    where a layer is attention (rwkv6 has none), the ternary matmul
+    (sc_int) or the BSN adder (sc_int_approx) for the dense projections,
+    and the batched ternary matmul for the experts under both integer
+    datapaths (experts keep the exact accumulator under sc_int_approx)."""
+    specs = [cfg.period[i % len(cfg.period)] for i in range(cfg.n_layers)]
+    kernels = []
+    if any(s.mixer == "attn" for s in specs):
+        kernels += ["paged_attn_decode", "paged_attn_prefill"]
+    if datapath != "qat":
+        kernels.append("ternary_matmul" if datapath == "sc_int"
+                       else "approx_bsn")
+        if any(s.ffn == "moe" for s in specs):
+            kernels.append("ternary_matmul_batched")
+    return tuple(kernels)
+
+
+def serve_arch(torch, dev, arch, layers):
+    """Phases 7 and 8: ``arch`` at its published widths, bf16, seeded
+    random weights (mamba's conv taps scaled by :func:`live_ssm`),
+    ``layers`` deep, at capacity factor E / k where it has experts (no
+    token drops, so batched == sequential is defined), served on the
+    three pairs with phase 4's traffic and 8 new tokens: batched ==
+    sequential, every kernel of the pair's path launched, the batched
+    ternary matmul exactly 3 times a MoE layer in each prefill chunk
+    round and decode step under sc_int*, one decode step and the batched
+    prefill profiled."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import build as kbuild
     from repro_torch.models import init_params
     from repro_torch.serving.paging import pad_pow2
-    base = get_arch(MOE_ARCH)
-    cfg = base.scaled(n_layers=layers, moe_capacity_factor=float(
-        base.n_experts // base.n_experts_per_tok))
+    base = get_arch(arch)
+    cfg = base.scaled(n_layers=layers)
+    if base.n_experts:
+        cfg = cfg.scaled(moe_capacity_factor=float(
+            base.n_experts // base.n_experts_per_tok))
+    n_moe = sum(cfg.period[i % len(cfg.period)].ffn == "moe"
+                for i in range(layers))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    params = live_ssm(init_params(
+        cfg, torch.Generator(dev).manual_seed(SEED), dev))
     torch.cuda.synchronize()
     weights_gib = torch.cuda.memory_allocated() / 2**30
-    log(f"init_params {MOE_ARCH} layers={layers} d_model={cfg.d_model} "
-        f"experts={cfg.n_experts} top-{cfg.n_experts_per_tok} d_ff="
-        f"{cfg.d_ff} vocab={cfg.padded_vocab} cf="
-        f"{cfg.moe_capacity_factor} dtype={cfg.dtype}: "
-        f"{time.perf_counter() - t0:.1f} s, {weights_gib:.2f} GiB")
+    kinds = sorted({f"{s.mixer}+{s.ffn}" for s in
+                    (cfg.period[i % len(cfg.period)] for i in range(layers))})
+    log(f"init_params {arch} layers={layers} ({', '.join(kinds)}) "
+        f"d_model={cfg.d_model} experts={cfg.n_experts} vocab="
+        f"{cfg.padded_vocab} cf={cfg.moe_capacity_factor} dtype="
+        f"{cfg.dtype}: {time.perf_counter() - t0:.1f} s, "
+        f"{weights_gib:.2f} GiB")
     plens = (32, 57, 96, 128)
     prompts = _prompts(torch, cfg, plens)
     rounds = pad_pow2(max(plens)) // 64       # the engine's chunk rounds
@@ -1710,13 +1808,13 @@ def serve_moe(torch, dev, layers):
     results = []
     for datapath, fmt in PAIRS:
         res, engine = serve_pair(torch, dev, cfg, params, prompts, datapath,
-                                 fmt, MOE_NEW_TOKENS,
-                                 MOE_PATH_KERNELS[datapath])
+                                 fmt, ARCH_NEW_TOKENS,
+                                 arch_path_kernels(cfg, datapath))
         n = res["launches"]["ternary_matmul_batched"]
         want = 0 if datapath == "qat" else \
-            3 * layers * (rounds + res["decode_steps"])
+            3 * n_moe * (rounds + res["decode_steps"])
         if n != want:
-            raise AssertionError(f"{MOE_ARCH} {datapath}x{fmt}: batched "
+            raise AssertionError(f"{arch} {datapath}x{fmt}: batched "
                                  f"ternary_matmul launched {n} times, not "
                                  f"{want}")
         for k, v in res["launches"].items():
@@ -1727,10 +1825,11 @@ def serve_moe(torch, dev, layers):
         eng.step()
         eng.step()
         res["profile"] = profile_decode_step(
-            torch, eng, f"moe_{datapath}_{fmt}", res["decode_ms_per_step"])
+            torch, eng, f"{arch}_{datapath}_{fmt}",
+            res["decode_ms_per_step"])
         del eng
         res["profile_prefill"] = profile_prefill(
-            torch, engine(), f"moe {datapath}_{fmt}")
+            torch, engine(), f"{arch} {datapath}_{fmt}")
     return results, totals
 
 
@@ -1744,12 +1843,21 @@ def _to(tree, dev):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=40,
-                    help="granite-3-2b depth to serve and train (full "
-                         "width always)")
-    ap.add_argument("--moe-layers", type=int, default=8,
+    # phases 4, 6 and 7 were cut from 40 and 8 layers when phase 8 came,
+    # to keep the whole run near half the driver's 1200 s
+    ap.add_argument("--layers", type=int, default=20,
+                    help="granite-3-2b depth to serve and train (of 40; "
+                         "full width always)")
+    ap.add_argument("--moe-layers", type=int, default=4,
                     help="qwen3-moe-235b-a22b depth to serve in phase 7 "
                          "(of 94; full width always)")
+    ap.add_argument("--rwkv-layers", type=int, default=32,
+                    help="rwkv6-7b depth to serve in phase 8 (of 32; full "
+                         "width always)")
+    ap.add_argument("--jamba-layers", type=int, default=5,
+                    help="jamba-1.5-large-398b depth to serve in phase 8 "
+                         "(of 72; full width always; 5 holds every kind "
+                         "of its layers and fits one card)")
     args = ap.parse_args()
 
     import torch
@@ -1769,6 +1877,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
 
+    # wall seconds of each phase, from the start of phase 1
+    phase_s, t_phase = {}, [time.perf_counter()]
+
+    def mark(n):
+        now = time.perf_counter()
+        phase_s[f"phase {n}"] = now - t_phase[0]
+        log(f"phase {n}: {now - t_phase[0]:.1f} s")
+        t_phase[0] = now
+
     # phase 1: the card
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1777,6 +1894,7 @@ def main() -> int:
     log(f"device: {name} (torch {torch.__version__}, CUDA "
         f"{torch.version.cuda}, {torch.cuda.device_count()} visible)")
     log(smi)
+    mark(1)
 
     # phase 2: build the kernels from the checkout's sources
     res = kbuild.build()
@@ -1786,38 +1904,60 @@ def main() -> int:
     (OUT_DIR / "ptxas.log").write_text(res.log)
     gen = torch.Generator(dev).manual_seed(SEED)
     sass = read_sass(res.path)
+    mark(2)
 
     # phase 3: each kernel against its plain version
     bsn = check_approx_bsn(torch, dev, gen)
     tmp = check_temporal(torch, dev, gen)
     dec = check_decode(torch, dev, gen)
+    dec += check_decode(torch, dev, gen, shapes=JAMBA_DECODE_SHAPES,
+                        **JAMBA_ATTN)
     pre = check_prefill(torch, dev, gen)
+    pre += check_prefill(torch, dev, gen, shapes=JAMBA_PREFILL_SHAPES,
+                         **JAMBA_ATTN)
     tmm = check_ternary_matmul(torch, dev, gen)
     tmb = check_ternary_matmul_batched(torch, dev, gen)
     srt = check_bsn_sort(torch, dev, gen)
     fla = check_flash(torch, dev, gen)
+    mark(3)
 
     # phase 4: the main path at full width, then the tiny card==cpu check
     serving, launches, products = serve(torch, dev, args.layers)
     tiny_card_equals_cpu(torch, dev)
+    mark(4)
 
     # phase 5: the SC integer datapath
     sc = sc_pipeline(torch, dev)
     for k, v in sc["launches"].items():
         launches[k] += v
+    mark(5)
 
     # phase 6: training at full width, then the tiny card==cpu step
     training = train(torch, dev, args.layers)
     for k, v in training["launches"].items():
         launches[k] += v
     training["tiny_card_vs_cpu"] = tiny_train_card_equals_cpu(torch, dev)
+    mark(6)
 
     # phase 7: a mixture of experts at full width, then tiny MoE card==cpu
-    moe_serving, moe_launches = serve_moe(torch, dev, args.moe_layers)
+    moe_serving, moe_launches = serve_arch(torch, dev, MOE_ARCH,
+                                           args.moe_layers)
     for k, v in moe_launches.items():
         launches[k] += v
     for arch in ("qwen3-moe-235b-a22b", "dbrx-132b"):
         tiny_card_equals_cpu(torch, dev, arch)
+    mark(7)
+
+    # phase 8: the recurrent mixers at full width, then tiny card==cpu
+    recurrent = {}
+    for arch, layers in ((RWKV_ARCH, args.rwkv_layers),
+                         (JAMBA_ARCH, args.jamba_layers)):
+        recurrent[arch], rec_launches = serve_arch(torch, dev, arch, layers)
+        for k, v in rec_launches.items():
+            launches[k] += v
+        tiny_card_equals_cpu(torch, dev, arch)
+
+    mark(8)
 
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
@@ -1859,8 +1999,8 @@ def main() -> int:
          "ternary_matmul": tmm, "ternary_matmul_batched": tmb,
          "bsn_sort": srt, "flash_attention": fla,
          "serving": serving, "sc_datapath": sc, "training": training,
-         "moe_serving": moe_serving,
-         "float_products": products, **summary},
+         "moe_serving": moe_serving, "recurrent_serving": recurrent,
+         "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)
     print(json.dumps({"ok": True, "device": {

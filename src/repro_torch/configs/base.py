@@ -20,8 +20,8 @@ __all__ = ["LayerSpec", "ModelConfig", "register_arch", "get_arch",
 @dataclass(frozen=True)
 class LayerSpec:
     """One layer within the repeating period."""
-    mixer: str = "attn"        # attn (the only mixer ported so far)
-    ffn: str = "dense"         # dense | moe
+    mixer: str = "attn"        # attn | mamba | rwkv6
+    ffn: str = "dense"         # dense | moe | rwkv_cmix
 
 
 @dataclass(frozen=True)
@@ -48,6 +48,18 @@ class ModelConfig:
     n_experts_per_tok: int = 0
     moe_capacity_factor: float = 1.25
     moe_group_size: int = 1024  # tokens per dispatch group (GShard-style)
+    # SSM (mamba)
+    mamba_expand: int = 2
+    mamba_d_state: int = 16
+    mamba_d_conv: int = 4
+    mamba_dt_rank: int = 0      # 0 -> ceil(d_model / 16)
+    mamba_chunk: int = 64       # the reference's training-scan chunk
+    # RWKV
+    rwkv_head_dim: int = 64
+    rwkv_lora_w: int = 0        # 0 -> max(64, d_model // 32) (decay lora)
+    rwkv_wkv_impl: str = "scan" # scan | chunked (training only; serving
+                                # prefill runs the token recurrence)
+    rwkv_chunk: int = 32
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
     quant: SCQuantConfig = SC_OFF
@@ -79,8 +91,22 @@ class ModelConfig:
         return (self.vocab_size + m - 1) // m * m
 
     @property
+    def mamba_d_inner(self) -> int:
+        return self.mamba_expand * self.d_model
+
+    @property
+    def dt_rank(self) -> int:
+        return self.mamba_dt_rank or -(-self.d_model // 16)
+
+    @property
     def is_encoder(self) -> bool:
         return not self.causal
+
+    def has_mixer(self, kind: str) -> bool:
+        return any(spec.mixer == kind for spec in self.period)
+
+    def has_ffn(self, kind: str) -> bool:
+        return any(spec.ffn == kind for spec in self.period)
 
     def with_quant(self, mode: str, **kw) -> "ModelConfig":
         return replace(self, quant=dataclasses.replace(

@@ -32,8 +32,9 @@ import torch.nn.functional as F
 from ..core.quant import ternary_weight_quant, thermometer_act_quant
 from ..core.sc_layers import SCQuantConfig, sc_linear_int_from_qat
 
-__all__ = ["dense_init", "dense_apply", "matmul_rows", "norm_init",
-           "norm_apply", "rope_freqs", "apply_rope", "ACT_FNS", "big_neg"]
+__all__ = ["dense_init", "dense_apply", "matmul_rows", "sum_fixed",
+           "norm_init", "norm_apply", "rope_freqs", "apply_rope", "ACT_FNS",
+           "big_neg"]
 
 
 def big_neg(dtype: torch.dtype) -> float:
@@ -65,6 +66,22 @@ def matmul_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     that a row's result almost always ignores the other rows in the call
     (see the module docstring)."""
     return torch.matmul(x.to(torch.float64), w.to(torch.float64)).to(x.dtype)
+
+
+def sum_fixed(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` by elementwise adds in one fixed order (halve the
+    axis and add the halves until one entry is left; an odd entry out
+    rides along to the next round).  Unlike a reduction kernel, whose
+    order may follow the tensor's other dimensions, a row's sum never
+    depends on how many rows share the call: the recurrences' small
+    contractions use it so that batched serving equals sequential."""
+    while x.shape[dim] > 1:
+        n = x.shape[dim]
+        half = x.narrow(dim, 0, n // 2) + x.narrow(dim, n // 2, n // 2)
+        if n % 2:
+            half = torch.cat([half, x.narrow(dim, n - 1, 1)], dim=dim)
+        x = half
+    return x.squeeze(dim)
 
 
 def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
@@ -99,10 +116,22 @@ def _mean64(x: torch.Tensor, square: bool = False) -> torch.Tensor:
 
 
 def norm_apply(p: dict, x: torch.Tensor, kind: str,
-               eps: float = 1e-6) -> torch.Tensor:
+               eps: float = 1e-6, groups: int = 0) -> torch.Tensor:
     """RMSNorm or LayerNorm in float32 (the statistics accumulated in
-    float64), output in ``x.dtype``."""
+    float64), output in ``x.dtype``.  ``groups > 0`` is the grouped
+    LayerNorm of RWKV's ``ln_x``: each of ``groups`` equal slices of the
+    last axis normalized on its own, then one ``scale`` / ``bias`` (if
+    present) over the whole axis, whatever ``kind`` says."""
     xf = x.to(torch.float32)
+    if groups:
+        xg = xf.reshape(*xf.shape[:-1], groups, xf.shape[-1] // groups)
+        xc = xg - _mean64(xg)
+        xn = (xc * torch.rsqrt(_mean64(xc, square=True) + eps)) \
+            .reshape(xf.shape)
+        out = xn * p["scale"]
+        if "bias" in p:
+            out = out + p["bias"]
+        return out.to(x.dtype)
     if kind == "rmsnorm":
         out = xf * torch.rsqrt(_mean64(xf, square=True) + eps) * p["scale"]
     elif kind == "layernorm":

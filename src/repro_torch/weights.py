@@ -7,10 +7,15 @@ itself never imports JAX) and returns the port's layout: one dict per
 layer, in order, with every leaf a torch tensor on ``device``.  The LSQ
 scales (``alpha_w``, ``alpha_a``) and the residual scales
 (``alpha_r1``/``alpha_r2``, which the ``qat`` datapath's residual
-re-quantization reads) come along with the weights.  Given the
+re-quantization reads) come along with the weights, and so do the
+recurrent mixers' nested leaves (rwkv6's ``maa`` (5, d), ``tm_w2`` (5,
+lora, d), ``ln_x``; mamba's ``a_log`` (d_inner, d_state)).  Given the
 reference's ``TrainState`` instead (as numpy, the same way), it returns
 the port's :class:`~repro_torch.train.step.TrainState`: the parameters,
 AdamW's ``m`` / ``v`` in the same layout, ``count`` and ``step``.
+:func:`cache_from_jax` carries the reference's paged serving cache the
+same way (page pools and per-slot state rows), so that a decode can
+continue from the reference's own state.
 
 :func:`tree_to_torch` carries any other numpy tree: an SC linear's QAT
 dict (``w``, ``alpha_w``, ``alpha_a``), the paper's TNN (``w_in``,
@@ -27,7 +32,7 @@ from .configs.base import ModelConfig
 from .device import resolve_device
 from .tree import tree_map
 
-__all__ = ["from_jax", "to_torch", "tree_to_torch"]
+__all__ = ["from_jax", "cache_from_jax", "to_torch", "tree_to_torch"]
 
 
 def to_torch(a, device: torch.device) -> torch.Tensor:
@@ -53,12 +58,19 @@ def tree_to_torch(tree, device: str | torch.device | None = None):
     return tree_map(leaf, tree)
 
 
-def _params(params_np: dict, cfg: ModelConfig, dev: torch.device) -> dict:
+def _unstack(periods_np: dict, cfg: ModelConfig, dev: torch.device) -> list:
+    """``{"p{j}": tree with leaves (n_periods, ...)}`` -> one tree a
+    layer, in order."""
     layers = []
     for i in range(cfg.n_periods):
         for j in range(len(cfg.period)):
             layers.append(tree_map(lambda a: to_torch(np.asarray(a)[i], dev),
-                                   params_np["periods"][f"p{j}"]))
+                                   periods_np[f"p{j}"]))
+    return layers
+
+
+def _params(params_np: dict, cfg: ModelConfig, dev: torch.device) -> dict:
+    layers = _unstack(params_np["periods"], cfg, dev)
 
     def conv(a):
         return to_torch(a, dev)
@@ -86,3 +98,13 @@ def from_jax(tree_np, cfg: ModelConfig,
              "v": _params(opt["v"], cfg, dev),
              "count": to_torch(opt["count"], dev)},
         step=to_torch(tree_np.step, dev))
+
+
+def cache_from_jax(cache_np: dict, cfg: ModelConfig,
+                   device: str | torch.device | None = None) -> dict:
+    """The reference's paged cache (``init_paged_cache`` / the serving
+    steps' output) as numpy -> the port's: one entry a layer, each with
+    its attention pools or its per-slot state rows (``max_slots + 1``
+    rows), in the reference's nesting (rwkv's ``cmix: {"shift"}``)."""
+    return {"layers": _unstack(cache_np["periods"], cfg,
+                               resolve_device(device))}

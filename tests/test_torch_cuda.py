@@ -1027,3 +1027,136 @@ def test_train_step_on_the_card_repeats_bit_for_bit(cuda, deterministic):
     assert named == []
     for params in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(params, runs[0]))
+
+
+# ---------------------------------------------------------------------------
+# the recurrent mixers and jamba's attention shape (head_dim 128)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+def test_paged_kernels_at_jamba_shape(cuda, fmt):
+    """jamba-1.5-large's attention (Hkv 8, G 8, D 128, pages of 16) at the
+    serving traffic's shapes: 4 decode lanes of 32-128 tokens and a padded
+    lane; the second 64-token prefill chunk of 4 prompts.  Against the
+    plain versions (O within 1e-2), and bit for bit with poison on the
+    trash page and on every page past a lane's length or the chunk (the
+    padded lane attends the trash page itself, so it is left out)."""
+    lens = [32, 57, 96, 128, 0]
+    q, pools, aux, tables, lengths = _bf16_decode_case(
+        cuda, fmt, lens, 16, Hkv=8, G=8, D=128, seed=128)
+    got, want = _decode_both(fmt, q, pools, aux, tables, lengths)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+    tab = tables.tolist()
+    dead = {0} | {tab[s][j] for s, n in enumerate(lens)
+                  for j in range(n // 16 + 1, 16)}
+    pp = _poisoned(pools, dead)
+    paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
+    assert torch.equal(got[:4], _decode_both(fmt, q, pp, paux, tables,
+                                             lengths)[0][:4])
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 4, 64, 64, Hkv=8,
+                                               Gq=8, D=128, seed=129)
+    args = (q, pools["k_pages"], pools["v_pages"], tables)
+    got = paged_attn_prefill_cuda(*args, start=64, kv_format=fmt, **aux)
+    want = paged_attn_prefill_ref(*args, 64, kv_format=fmt, kv_aux=aux)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+    tab = tables.tolist()
+    dead = {0} | {tab[g][j] for g in range(4) for j in range(8, 10)}
+    pp = _poisoned(pools, dead)
+    paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
+    assert torch.equal(got, paged_attn_prefill_cuda(
+        q, pp["k_pages"], pp["v_pages"], tables, start=64, kv_format=fmt,
+        **paux))
+
+
+def _to_dev(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_dev(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def _recurrent_layer(arch, mode):
+    """One full-width float32 layer's mixer (and, for rwkv6, its channel
+    mix) with seeded random parameters, on the CPU; the reference's zero-
+    initialised leaves get small random values and mamba's conv taps 10x
+    their draw (at the init scale every SSM input quantizes to level 0
+    under sc_int)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import mamba, rwkv6
+    cfg = get_arch(arch).scaled(dtype="float32")
+    cfg = cfg.scaled(quant=cfg.quant.with_mode(mode))
+    gen = torch.Generator().manual_seed(0)
+    cpu = torch.device("cpu")
+    if arch == "rwkv6-7b":
+        parts = {"tmix": (rwkv6.rwkv_tmix_init(cfg, generator=gen,
+                                               device=cpu),
+                          rwkv6.rwkv_tmix_prefill_chunk,
+                          rwkv6.rwkv_tmix_decode,
+                          rwkv6.rwkv_state_init(cfg, 4)),
+                 "cmix": (rwkv6.rwkv_cmix_init(cfg, generator=gen,
+                                               device=cpu),
+                          rwkv6.rwkv_cmix_prefill_chunk,
+                          rwkv6.rwkv_cmix_decode,
+                          {"shift": torch.zeros((4, cfg.d_model))})}
+    else:
+        parts = {"mamba": (mamba.mamba_init(cfg, generator=gen, device=cpu),
+                           mamba.mamba_prefill_chunk, mamba.mamba_decode,
+                           mamba.mamba_state_init(cfg, 4))}
+    for p, *_ in parts.values():
+        for k in ("maa_x", "maa", "u", "mk", "mr", "conv_b"):
+            if k in p:
+                p[k] = torch.randn(p[k].shape, generator=gen) * 0.3
+        if "conv_w" in p:           # keep the SSM's inputs off level 0
+            p["conv_w"] = p["conv_w"] * 10
+    return cfg, gen, parts
+
+
+def _assert_card_close(got, want, tol, what):
+    """``got`` (card) within ``tol`` of ``want`` (CPU) everywhere except
+    at most 1e-4 of the entries, which stay within 0.05 (see the test)."""
+    got, want = got.cpu().float(), want.float()
+    err = (got - want).abs()
+    off = float((err > tol["atol"] + tol["rtol"] * want.abs())
+                .float().mean())
+    assert off <= 1e-4 and float(err.max()) <= 0.05, \
+        (what, off, float(err.max()))
+
+
+@pytest.mark.parametrize("mode", ["sc_int", "none"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "jamba-1.5-large-398b"])
+def test_recurrent_layer_on_the_card_equals_the_cpu(cuda, arch, mode):
+    """A full-width rwkv6 layer (time mix and channel mix, d 4096, 64
+    heads of 64, d_ff 14336) or a full-width jamba mamba layer (d 8192,
+    d_inner 16384, d_state 16), float32: a 64-token prefill chunk of 4
+    lanes (one with 37 real tokens) from zero state, then one decode step
+    from the chunk's state, on the card and on the CPU.  Outputs and
+    states within ``atol=rtol=1e-4`` (the products run in float64 on both
+    sides, but tanh / exp / sigmoid differ in their last ulp between card
+    and host, and the recurrence carries that over the chunk) on all but
+    at most 1e-4 of the entries, and those within 0.05: under sc_int an
+    activation within an ulp of a quantization boundary lands one level
+    over on one side now and then, and a level is ~1e-3 of output.  Under
+    sc_int the layer's projections launch ``ternary_matmul``."""
+    cfg, gen, parts = _recurrent_layer(arch, mode)
+    tol = dict(rtol=1e-4, atol=1e-4)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen)
+    valid = torch.ones((4, 64), dtype=torch.bool)
+    valid[2, 37:] = False
+    x1 = torch.randn((4, 1, cfg.d_model), generator=gen)
+    for name, (p, prefill, decode, st0) in parts.items():
+        want, wst = prefill(p, x, cfg, st0, valid=valid)
+        want1, wst1 = decode(p, x1, cfg, wst)
+        pc = _to_dev(p, cuda)
+        build.reset_launches()
+        got, gst = prefill(pc, x.to(cuda), cfg, _to_dev(st0, cuda),
+                           valid=valid.to(cuda))
+        dense = [v for v in p.values() if isinstance(v, dict) and "w" in v]
+        assert build.LAUNCHES["ternary_matmul"] == \
+            (0 if mode == "none" else len(dense))
+        got1, gst1 = decode(pc, x1.to(cuda), cfg, gst)
+        _assert_card_close(got, want, tol, (name, "prefill"))
+        _assert_card_close(got1, want1, tol, (name, "decode"))
+        for k in wst1:
+            _assert_card_close(gst[k], wst[k], tol, (name, "state", k))
+            _assert_card_close(gst1[k], wst1[k], tol, (name, "state1", k))
