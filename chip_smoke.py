@@ -80,20 +80,49 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    batched ternary matmul 3 times a MoE layer a round under both integer
    datapaths), one decode step and the prefill profiled per pair; and
    tiny float32 rwkv6 and jamba configs give the same tokens on the card
-   as on the CPU.
+   as on the CPU;
+9. train the recurrent mixers at full width and serve the dense path:
+   rwkv6-7b (``--rwkv-train-layers`` of its 32 layers, 2 by default) under
+   sc_qat, per-layer recompute and AdamW on 1 x 4096 tokens of
+   ``SyntheticLM``, 3 steps and a profiled one with the registered token
+   scan, one step with the chunked wkv from the same parameters and batch
+   (its learning rate 0, its loss within 1e-2 relative of the scan's, and
+   on layer 0's operands the chunked wkv within 1e-5 of the scan's
+   largest entry); jamba-1.5-large-398b at 1 layer (mamba + dense; any
+   deeper cut reaches an MoE layer of 9.7 B expert parameters) on 1 x
+   4096 tokens, 3 steps with its bfloat16 AdamW state; both with
+   phase 6's gates (finite losses, lr 0 moves nothing, step 2 moves
+   every watched leaf whose update exceeds half an ulp).  Then granite-
+   3-2b at phase 4's depth through the dense cache: ``prefill`` + 8
+   teacher-forced ``decode_step``s against ``paged_prefill`` +
+   ``paged_decode_step`` with quantization off (logits within 5e-2 of the
+   largest), and the dense ``sequential_generate`` on qat / sc_int /
+   sc_int_approx x fp, each kernel launched the predicted number of
+   times (the flash kernel once a layer a prefill, the ternary matmul or
+   the BSN adder by the projections' rows), its tokens printed beside
+   the engine's with the first parting and its logit gap (not gated: on
+   the fake-quant lattice a one-ulp difference between the flash and the
+   paged kernels becomes whole quanta); and tiny float32 rwkv6 (both wkv
+   forms) and jamba (a whole period) train steps, dense
+   ``sequential_generate`` tokens and ``prefill_mode="exact"`` engine
+   tokens on the card equal to the CPU's.
 
 Phase 3 also holds the flash kernel against its plain version at phase
-6's shape (O and the log-sum-exp), at a ragged bidirectional GQA shape
-(both bf16: the tensor-core kernel), in float32 (the CUDA-core kernel),
-and its gradient against autograd through the plain version; and it
-measures what rounding P to one bf16 term, or to the kernel's two,
-does to O.
+6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
+4096, 64 / 8 heads, D 128), at a ragged bidirectional GQA shape (all
+bf16: the tensor-core kernel), in float32 (the CUDA-core kernel), and its
+gradient against autograd through the plain version at D 64 and D 128;
+and it measures what rounding P to one bf16 term, or to the kernel's
+two, does to O.  Phases 4, 7 and 8 hold the batched engine against the
+paged oracle (``serving.engine._paged_sequential_generate``) on every
+pair; ``sequential_generate`` itself runs the dense cache for fp, as the
+reference's, and phase 9 holds that.
 
 Run from the repository root::
 
-    python3 chip_smoke.py                 # full run (20 / 4 / 32 / 5 layers)
+    python3 chip_smoke.py                 # full run (20 / 4 / 32 / 5 / 2 layers)
     python3 chip_smoke.py --layers 2 --moe-layers 1 --rwkv-layers 2 \
-        --jamba-layers 2                  # quick check
+        --jamba-layers 2 --rwkv-train-layers 1   # quick check
 
 Phase 4 also profiles one decode step per datapath (torch.profiler):
 device busy time, the device's idle share, and the PyTorch ops that take
@@ -209,12 +238,18 @@ def read_sass(so_path):
         f["d128"] = re.match(r"Li128(E|$)", f["template"]) is not None
         log(f"sass {f['kernel']}<{f['template']}>: {f['hmma']} HMMA, "
             f"{f['imma']} IMMA / IGMMA, {f['ldl']} LDL, {f['stl']} STL")
-    # jamba's head dim: a spill there is recorded, not refused
-    d128 = [f for f in found if f["kernel"].startswith("paged_")
+    # jamba's head dim: a spill there is recorded, not refused; the bf16
+    # flash instances at D 128 must use the tensor cores
+    d128 = [f for f in found if (f["kernel"].startswith("paged_")
+                                 or f["kernel"].startswith("flash_"))
             and f["d128"]]
-    log("paged kernels at D 128 (local memory): " + "; ".join(
-        f"{f['kernel']}<{f['template']}> {f['ldl']} LDL {f['stl']} STL"
-        for f in d128))
+    log("paged and flash kernels at D 128 (local memory): " + "; ".join(
+        f"{f['kernel']}<{f['template']}> {f['hmma']} HMMA {f['ldl']} LDL "
+        f"{f['stl']} STL" for f in d128))
+    flash128 = [f for f in d128 if f["kernel"] == "flash_fwd_mma_kernel"]
+    if not flash128 or not all(f["hmma"] > 0 for f in flash128):
+        raise AssertionError(f"flash_fwd_mma_kernel at D 128: tensor-core "
+                             f"instructions missing: {flash128}")
     for kernel, count in (("flash_fwd_mma_kernel", 4),
                           ("paged_prefill_mma_kernel", 12)):
         inst = [f for f in found if f["kernel"] == kernel]
@@ -844,6 +879,8 @@ def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
 
 
 FLASH_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=8, D=64)   # phase 6's attention
+# jamba-1.5-large's attention layers over a train_4k sequence
+JAMBA_FLASH_SHAPE = dict(B=1, S=4096, Hq=64, Hkv=8, D=128)
 LSE_ATOL = 1e-4         # float32 log-sum-exp, sums in another order
 FLASH_F32_TOL = 1e-5    # the float32 kernel: O and LSE, float32 sums
 GRAD_TOL = 1e-4         # float32 gradients against autograd
@@ -902,6 +939,8 @@ def check_flash(torch, dev, gen):
     # bf16 runs the tensor-core kernel, float32 the CUDA-core one
     for label, shp, causal, dtype in (
             ("train B2 S4096 causal", FLASH_SHAPE, True, torch.bfloat16),
+            ("jamba B1 S4096 Hq64 Hkv8 D128 causal", JAMBA_FLASH_SHAPE,
+             True, torch.bfloat16),
             ("ragged S1000 bidirectional GQA",
              dict(B=1, S=1000, Hq=8, Hkv=2, D=64), False, torch.bfloat16),
             ("float32 S1024 causal GQA",
@@ -942,16 +981,22 @@ def check_flash(torch, dev, gen):
                 f"{n} max |dO| {e:.3g}, {c} outputs over {ATTN_ATOL}"
                 for n, (e, c) in pr.items()))
     # the gradient: the kernel's LSE and the blocked backward against
-    # autograd through the plain version, float32
-    q, k, v = _flash_inputs(torch, gen, dev, B=2, S=512, Hq=8, Hkv=2, D=64,
-                            dtype=torch.float32)
-    g = torch.randn(q.shape, generator=gen, device=dev)
-    leaves = tuple(t.requires_grad_() for t in (q, k, v))
-    got = torch.autograd.grad(dispatch.flash_attention(*leaves), leaves, g)
-    want = torch.autograd.grad(flash_attention_ref(*leaves), leaves, g)
-    grad_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    # autograd through the plain version, float32, at D 64 and at jamba's
+    # D 128 (the CUDA-core kernel's two instances)
+    grad_errs = {}
+    for D, Hq, Hkv in ((64, 8, 2), (128, 16, 2)):
+        q, k, v = _flash_inputs(torch, gen, dev, B=2, S=512, Hq=Hq, Hkv=Hkv,
+                                D=D, dtype=torch.float32)
+        g = torch.randn(q.shape, generator=gen, device=dev)
+        leaves = tuple(t.requires_grad_() for t in (q, k, v))
+        got = torch.autograd.grad(dispatch.flash_attention(*leaves), leaves,
+                                  g)
+        want = torch.autograd.grad(flash_attention_ref(*leaves), leaves, g)
+        grad_errs[D] = max((a - b).abs().max().item()
+                           for a, b in zip(got, want))
+    grad_err = max(grad_errs.values())
     if not grad_err <= GRAD_TOL:
-        raise AssertionError(f"flash backward: max_abs_err {grad_err}")
+        raise AssertionError(f"flash backward: max_abs_err {grad_errs}")
     # the backward's time at phase 6's shape (PyTorch ops, not a kernel)
     q, k, v = _flash_inputs(torch, gen, dev, **FLASH_SHAPE,
                             dtype=torch.bfloat16)
@@ -961,10 +1006,11 @@ def check_flash(torch, dev, gen):
     bwd_ms = time_ms(lambda: torch.autograd.grad(out, leaves, g,
                                                  retain_graph=True),
                      iters=3, warmup=1)
-    log(f"flash backward B2 S512 float32: max_abs_err={grad_err:.3g} "
-        f"(tol {GRAD_TOL}); backward at the train shape (PyTorch ops) "
-        f"{bwd_ms:.2f} ms")
-    cases[0].update(grad_max_abs_err=grad_err, backward_ms=bwd_ms)
+    log(f"flash backward B2 S512 float32: max_abs_err D64 "
+        f"{grad_errs[64]:.3g}, D128 {grad_errs[128]:.3g} (tol {GRAD_TOL}); "
+        f"backward at the train shape (PyTorch ops) {bwd_ms:.2f} ms")
+    cases[0].update(grad_max_abs_err=grad_errs[64], backward_ms=bwd_ms)
+    cases[1].update(grad_max_abs_err=grad_errs[128])
     return cases
 
 
@@ -1182,11 +1228,15 @@ def serve_pair(torch, dev, cfg, params, prompts, datapath, fmt,
     """Serve ``prompts`` through ``ServeEngine`` (4 slots, pages of 16,
     prefill chunks of 64) on one datapath x kv_format pair, the launch
     counts set to 0 just before and read just after: every kernel of
-    ``kernels`` must have launched and the batched tokens must equal
-    ``sequential_generate``'s.  Returns (result, a function that makes
-    the same engine afresh with the prompts queued)."""
+    ``kernels`` must have launched and the batched tokens must equal the
+    paged oracle's (``_paged_sequential_generate``: one request at a time
+    on a private paged cache, for every format).  Returns (result, a
+    function that makes the same engine afresh with the prompts
+    queued)."""
     from repro_torch.kernels import build as kbuild
-    from repro_torch.serving import ServeEngine, sequential_generate
+    from repro_torch.serving import ServeEngine
+    from repro_torch.serving.engine import (_cfg_for_datapath,
+                                            _paged_sequential_generate)
 
     def engine():
         eng = ServeEngine(params, cfg, max_slots=4, max_len=256,
@@ -1221,13 +1271,12 @@ def serve_pair(torch, dev, cfg, params, prompts, datapath, fmt,
     if len(got) != len(prompts):
         raise AssertionError(f"{tag}: {len(got)} of {len(prompts)} "
                              f"requests finished")
-    want = sequential_generate(params, cfg, prompts,
-                               max_new_tokens=new_tokens, max_len=256,
-                               datapath=datapath, kv_format=fmt,
-                               page_size=16, device=dev)
+    want = _paged_sequential_generate(
+        params, _cfg_for_datapath(cfg, datapath), prompts, new_tokens, None,
+        256, fmt, 16, dev)
     if got != want:
-        raise AssertionError(f"{tag}: batched tokens differ from "
-                             f"sequential_generate\n{got}\n{want}")
+        raise AssertionError(f"{tag}: batched tokens differ from the "
+                             f"paged oracle\n{got}\n{want}")
     if any(not 0 <= t < cfg.vocab_size for g in got for t in g):
         raise AssertionError(f"{tag}: token out of vocab")
     n_tok = sum(len(g) for g in got)
@@ -1237,7 +1286,7 @@ def serve_pair(torch, dev, cfg, params, prompts, datapath, fmt,
                decode_ms_per_step=t_decode * 1e3 / max(steps, 1),
                tokens_per_s=n_tok / (t_prefill + t_decode),
                max_memory_allocated=peak, launches=launches,
-               tokens_equal_sequential=True)
+               tokens=got, tokens_equal_sequential=True)
     log(f"serve {tag}: prefill_ms={res['prefill_ms']:.1f} "
         f"decode_ms_per_step={res['decode_ms_per_step']:.1f} "
         f"steps={steps} tokens/s={res['tokens_per_s']:.2f} "
@@ -1509,19 +1558,37 @@ TRAIN_LR = 1e-3
 TINY_TRAIN_TOL = dict(metric=1e-5, params=2e-5, m=5e-5, v=1e-4)
 
 
-def _watch(params):
-    """Copies of a few leaves, to see which steps change them."""
-    lay = params["layers"]
-    return {"layers/0/mixer/wq/w": lay[0]["mixer"]["wq"]["w"],
-            f"layers/{len(lay) - 1}/ffn/w_down/w":
-                lay[-1]["ffn"]["w_down"]["w"],
-            "layers/0/norm1/scale": lay[0]["norm1"]["scale"],
-            "layers/0/mixer/wq/alpha_a": lay[0]["mixer"]["wq"]["alpha_a"],
-            "embed/table": params["embed"]["table"],
-            "lm_head/w": params["lm_head"]["w"]}
+# the leaves each trained arch watches ("layers/-1" is the last layer)
+WATCH = {
+    "granite-3-2b": ("layers/0/mixer/wq/w", "layers/-1/ffn/w_down/w",
+                     "layers/0/norm1/scale", "layers/0/mixer/wq/alpha_a",
+                     "embed/table", "lm_head/w"),
+    "rwkv6-7b": ("layers/0/mixer/wr/w", "layers/-1/ffn/wv/w",
+                 "layers/0/mixer/w0", "layers/0/mixer/maa",
+                 "layers/0/norm1/scale", "layers/0/mixer/wr/alpha_a",
+                 "embed/table", "lm_head/w"),
+    "jamba-1.5-large-398b": ("layers/0/mixer/in_proj/w",
+                             "layers/0/mixer/a_log", "layers/0/mixer/dt_bias",
+                             "layers/-1/ffn/w_down/w", "layers/0/norm1/scale",
+                             "layers/0/mixer/in_proj/alpha_a", "embed/table",
+                             "lm_head/w")}
 
 
-def _rounded_away(torch, state, lr):
+def _watch(params, arch="granite-3-2b"):
+    """The watched leaves of ``params`` (to see which steps change them),
+    keyed by path with the last layer's index written out."""
+    out = {}
+    for path in WATCH[arch]:
+        node, parts = params, path.split("/")
+        if parts[0] == "layers":
+            parts[1] = str(int(parts[1]) % len(params["layers"]))
+        for part in parts:
+            node = node[int(part)] if isinstance(node, list) else node[part]
+        out["/".join(parts)] = node
+    return out
+
+
+def _rounded_away(torch, state, lr, arch="granite-3-2b"):
     """Per watched leaf, the largest ratio of the last AdamW update to half
     an ulp of the entry it was added to, recomputed from the optimizer's
     own m / v / count exactly as ``optim.adamw_update`` forms it: below 1
@@ -1533,9 +1600,9 @@ def _rounded_away(torch, state, lr):
     c = float(state.opt["count"])
     bc1, bc2 = 1 - arg["b1"] ** c, 1 - arg["b2"] ** c
     ratios = {}
-    for (k, p), m, v in zip(_watch(state.params).items(),
-                            _watch(state.opt["m"]).values(),
-                            _watch(state.opt["v"]).values()):
+    for (k, p), m, v in zip(_watch(state.params, arch).items(),
+                            _watch(state.opt["m"], arch).values(),
+                            _watch(state.opt["v"], arch).values()):
         step = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + arg["eps"])
         if p.ndim + k.startswith("layers/") >= 2:      # train.decay_mask
             step = step + arg["weight_decay"] * p.float()
@@ -1548,16 +1615,18 @@ def _rounded_away(torch, state, lr):
 MMA_KERNEL = "flash_fwd_mma_kernel"     # the bf16 tensor-core forward
 
 
-def profile_train_step(torch, step_fn, state, batch, n_flash):
+def profile_train_step(torch, step_fn, state, batch, n_flash,
+                       label="train"):
     """One train step under torch.profiler: device busy time, the device's
     idle share of the step's wall time, and the flash forward's time over
-    its ``n_flash`` launches, all of them the tensor-core kernel."""
+    its ``n_flash`` launches, all of them the tensor-core kernel; the
+    step's metrics too."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, _ = step_fn(state, batch)
+        state, metrics = step_fn(state, batch)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     events = prof.key_averages()
@@ -1571,7 +1640,7 @@ def profile_train_step(torch, step_fn, state, batch, n_flash):
     rows = sorted(((_dev_us(e), e.key, e.count) for e in events
                    if e.device_type != cuda and _dev_us(e) > 0),
                   reverse=True)
-    (OUT_DIR / "profile_train.txt").write_text(events.table(
+    (OUT_DIR / f"profile_{label}.txt").write_text(events.table(
         sort_by="self_cuda_time_total", row_limit=40))
     if (sum(flash_calls.values()) != n_flash
             or not all(MMA_KERNEL in k for k in flash_calls)):
@@ -1581,8 +1650,9 @@ def profile_train_step(torch, step_fn, state, batch, n_flash):
     top = [dict(name=k, ms=us / 1e3, calls=n) for us, k, n in rows[:10]]
     res = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                idle_share=1 - busy_ms / wall_ms, flash_kernel_ms=flash_ms,
-               flash_kernel_calls=flash_calls, top=top)
-    log(f"profile train step: wall_ms={wall_ms:.1f} device_busy_ms="
+               flash_kernel_calls=flash_calls, top=top,
+               metrics={k: float(v) for k, v in metrics.items()})
+    log(f"profile {label} step: wall_ms={wall_ms:.1f} device_busy_ms="
         f"{busy_ms:.1f} idle_share={res['idle_share']:.3f} flash_kernel_ms="
         f"{flash_ms:.1f} ({n_flash} launches of {MMA_KERNEL}) top ops: "
         + "; ".join(f"{t['name']} {t['ms']:.1f} ms x{t['calls']}"
@@ -1590,33 +1660,51 @@ def profile_train_step(torch, step_fn, state, batch, n_flash):
     return res
 
 
-def train(torch, dev, layers):
-    """Phase 6: the training main path at full width."""
+def train_arch(torch, dev, arch, layers, batch):
+    """Train ``arch`` at its published widths, ``layers`` deep, from
+    seeded random weights (mamba's conv taps scaled by :func:`live_ssm`)
+    with its registered quantization, recompute, dtypes and AdamW state,
+    on ``batch`` x 4096 tokens of ``SyntheticLM``: 3 steps, with the
+    gates of phase 6 (a flash launch per attention layer's forward and
+    recompute, finite losses, step 1 at lr 0 moves nothing, step 2 moves
+    every watched leaf whose update exceeds half an ulp), then one
+    profiled step.  On rwkv6 :func:`chunked_wkv_step` runs first, from
+    the same parameters and batch as the profiled scan step, whose loss
+    its loss must be within ``CHUNKED_LOSS_RTOL`` of."""
     from repro_torch.configs import get_arch
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import build as kbuild
     from repro_torch.models import init_params
     from repro_torch.optim import warmup_cosine
     from repro_torch.train import build_train_step, init_train_state
-    cfg = get_arch("granite-3-2b")
+    from repro_torch.tree import tree_leaves
+    cfg = get_arch(arch)
     if layers != cfg.n_layers:
         cfg = cfg.scaled(n_layers=layers)
     if (cfg.quant.mode, cfg.remat, cfg.dtype) != ("sc_qat", "full",
                                                   "bfloat16"):
-        raise AssertionError(f"granite-3-2b trains {cfg.quant.mode} / "
-                             f"{cfg.remat} / {cfg.dtype}")
+        raise AssertionError(f"{arch} trains {cfg.quant.mode} / {cfg.remat} "
+                             f"/ {cfg.dtype}")
+    n_attn = sum(cfg.period[i % len(cfg.period)].mixer == "attn"
+                 for i in range(layers))
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    state = init_train_state(
-        init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev), cfg)
+    params = live_ssm(init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                  dev))
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    state = init_train_state(params, cfg)
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=SEED)
-    batches = [ds.batch(i, TRAIN_BATCH) for i in range(TRAIN_STEPS + 1)]
+    batches = [ds.batch(i, batch) for i in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"init train state {arch} layers={layers} d_model={cfg.d_model} "
+        f"params={n_params / 1e9:.3f} B opt_state={cfg.opt_state_dtype} "
+        f"wkv={cfg.rwkv_wkv_impl}: {setup_s:.1f} s, {state_gib:.2f} GiB")
     # warmup_cosine(0) = 0: step 1 moves nothing, step 2 runs at the peak
     step_fn = build_train_step(cfg, lambda s: warmup_cosine(
         s, TRAIN_LR, 1, TRAIN_STEPS))
-    initial = {k: v.clone() for k, v in _watch(state.params).items()}
+    initial = {k: v.clone() for k, v in _watch(state.params, arch).items()}
 
     torch.cuda.reset_peak_memory_stats()
     kbuild.reset_launches()
@@ -1629,114 +1717,137 @@ def train(torch, dev, layers):
         sec = time.perf_counter() - t1
         steps.append(dict({k: float(v) for k, v in m.items()}, sec=sec))
         changed.append({k: (v != initial[k]).float().mean().item()
-                        for k, v in _watch(state.params).items()})
+                        for k, v in _watch(state.params, arch).items()})
         if i == 1:
-            rounded = _rounded_away(torch, state, steps[-1]["lr"])
-        log(f"train step {i + 1}: loss={steps[-1]['loss']:.4f} grad_norm="
-            f"{steps[-1]['grad_norm']:.4f} lr={steps[-1]['lr']:.3g} "
-            f"{sec:.2f} s; share of watched entries changed: "
-            + ", ".join(f"{k.split('/')[-2]} {c:.3g}"
-                        for k, c in changed[-1].items()))
+            rounded = _rounded_away(torch, state, steps[-1]["lr"], arch)
+        log(f"train {arch} step {i + 1}: loss={steps[-1]['loss']:.4f} "
+            f"grad_norm={steps[-1]['grad_norm']:.4f} lr="
+            f"{steps[-1]['lr']:.3g} {sec:.2f} s; share of watched entries "
+            f"changed: " + ", ".join(f"{k} {c:.3g}"
+                                     for k, c in changed[-1].items()))
     launches = dict(kbuild.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
 
-    want = cfg.n_layers * 2 * TRAIN_STEPS          # forward + recompute
+    want = n_attn * 2 * TRAIN_STEPS                # forward + recompute
     if launches["flash_attention"] != want:
-        raise AssertionError(f"flash kernel launched "
+        raise AssertionError(f"{arch}: flash kernel launched "
                              f"{launches['flash_attention']} times, "
                              f"expected {want}")
     if not all(math.isfinite(s[k]) for s in steps
                for k in ("loss", "grad_norm")):
-        raise AssertionError(f"non-finite loss or grad norm: {steps}")
+        raise AssertionError(f"{arch}: non-finite loss or grad norm: {steps}")
     if any(changed[0].values()):
-        raise AssertionError(f"step 1 (lr 0) changed parameters: "
+        raise AssertionError(f"{arch}: step 1 (lr 0) changed parameters: "
                              f"{changed[0]}")
     # step 2 must move every watched leaf, except one whose AdamW update
     # (recomputed from the optimizer state) is below half an ulp of all
     # its entries: at random init the clip by a ~1e12 gradient norm leaves
     # some step sizes' updates that small (ROADMAP Queue 3 item 7)
     stuck = {k: rounded[k] for k, c in changed[1].items() if c == 0}
-    log(f"step 2: largest update / half-ulp per watched leaf: "
+    log(f"{arch} step 2: largest update / half-ulp per watched leaf: "
         + ", ".join(f"{k} {r:.3g}" for k, r in rounded.items()))
     if not any(changed[1].values()) or any(r >= 1 for r in stuck.values()):
-        raise AssertionError(f"step 2 left parameters unchanged: "
+        raise AssertionError(f"{arch}: step 2 left parameters unchanged: "
                              f"{changed[1]}; update / half-ulp {rounded}")
     later = [s["sec"] for s in steps[1:]]
     sec_per_step = sum(later) / len(later)
-    res = dict(layers=cfg.n_layers, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
-               quant=cfg.quant.mode, remat=cfg.remat, lr=TRAIN_LR,
-               setup_s=setup_s, steps=steps, changed=changed,
-               update_over_half_ulp=rounded,
-               sec_per_step=sec_per_step,
-               tokens_per_s=TRAIN_BATCH * TRAIN_SEQ / sec_per_step,
-               max_memory_allocated=peak, launches=launches)
-    log(f"train granite-3-2b layers={cfg.n_layers} batch={TRAIN_BATCH}x"
-        f"{TRAIN_SEQ}: sec/step (steps 2-{TRAIN_STEPS}) {sec_per_step:.3f} "
-        f"tokens/s {res['tokens_per_s']:.0f} max_memory_allocated="
+    res = dict(arch=arch, layers=layers, params=n_params, batch=batch,
+               seq=TRAIN_SEQ, quant=cfg.quant.mode, remat=cfg.remat,
+               opt_state_dtype=cfg.opt_state_dtype,
+               wkv_impl=cfg.rwkv_wkv_impl, lr=TRAIN_LR, setup_s=setup_s,
+               state_gib=state_gib, steps=steps, changed=changed,
+               update_over_half_ulp=rounded, sec_per_step=sec_per_step,
+               tokens_per_s=batch * TRAIN_SEQ / sec_per_step,
+               launches=launches)
+    if arch == RWKV_ARCH:
+        state, res["chunked"] = chunked_wkv_step(torch, cfg, state,
+                                                 batches[TRAIN_STEPS])
+    res["max_memory_allocated"] = peak = torch.cuda.max_memory_allocated()
+    log(f"train {arch} layers={layers} batch={batch}x{TRAIN_SEQ}: sec/step "
+        f"(steps 2-{TRAIN_STEPS}) {sec_per_step:.3f} tokens/s "
+        f"{res['tokens_per_s']:.0f} max_memory_allocated="
         f"{peak / 2**30:.2f} GiB launches={launches}")
-    res["profile"] = profile_train_step(torch, step_fn, state,
-                                        batches[TRAIN_STEPS],
-                                        cfg.n_layers * 2)
+    res["profile"] = profile_train_step(
+        torch, step_fn, state, batches[TRAIN_STEPS], n_attn * 2,
+        label="train" if arch == "granite-3-2b" else f"train_{arch}")
     res["profile"]["idle_share_unprofiled"] = \
         1 - res["profile"]["device_busy_ms"] / (sec_per_step * 1e3)
-    log(f"train step idle share against the unprofiled step "
+    log(f"train {arch} step idle share against the unprofiled step "
         f"({sec_per_step * 1e3:.1f} ms): "
         f"{res['profile']['idle_share_unprofiled']:.3f}")
+    if arch == RWKV_ARCH:
+        c = res["chunked"]
+        scan_loss = res["profile"]["metrics"]["loss"]
+        c["loss_rel_gap"] = gap = abs(c["loss"] - scan_loss) / abs(scan_loss)
+        log(f"rwkv6 chunked wkv step: loss {c['loss']:.6f} against the "
+            f"scan's {scan_loss:.6f} on the same parameters and batch: "
+            f"relative gap {gap:.3g} (tol {CHUNKED_LOSS_RTOL}); "
+            f"{c['step_s'][0]:.2f} s its first call, {c['step_s'][1]:.2f} s "
+            f"its second, against the scan's {sec_per_step:.2f} s a step")
+        if not gap <= CHUNKED_LOSS_RTOL:
+            raise AssertionError(f"rwkv6 chunked wkv loss gap {gap}")
+    del state, params
     return res
 
 
-def tiny_train_card_equals_cpu(torch, dev):
-    """One train step of a tiny float32 config on the card (flash kernel)
-    against the same step on the CPU (plain version), without
-    quantization and under sc_qat (tolerances at TINY_TRAIN_TOL)."""
-    from repro_torch.configs import get_arch
+def tiny_train_card_equals_cpu(torch, dev, configs):
+    """One train step of each tiny float32 config on the card (flash
+    kernel) against the same step on the CPU (plain version), without
+    quantization and under sc_qat, at ``TINY_TRAIN_TOL``.  ``configs``
+    holds (label, sc_qat config, sequence length, small-gradient rule);
+    with the rule, where the CPU's first-step gradient is below 1e-6 the
+    step ``lr * g / (|g| + eps)`` is set by the gradient's rounding, and
+    those parameter entries are held within ``2 lr``."""
     from repro_torch.data import SyntheticLM
     from repro_torch.kernels import build as kbuild
     from repro_torch.models import init_params
     from repro_torch.optim import warmup_cosine
     from repro_torch.train import build_train_step, init_train_state
     from repro_torch.tree import tree_leaves
-    qat = get_arch("granite-3-2b").scaled(
-        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
-        vocab_size=64, vocab_pad_multiple=32, dtype="float32")
-    batch = SyntheticLM(vocab_size=qat.vocab_size, seq_len=100,
-                        seed=SEED).batch(0, 4)
     tol = TINY_TRAIN_TOL
     res = {}
-    for cfg in (qat.scaled(quant=qat.quant.with_mode("none")), qat):
-        cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
-        gpu = _to(cpu, dev)
-        step_fn = build_train_step(cfg, lambda s: warmup_cosine(
-            s + 1, 1e-3, 2, 10))
-        before = kbuild.LAUNCHES["flash_attention"]
-        (sc, mc), (sg, mg) = [step_fn(init_train_state(p, cfg), batch)
-                              for p in (cpu, gpu)]
-        if kbuild.LAUNCHES["flash_attention"] - before != cfg.n_layers * 2:
-            raise AssertionError("tiny train step: the card did not run "
-                                 "the flash kernel")
-        errs = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
-                for k in ("loss", "grad_norm")}
-        errs["params"] = max((a.cpu() - b).abs().max().item()
-                             for a, b in zip(tree_leaves(sg.params),
-                                             tree_leaves(sc.params)))
-        for name in ("m", "v"):
-            errs[name] = max(((a.cpu() - b).abs().max()
-                              / b.abs().max().clamp(min=1e-30)).item()
-                             for a, b in zip(tree_leaves(sg.opt[name]),
-                                             tree_leaves(sc.opt[name])))
-        checked = ("loss",) if cfg.quant.enabled else tuple(errs)
-        bad = {k: errs[k] for k in checked
-               if errs[k] > tol["metric" if k in ("loss", "grad_norm")
-                                else k]}
-        if bad:
-            raise AssertionError(f"tiny train step {cfg.quant.mode}: card "
-                                 f"!= cpu {bad}")
-        log(f"tiny train step {cfg.quant.mode}: card == cpu on "
-            f"{', '.join(checked)} (loss rel {errs['loss']:.2g}, grad_norm "
-            f"rel {errs['grad_norm']:.2g}, params max abs "
-            f"{errs['params']:.2g}, m {errs['m']:.2g}, v {errs['v']:.2g}; "
-            f"tolerances {tol})")
-        res[cfg.quant.mode] = errs
+    for label, qat, seq, small_grad_rule in configs:
+        n_attn = sum(qat.period[i % len(qat.period)].mixer == "attn"
+                     for i in range(qat.n_layers))
+        batch = SyntheticLM(vocab_size=qat.vocab_size, seq_len=seq,
+                            seed=SEED).batch(0, 4)
+        for cfg in (qat.scaled(quant=qat.quant.with_mode("none")), qat):
+            cpu = live_ssm(init_params(cfg, torch.Generator().manual_seed(
+                SEED), "cpu"))
+            gpu = _to(cpu, dev)
+            step_fn = build_train_step(cfg, lambda s: warmup_cosine(
+                s + 1, 1e-3, 2, 10))
+            before = kbuild.LAUNCHES["flash_attention"]
+            (sc, mc), (sg, mg) = [step_fn(init_train_state(p, cfg), batch)
+                                  for p in (cpu, gpu)]
+            if kbuild.LAUNCHES["flash_attention"] - before != n_attn * 2:
+                raise AssertionError(f"tiny {label} train step: the card "
+                                     f"did not run the flash kernel")
+            errs = {k: abs(float(mg[k]) - float(mc[k])) / abs(float(mc[k]))
+                    for k in ("loss", "grad_norm")}
+            slack = 2 * float(mc["lr"]) if small_grad_rule else 0.0
+            errs["params"] = max(
+                ((a.cpu() - b).abs() - torch.where(
+                    m.abs() < (1 - 0.9) * 1e-6, slack, 0.0)).max().item()
+                for a, b, m in zip(tree_leaves(sg.params),
+                                   tree_leaves(sc.params),
+                                   tree_leaves(sc.opt["m"])))
+            for name in ("m", "v"):
+                errs[name] = max(((a.cpu() - b).abs().max()
+                                  / b.abs().max().clamp(min=1e-30)).item()
+                                 for a, b in zip(tree_leaves(sg.opt[name]),
+                                                 tree_leaves(sc.opt[name])))
+            checked = ("loss",) if cfg.quant.enabled else tuple(errs)
+            bad = {k: errs[k] for k in checked
+                   if errs[k] > tol["metric" if k in ("loss", "grad_norm")
+                                    else k]}
+            if bad:
+                raise AssertionError(f"tiny {label} train step "
+                                     f"{cfg.quant.mode}: card != cpu {bad}")
+            log(f"tiny {label} train step {cfg.quant.mode}: card == cpu on "
+                f"{', '.join(checked)} ("
+                + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+                + f"; tolerances {tol})")
+            res[f"{label} {cfg.quant.mode}"] = errs
     return res
 
 
@@ -1833,6 +1944,299 @@ def serve_arch(torch, dev, arch, layers):
     return results, totals
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training the recurrent mixers, and the dense serving path
+# ---------------------------------------------------------------------------
+
+RECURRENT_TRAIN_BATCH = 1       # PERF.md section 4: rwkv6's (S, H, K, V) scan
+# jamba's layer 1 is MoE with 9.7 B expert parameters, past one card
+JAMBA_TRAIN_LAYERS = 1
+CHUNKED_LOSS_RTOL = 1e-2        # chunked wkv against the token scan, bf16
+# layer 0's chunked wkv against the token scan, float32, of the largest
+# entry: sound forms read 5e-7 to 1.2e-6, the smallest planted fault
+# (decays a token late) 2.2e-4 (chip_wkv_faults.py; PERF.md section 6)
+WKV_RTOL = 1e-5
+DENSE_LOGIT_RTOL = 5e-2         # dense vs paged logits, of the largest
+DENSE_NEW_TOKENS = 8
+
+
+def wkv_gap(torch, operands, chunked):
+    """``chunked`` (``_wkv_chunked`` or a stand-in) against the token scan
+    on one layer's wkv operands, in float32: the largest |difference| of
+    y and of the final state, each over the largest |scan| entry; and of
+    y again with the bonus ``u`` drawn from a seeded normal (it is zero
+    at init, which would leave the bonus term unchecked)."""
+    from repro_torch.models import rwkv6
+    r, k, v, w, u, s0, chunk = operands
+    drawn = torch.randn(u.shape, device=u.device, generator=torch.Generator(
+        u.device).manual_seed(SEED))
+    out = {}
+    with torch.no_grad():
+        for tag, uu in (("", u), (" u drawn", drawn)):
+            ys, ss = rwkv6._wkv_scan(r, k, v, w, uu, s0)
+            yc, sc = chunked(r, k, v, w, uu, s0, chunk)
+            out["y" + tag] = ((yc - ys).abs().max() / ys.abs().max()).item()
+            if not tag:
+                out["state"] = ((sc - ss).abs().max()
+                                / ss.abs().max()).item()
+    return out
+
+
+def chunked_wkv_step(torch, cfg, state, batch):
+    """One rwkv6 train step with the chunked wkv at learning rate 0 from
+    ``state`` on ``batch``, run twice (the first call of a new path pays
+    its warm-up, as the scan's first step does); it must move no watched
+    leaf.  Layer 0's wkv operands, taken from the step's first forward,
+    hold ``_wkv_chunked`` against ``_wkv_scan`` within ``WKV_RTOL``
+    (:func:`wkv_gap`).  Returns (state, result); the caller holds the
+    step's loss against the scan step's."""
+    from repro_torch.models import rwkv6
+    from repro_torch.train import build_train_step
+    before = {k: v.clone() for k, v in _watch(state.params, RWKV_ARCH).items()}
+    step_fn = build_train_step(cfg.scaled(rwkv_wkv_impl="chunked"),
+                               lambda s: 0.0)
+    chunked, seen = rwkv6._wkv_chunked, []
+
+    def record(*operands):
+        if not seen:
+            seen.append([t.detach() if torch.is_tensor(t) else t
+                         for t in operands])
+        return chunked(*operands)
+
+    res = dict(step_s=[])
+    for i in range(2):
+        rwkv6._wkv_chunked = record if i == 0 else chunked
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            state, m = step_fn(state, batch)
+            torch.cuda.synchronize()
+            res["step_s"].append(time.perf_counter() - t1)
+        finally:
+            rwkv6._wkv_chunked = chunked
+    res["loss"] = float(m["loss"])
+    moved = [k for k, v in _watch(state.params, RWKV_ARCH).items()
+             if not torch.equal(v, before[k])]
+    if moved or not math.isfinite(res["loss"]):
+        raise AssertionError(f"rwkv6 chunked step at lr 0: moved {moved}, "
+                             f"loss {res['loss']}")
+    res["wkv_rel_err"] = err = wkv_gap(torch, seen[0], chunked)
+    log(f"rwkv6 layer 0 wkv, chunked against the token scan (S "
+        f"{seen[0][0].shape[1]}, chunk {seen[0][6]}): y {err['y']:.3g}, "
+        f"final state {err['state']:.3g}, y with u drawn "
+        f"{err['y u drawn']:.3g}, of the largest (tol {WKV_RTOL})")
+    if not max(err.values()) <= WKV_RTOL:
+        raise AssertionError(f"rwkv6 chunked wkv against the scan: {err}")
+    return state, res
+
+
+def _predicted_launches(cfg, datapath, forwards):
+    """Launches of the projection kernel that a run of dense ``forwards``
+    (one (rows, count) pair a kind of forward: a prefill of ``rows``
+    positions, or ``count`` one-token decode steps) makes: the ternary
+    matmul once a projection under sc_int; under sc_int_approx the BSN
+    adder once a block of rows, blocks of ``COUNTS_BUDGET_BYTES // (4 N
+    K)`` rows (``core.sc_layers.sc_linear_int_approx``)."""
+    from repro_torch.core.sc_layers import COUNTS_BUDGET_BYTES
+    d, hd = cfg.d_model, cfg.head_dim
+    shapes = [(d, cfg.n_heads * hd), (d, cfg.n_kv_heads * hd),
+              (d, cfg.n_kv_heads * hd), (cfg.n_heads * hd, d),
+              (d, cfg.d_ff), (d, cfg.d_ff), (cfg.d_ff, d)] * cfg.n_layers
+    shapes.append((d, cfg.padded_vocab))
+    total = 0
+    for rows, count in forwards:
+        for k, n in shapes:
+            if datapath == "sc_int":
+                total += count
+            else:
+                block = max(1, COUNTS_BUDGET_BYTES // (4 * n * k))
+                total += count * -(-rows // block)
+    return total
+
+
+def dense_serving(torch, dev, layers):
+    """Phase 9: granite-3-2b at phase 4's depth (seeded random weights, as
+    phase 4's) through the dense cache.  With quantization off, ``prefill``
+    of a 128-token prompt and 8 teacher-forced ``decode_step``s against
+    ``paged_prefill`` (chunks of 64) and ``paged_decode_step`` on the same
+    tokens: logits within ``DENSE_LOGIT_RTOL`` of the largest.  Then the
+    dense ``sequential_generate`` on qat / sc_int / sc_int_approx x fp
+    over phase 4's prompts: finite, every token in the vocabulary, each
+    kernel of its path launched exactly the predicted number of times;
+    its tokens printed beside the engine's on the same pair, with the
+    first parting and the dense logit gap there (not gated)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import (decode_step, init_paged_cache,
+                                    init_params, paged_decode_step,
+                                    paged_prefill, prefill)
+    from repro_torch.serving import ServeEngine, sequential_generate
+    from repro_torch.serving.engine import (_cfg_for_datapath,
+                                            _pad_prefill_cache)
+    cfg = get_arch("granite-3-2b").scaled(n_layers=layers)
+    torch.cuda.empty_cache()
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = _prompts(torch, cfg, (32, 57, 96, 128))
+    res = {}
+    # quantization off: the dense path against the paged one
+    off = cfg.scaled(quant=cfg.quant.with_mode("none"))
+    seq = prompts[3] + _prompts(torch, cfg, (DENSE_NEW_TOKENS,))[0]
+    plen, page = len(prompts[3]), 16
+    kbuild.reset_launches()
+    with torch.inference_mode():
+        toks = torch.tensor([seq], dtype=torch.int32, device=dev)
+        lg, cache = prefill(params, {"tokens": toks[:, :plen]}, off)
+        cache = _pad_prefill_cache(cache, len(seq))
+        dense = [lg[0, -1]]
+        for t in range(plen, len(seq)):
+            lg, cache = decode_step(params, cache, toks[:, t:t + 1], off)
+            dense.append(lg[0, 0])
+        n_flash = kbuild.LAUNCHES["flash_attention"]
+        maxp = len(seq) // page + 1
+        pcache = init_paged_cache(off, 1, maxp + 1, page, "fp", device=dev)
+        tables = torch.arange(1, maxp + 1, dtype=torch.int32,
+                              device=dev)[None]
+        slot = torch.zeros((1,), dtype=torch.int32, device=dev)
+        lg, pcache = paged_prefill(params, pcache, toks[:, :plen], tables,
+                                   torch.tensor([plen], device=dev), off,
+                                   chunk=64, slot_ids=slot)
+        paged = [lg[0]]
+        for t in range(plen, len(seq)):
+            lg, pcache = paged_decode_step(
+                params, pcache, toks[0, t:t + 1], slot, tables,
+                torch.tensor([t], dtype=torch.int32, device=dev), off)
+            paged.append(lg[0])
+    dense, paged = (torch.stack(x).float()[:, :cfg.vocab_size]
+                    for x in (dense, paged))
+    err = ((dense - paged).abs().max() / paged.abs().max()).item()
+    res["dense_vs_paged"] = dict(prompt_len=plen, decode_steps=len(paged) - 1,
+                                 max_rel_err=err, flash_launches=n_flash,
+                                 argmax_equal=bool(torch.equal(
+                                     dense.argmax(-1), paged.argmax(-1))))
+    log(f"dense vs paged granite-3-2b layers={layers} quant off: prefill of "
+        f"{plen} + {len(paged) - 1} decode steps, logits max |diff| / max "
+        f"|logit| {err:.3g} (tol {DENSE_LOGIT_RTOL}); greedy ids equal: "
+        f"{res['dense_vs_paged']['argmax_equal']}; flash launches {n_flash}")
+    if not (err <= DENSE_LOGIT_RTOL and n_flash == layers
+            and torch.isfinite(dense).all()):
+        raise AssertionError(f"dense vs paged: {res['dense_vs_paged']}")
+    # the dense oracle on the three datapaths, beside the engine on fp
+    totals = dict.fromkeys(kbuild.KERNELS, 0)
+    for datapath in ("qat", "sc_int", "sc_int_approx"):
+        eng = ServeEngine(params, cfg, max_slots=4, max_len=256,
+                          page_size=16, prefill_chunk=64, datapath=datapath,
+                          kv_format="fp", device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=DENSE_NEW_TOKENS)
+        engine_toks = [r.generated for r in sorted(
+            eng.run_to_completion(), key=lambda r: r.rid)]
+        del eng
+        kbuild.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sequential_generate(params, cfg, prompts,
+                                  max_new_tokens=DENSE_NEW_TOKENS,
+                                  max_len=256, datapath=datapath,
+                                  kv_format="fp", device=dev)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = dict(kbuild.LAUNCHES)
+        for k, v in launches.items():
+            totals[k] += v
+        dcfg = _cfg_for_datapath(cfg, datapath)
+        want = {"flash_attention": layers * len(prompts)}
+        forwards = [(len(p), 1) for p in prompts] + \
+            [(1, len(g) - 1) for g in got]
+        if datapath != "qat":
+            want["ternary_matmul" if datapath == "sc_int" else "approx_bsn"] \
+                = _predicted_launches(dcfg, datapath, forwards)
+        wrong = {k: (launches[k], n) for k, n in want.items()
+                 if launches[k] != n}
+        others = {k: v for k, v in launches.items() if k not in want and v}
+        if wrong or others or any(not 0 <= t < cfg.vocab_size
+                                  for g in got for t in g):
+            raise AssertionError(f"dense sequential_generate {datapath}: "
+                                 f"launches {wrong} {others}, tokens {got}")
+        partings = []
+        for p, g, e in zip(prompts, got, engine_toks):
+            first = next((i for i, (a, b) in enumerate(zip(g, e)) if a != b),
+                         None)
+            if first is None:
+                partings.append(None)
+                continue
+            with torch.inference_mode():
+                lg, _ = prefill(params, {"tokens": torch.tensor(
+                    [p + g[:first]], dtype=torch.int32, device=dev)}, dcfg)
+            gap = float(lg[0, -1, g[first]] - lg[0, -1, e[first]])
+            partings.append(dict(at=first, dense=g[first], engine=e[first],
+                                 dense_logit_gap=gap))
+        res[datapath] = dict(seconds=sec, launches=launches,
+                             predicted=want, tokens=got,
+                             engine_tokens=engine_toks, partings=partings)
+        log(f"dense sequential_generate granite-3-2b layers={layers} "
+            f"{datapath}xfp: {sec:.1f} s, launches {want} as predicted")
+        for p, g, e, pt in zip(prompts, got, engine_toks, partings):
+            log(f"  prompt of {len(p)}: dense {g} engine {e}"
+                + ("" if pt is None else
+                   f" (first parting at {pt['at']}: dense {pt['dense']} / "
+                   f"engine {pt['engine']}, dense logit gap "
+                   f"{pt['dense_logit_gap']:.4g})"))
+    del params
+    return res, totals
+
+
+# tiny float32 configs at the REDUCED shapes of tests/test_models_smoke.py
+# (its COMMON: mamba_chunk 8); jamba's AdamW state in float32 here, so
+# that phase 6's m / v tolerances apply (its bfloat16 state trains at
+# full width above)
+TINY_RECURRENT = {
+    "rwkv6-7b scan": ("rwkv6-7b", dict(rwkv_wkv_impl="scan")),
+    "rwkv6-7b chunked": ("rwkv6-7b", dict(rwkv_wkv_impl="chunked",
+                                          rwkv_chunk=8)),
+    "jamba-1.5-large-398b": ("jamba-1.5-large-398b",
+                             dict(opt_state_dtype="float32"))}
+
+
+def _tiny_cfg(arch, **kw):
+    from repro_torch.configs import get_arch
+    return get_arch(arch).scaled(**{**TINY_SCALE, **TINY[arch]},
+                                 mamba_chunk=8, **kw)
+
+
+def tiny_dense_tokens_card_equals_cpu(torch, dev):
+    """Tiny float32 granite, rwkv6 and jamba: the dense
+    ``sequential_generate`` (fp, the three datapaths) and the
+    ``prefill_mode="exact"`` engine (the three pairs) give the same tokens
+    on the card as on the CPU."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine, sequential_generate
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [10, 11, 12, 13, 14]]
+    for arch in ("granite-3-2b", RWKV_ARCH, JAMBA_ARCH):
+        cfg = _tiny_cfg(arch)
+        cpu = live_ssm(init_params(cfg, torch.Generator().manual_seed(SEED),
+                                   "cpu"))
+        gpu = _to(cpu, dev)
+        for datapath, fmt in PAIRS:
+            toks = []
+            for params, d in ((cpu, "cpu"), (gpu, dev)):
+                dense = sequential_generate(params, cfg, prompts,
+                                            max_new_tokens=5, max_len=32,
+                                            datapath=datapath, device=d)
+                eng = ServeEngine(params, cfg, max_slots=2, max_len=32,
+                                  page_size=4, datapath=datapath,
+                                  kv_format=fmt, prefill_mode="exact",
+                                  device=d)
+                for p in prompts:
+                    eng.submit(p, max_new_tokens=5)
+                toks.append((dense, [r.generated for r in sorted(
+                    eng.run_to_completion(), key=lambda r: r.rid)]))
+            if toks[0] != toks[1]:
+                raise AssertionError(f"tiny {arch} {datapath}: card "
+                                     f"{toks[1]} != cpu {toks[0]}")
+            log(f"tiny {arch} {datapath}: dense sequential_generate (fp) and "
+                f"exact-prefill engine ({fmt}) tokens on the card == cpu")
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -1858,6 +2262,11 @@ def main() -> int:
                     help="jamba-1.5-large-398b depth to serve in phase 8 "
                          "(of 72; full width always; 5 holds every kind "
                          "of its layers and fits one card)")
+    # 8 layers run 8.4 s a step, and the profiler takes ~3 minutes over
+    # the ~280 k ops of one step: 2 keep phase 9 near 150 s
+    ap.add_argument("--rwkv-train-layers", type=int, default=2,
+                    help="rwkv6-7b depth to train in phase 9 (of 32; full "
+                         "width always)")
     args = ap.parse_args()
 
     import torch
@@ -1933,10 +2342,12 @@ def main() -> int:
     mark(5)
 
     # phase 6: training at full width, then the tiny card==cpu step
-    training = train(torch, dev, args.layers)
+    training = train_arch(torch, dev, "granite-3-2b", args.layers,
+                          TRAIN_BATCH)
     for k, v in training["launches"].items():
         launches[k] += v
-    training["tiny_card_vs_cpu"] = tiny_train_card_equals_cpu(torch, dev)
+    training["tiny_card_vs_cpu"] = tiny_train_card_equals_cpu(
+        torch, dev, [("granite-3-2b", _tiny_cfg("granite-3-2b"), 100, False)])
     mark(6)
 
     # phase 7: a mixture of experts at full width, then tiny MoE card==cpu
@@ -1958,6 +2369,24 @@ def main() -> int:
         tiny_card_equals_cpu(torch, dev, arch)
 
     mark(8)
+
+    # phase 9: training the recurrent mixers, the dense serving path, and
+    # tiny card==cpu train steps and tokens
+    recurrent_training = {
+        arch: train_arch(torch, dev, arch, layers, RECURRENT_TRAIN_BATCH)
+        for arch, layers in ((RWKV_ARCH, args.rwkv_train_layers),
+                             (JAMBA_ARCH, JAMBA_TRAIN_LAYERS))}
+    for r in recurrent_training.values():
+        for k, v in r["launches"].items():
+            launches[k] += v
+    dense, dense_launches = dense_serving(torch, dev, args.layers)
+    for k, v in dense_launches.items():
+        launches[k] += v
+    recurrent_training["tiny_card_vs_cpu"] = tiny_train_card_equals_cpu(
+        torch, dev, [(label, _tiny_cfg(arch, **kw), 96, True)
+                     for label, (arch, kw) in TINY_RECURRENT.items()])
+    tiny_dense_tokens_card_equals_cpu(torch, dev)
+    mark(9)
 
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
@@ -2000,6 +2429,7 @@ def main() -> int:
          "bsn_sort": srt, "flash_attention": fla,
          "serving": serving, "sc_datapath": sc, "training": training,
          "moe_serving": moe_serving, "recurrent_serving": recurrent,
+         "recurrent_training": recurrent_training, "dense_serving": dense,
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

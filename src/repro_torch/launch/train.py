@@ -6,8 +6,10 @@
 Port of ``repro.launch.train``.  It trains on the CUDA card unless
 ``--device cpu`` is given; ``--reduce`` divides widths and depth
 (``--reduce 1`` is the full configuration).  The step runs the flash
-kernel in every attention layer, AdamW, asynchronous checkpoints,
-SIGTERM-safe preemption and stateless data resume.
+kernel in every attention layer and the recurrent archs' training scans
+(``--arch rwkv6-7b`` / ``jamba-1.5-large-398b``), AdamW in the arch's
+state dtype, asynchronous checkpoints, SIGTERM-safe preemption and
+stateless data resume.
 """
 
 from __future__ import annotations

@@ -1,8 +1,11 @@
-"""GQA attention: full-sequence flash attention (training) and the paged
-KV cache (serving decode + chunked prefill).
+"""GQA attention: full-sequence flash attention (training and the dense
+prefill), the dense cache's one-token decode, and the paged KV cache
+(serving decode + chunked prefill).
 
 Port of ``repro.models.attention`` for attention layers.  ``attn_train``
-runs the differentiable flash attention over the whole sequence.  With
+runs the differentiable flash attention over the whole sequence;
+``attn_decode`` appends one token to a dense (B, T, Hkv, Dh) cache and
+attends over it in float32 PyTorch ops, as the reference's einsums.  With
 ``cfg.qk_norm`` (qwen3) q and k are RMS-normalized per head, after the
 projection and before RoPE, on every path.
 
@@ -31,7 +34,7 @@ from ..core.kv_quant import kv_format_of, kv_quant
 from ..kernels import dispatch
 from .common import apply_rope, dense_apply, dense_init, norm_apply, norm_init
 
-__all__ = ["attn_init", "attn_train", "attn_decode_paged",
+__all__ = ["attn_init", "attn_train", "attn_decode", "attn_decode_paged",
            "attn_prefill_paged", "flash_attention"]
 
 _AUX_KEYS = ("k_scale", "v_scale", "k_resid", "v_resid")
@@ -88,17 +91,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
-               positions: torch.Tensor):
-    """Full-sequence attention for training, x (B, S, D) -> (y, (k, v));
-    the projections are plain products (``batch_invariant=False``)."""
+               positions: torch.Tensor, batch_invariant: bool = False):
+    """Full-sequence attention, x (B, S, D) -> (y, (k, v)): the training
+    forward (plain products) and, with ``batch_invariant``, the dense
+    prefill (the serving products)."""
     B, S, _ = x.shape
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q, k, v = _project_qkv(p, x, cfg, positions, batch_invariant=False)
+    q, k, v = _project_qkv(p, x, cfg, positions,
+                           batch_invariant=batch_invariant)
     o = flash_attention(q.reshape(B, S, hkv, hq // hkv, dh), k, v,
                         cfg.causal)
     y = dense_apply(p["wo"], o.reshape(B, S, hq * dh), cfg.quant,
-                    batch_invariant=False)
+                    batch_invariant=batch_invariant)
     return y, (k, v)
+
+
+def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                k_cache: torch.Tensor, v_cache: torch.Tensor,
+                pos: torch.Tensor):
+    """One-token decode on the dense cache.  x: (B, 1, D); caches (B, T,
+    Hkv, Dh); ``pos`` a 0-d int tensor, the new token's position.
+
+    The new K/V are written at ``pos`` (in place), then the query attends
+    over the whole cache in float32 with positions above ``pos`` masked
+    to -1e30, the logits divided by ``sqrt(Dh)`` after the product (the
+    reference's order).  Returns (y (B, 1, D), k_cache, v_cache)."""
+    B = x.shape[0]
+    T = k_cache.shape[1]
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    positions = pos.to(torch.int32).expand(B, 1)
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    idx = pos.reshape(1).long()
+    k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
+    v_cache.index_copy_(1, idx, v.to(v_cache.dtype))
+    qg = q.reshape(B, hkv, hq // hkv, dh)
+    logits = torch.einsum("bhgd,bthd->bhgt", qg.to(torch.float32),
+                          k_cache.to(torch.float32)) / math.sqrt(dh)
+    valid = torch.arange(T, device=x.device) <= pos
+    logits = torch.where(valid, logits,
+                         torch.tensor(-1e30, device=x.device))
+    w = torch.softmax(logits, dim=-1)
+    o = torch.einsum("bhgt,bthd->bhgd", w, v_cache.to(torch.float32))
+    o = o.reshape(B, 1, hq * dh).to(x.dtype)
+    return dense_apply(p["wo"], o, cfg.quant), k_cache, v_cache
 
 
 def _scatter_pools(pools: dict, fmt: str, k_new: torch.Tensor,

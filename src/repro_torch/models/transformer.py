@@ -1,11 +1,14 @@
-"""Decoder LM: training forward and loss, and serving over the paged cache.
+"""Decoder LM: training forward and loss, serving over the dense cache and
+over the paged cache.
 
 Port of ``repro.models.transformer``: parameter init in the reference's
 shapes, the training forward with per-period recomputation and the loss
-(chunked cross-entropy too), the paged cache, one batched decode step and
-the chunked paged prefill.  The reference stacks layers over a leading
+(chunked cross-entropy too), the dense cache (``init_cache``,
+``prefill``, ``decode_step``: the reference's unpaged entry points and
+its fp serving oracle), the paged cache, one batched decode step and the
+chunked paged prefill.  The reference stacks layers over a leading
 ``n_periods`` axis and scans them; the port keeps one parameter dict and
-one pool dict per layer and loops over them in Python.
+one cache dict per layer and loops over them in Python.
 
 Each layer is the ``LayerSpec`` of its place in ``cfg.period``: a mixer
 (attention, ``mamba.py`` or the rwkv6 time mix), then a dense FFN
@@ -13,12 +16,17 @@ Each layer is the ``LayerSpec`` of its place in ``cfg.period``: a mixer
 forward's ``aux``) or the rwkv channel mix.  Serving may cut the depth
 below a whole period (layer ``i`` is ``cfg.period[i % len(period)]``).
 
+Training runs the recurrent mixers' training forms (mamba's chunked
+associative scan, rwkv6's token or chunked wkv); every serving path runs
+their per-token recurrences.  The dense prefill (``forward(mode=
+"prefill")``) starts them from zero state and returns each layer's cache
+entry: an attention layer's K / V, a recurrent layer's final state.
 Recurrent layers keep per-slot state rows in the paged cache (``max_slots
 + 1`` rows a leaf; the last is the scratch row that padded lanes write).
 A decode step gathers each lane's rows by ``slot_ids`` and writes them
 back; a prefill starts every lane from zero state, threads it chunk to
 chunk with right-padded positions masked, and scatters each lane's final
-carry into its slot's rows.  Training recurrent layers is not ported yet.
+carry into its slot's rows.
 
 High-precision residual (paper §III): under ``sc_qat`` (the ``qat``
 serving datapath) the residual stream re-quantizes at ``resid_bsl`` after
@@ -40,9 +48,9 @@ from ..tree import tree_map
 from . import attention, ffn, mamba, moe, rwkv6
 from .common import ACT_FNS, dense_apply, dense_init, norm_apply, norm_init
 
-__all__ = ["init_params", "forward", "loss_fn", "init_paged_cache",
-           "paged_decode_step", "paged_prefill", "gather_state_rows",
-           "scatter_state_rows"]
+__all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
+           "prefill", "init_paged_cache", "paged_decode_step",
+           "paged_prefill", "gather_state_rows", "scatter_state_rows"]
 
 _MIXER_INIT = {"attn": attention.attn_init, "mamba": mamba.mamba_init,
                "rwkv6": rwkv6.rwkv_tmix_init}
@@ -53,6 +61,8 @@ _RECURRENT = {"mamba": (("h", "conv"), mamba.mamba_decode,
                         mamba.mamba_prefill_chunk),
               "rwkv6": (("s", "shift"), rwkv6.rwkv_tmix_decode,
                         rwkv6.rwkv_tmix_prefill_chunk)}
+# a recurrent mixer's training form
+_TRAIN = {"mamba": mamba.mamba_train, "rwkv6": rwkv6.rwkv_tmix_train}
 # shared page-pool leaves of an attention layer's cache entry; every other
 # leaf is a per-slot state row
 _POOL_KEYS = ("k_pages", "v_pages", "k_scale", "v_scale", "k_resid",
@@ -221,43 +231,57 @@ def _vocab_bias(cfg: ModelConfig, dtype: torch.dtype,
     return torch.where(iota < cfg.vocab_size, 0.0, -1e9).to(dtype)
 
 
+def _train_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
+                 cfg: ModelConfig, positions: torch.Tensor):
+    """One layer of the training forward: attention through the flash
+    kernel, a recurrent mixer through its training form, plain products.
+    Returns (x, the MoE aux loss or None)."""
+    def mixer(h):
+        if spec.mixer == "attn":
+            return attention.attn_train(lp["mixer"], h, cfg, positions)[0]
+        return _TRAIN[spec.mixer](lp["mixer"], h, cfg)[0]
+
+    return _apply_layer(
+        lp, spec, x, cfg, mixer, batch_invariant=False,
+        cmix=lambda h: rwkv6.rwkv_cmix_train(lp["ffn"], h, cfg)[0])
+
+
 def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
             return_hidden: bool = False):
-    """Full-sequence training forward over ``batch["tokens"]`` (B, S).
+    """Full-sequence forward over ``batch["tokens"]`` (B, S).
 
-    Returns (logits (B, S, V), aux), or with ``return_hidden`` the final
-    normed hidden state (B, S, D) in place of the logits; ``aux`` is the
-    sum of the MoE layers' balance losses (0 without MoE layers).  With
-    ``cfg.remat == "full"`` each period of layers runs under
-    ``torch.utils.checkpoint``, the reference's ``jax.checkpoint`` of its
-    period body: only the period's input is kept and the backward runs
-    the period's forward again.  Products are plain (no batch-invariance
-    casts); attention is the flash kernel on the card.
+    ``mode="train"`` returns (logits (B, S, V), aux), or with
+    ``return_hidden`` the final normed hidden state (B, S, D) in place of
+    the logits; ``aux`` is the sum of the MoE layers' balance losses (0
+    without MoE layers).  With ``cfg.remat == "full"`` each period of
+    layers runs under ``torch.utils.checkpoint``, the reference's
+    ``jax.checkpoint`` of its period body: only the period's input is
+    kept and the backward runs the period's forward again.  Products are
+    plain (no batch-invariance casts); attention is the flash kernel on
+    the card; recurrent mixers run their training forms.
+
+    ``mode="prefill"`` is the dense prefill: the serving products, the
+    recurrences' per-token prefill from zero state, and a third result,
+    one cache entry a layer (an attention layer's ``k`` / ``v`` (B, S,
+    Hkv, Dh), a recurrent layer's final state, as ``init_cache``'s).
     """
-    if mode != "train":
-        raise NotImplementedError(f"forward mode {mode!r} is not ported "
-                                  f"yet (train only)")
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward mode must be 'train' or 'prefill', "
+                         f"got {mode!r}")
     _check_ported(cfg)
-    if cfg.has_mixer("mamba") or cfg.has_mixer("rwkv6") \
-            or cfg.has_ffn("rwkv_cmix"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the recurrent mixers (mamba's associative "
-            f"scan, rwkv6's chunked wkv) is not ported yet (ROADMAP Queue 1 "
-            f"item 10); the port serves them only")
     table = params["embed"]["table"]
     tokens = batch["tokens"].to(device=table.device, dtype=torch.long)
     B, S = tokens.shape
     x = table[tokens]
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
+    if mode == "prefill":
+        return _prefill_forward(params, x, positions, cfg, return_hidden)
 
     def period(layers, x):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for spec, lp in zip(cfg.period, layers):
-            x, a = _apply_layer(
-                lp, spec, x, cfg, lambda h, lp=lp: attention.attn_train(
-                    lp["mixer"], h, cfg, positions)[0],
-                batch_invariant=False)
+            x, a = _train_layer(lp, spec, x, cfg, positions)
             if a is not None:
                 aux = aux + a
         return x, aux
@@ -335,28 +359,29 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def _serve_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
-                 cfg: ModelConfig, attn, state: dict,
-                 valid: torch.Tensor | None):
-    """One layer on the serving path.  ``attn(h)`` is the attention
-    mixer's call on the paged pools; ``state`` the layer's recurrent state
-    (gathered rows at decode, the group carry at prefill).  ``valid`` is
-    None at decode (one token a lane: the recurrences' ``*_decode``) and
-    the (G, C) mask of real prompt positions at prefill (``*_prefill_
-    chunk``).  Returns (x, the new recurrent state)."""
+                 cfg: ModelConfig, attn, state: dict, *,
+                 decode: bool = False, valid: torch.Tensor | None = None):
+    """One layer on a serving path (serving products).  ``attn(h)`` is
+    the attention mixer's call on the cache; ``state`` the layer's
+    recurrent state (gathered rows or the dense cache's at decode, the
+    carry at prefill).  ``decode`` takes one token a lane through the
+    recurrences' ``*_decode``, else a chunk through ``*_prefill_chunk``
+    with ``valid`` the (G, C) mask of real prompt positions (None: all).
+    Returns (x, the new recurrent state, the MoE aux loss or None)."""
     new = {}
 
     def mixer(h):
         if spec.mixer == "attn":
             return attn(h)
-        keys, decode, prefill = _RECURRENT[spec.mixer]
+        keys, step, chunk = _RECURRENT[spec.mixer]
         st = {k: state[k] for k in keys}
-        dx, st = decode(lp["mixer"], h, cfg, st) if valid is None \
-            else prefill(lp["mixer"], h, cfg, st, valid=valid)
+        dx, st = step(lp["mixer"], h, cfg, st) if decode \
+            else chunk(lp["mixer"], h, cfg, st, valid=valid)
         new.update(st)
         return dx
 
     def cmix(h):
-        if valid is None:
+        if decode:
             dx, new["cmix"] = rwkv6.rwkv_cmix_decode(lp["ffn"], h, cfg,
                                                      state["cmix"])
         else:
@@ -364,8 +389,88 @@ def _serve_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
                 lp["ffn"], h, cfg, state["cmix"], valid=valid)
         return dx
 
-    x, _ = _apply_layer(lp, spec, x, cfg, mixer, cmix=cmix)
-    return x, new
+    x, aux = _apply_layer(lp, spec, x, cfg, mixer, cmix=cmix)
+    return x, new, aux
+
+
+def _prefill_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                     cfg: ModelConfig, return_hidden: bool):
+    """``forward(mode="prefill")`` from the embedded tokens x (B, S, D)."""
+    B = x.shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    entries = []
+    for i, lp in enumerate(params["layers"]):
+        spec = _spec(cfg, i)
+        kv = {}
+
+        def attn(h, lp=lp, kv=kv):
+            y, (kv["k"], kv["v"]) = attention.attn_train(
+                lp["mixer"], h, cfg, positions, batch_invariant=True)
+            return y
+        x, new, a = _serve_layer(lp, spec, x, cfg, attn,
+                                 _state_entry(cfg, spec, B, x.device))
+        if a is not None:
+            aux = aux + a
+        entries.append(dict(kv, **new))
+    if return_hidden:
+        return norm_apply(params["final_norm"], x, cfg.norm), aux, entries
+    return _logits(params, x, cfg), aux, entries
+
+
+def _cache_entry_shapes(cfg: ModelConfig, spec: LayerSpec, batch: int,
+                        max_len: int, device: torch.device) -> dict:
+    """One layer's zero dense-cache entry: ``k`` / ``v`` (batch, max_len,
+    Hkv, Dh) in the model dtype for attention, the recurrent state of
+    ``batch`` rows otherwise."""
+    e = _state_entry(cfg, spec, batch, device)
+    if spec.mixer == "attn":
+        shape = (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+        dt = getattr(torch, cfg.dtype)
+        e["k"] = torch.zeros(shape, dtype=dt, device=device)
+        e["v"] = torch.zeros(shape, dtype=dt, device=device)
+    return e
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device: str | torch.device | None = None) -> dict:
+    """The dense (unpaged) decode cache: ``pos`` (a 0-d int32 tensor, the
+    next token's position) and one zero entry a layer."""
+    _check_ported(cfg)
+    dev = resolve_device(device)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "layers": [_cache_entry_shapes(cfg, _spec(cfg, i), batch,
+                                           max_len, dev)
+                       for i in range(cfg.n_layers)]}
+
+
+def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
+                cfg: ModelConfig):
+    """One token for each of the B rows on the dense cache.  tokens: (B,
+    1) int.  Attention layers write their K / V at ``cache["pos"]`` in
+    place and attend over the cache (``attention.attn_decode``);
+    recurrent layers take one step of their recurrence.  Returns (logits
+    (B, 1, V), the cache with ``pos`` advanced and the new states)."""
+    pos = cache["pos"]
+    x = params["embed"]["table"][tokens.long()]                # (B, 1, D)
+    layers = []
+    for i, (lp, entry) in enumerate(zip(params["layers"], cache["layers"])):
+        x, new, _ = _serve_layer(
+            lp, _spec(cfg, i), x, cfg,
+            lambda h, lp=lp, e=entry: attention.attn_decode(
+                lp["mixer"], h, cfg, e["k"], e["v"], pos)[0],
+            entry, decode=True)
+        layers.append(dict(entry, **new))
+    return _logits(params, x, cfg), {"pos": pos + 1, "layers": layers}
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig):
+    """The dense prefill over ``batch["tokens"]`` (B, S): (logits (B, S,
+    V), the dense cache holding the S positions, ``pos`` = S).  Pad the
+    ``k`` / ``v`` to the decode horizon before ``decode_step``."""
+    logits, _, entries = forward(params, batch, cfg, mode="prefill")
+    return logits, {"pos": torch.tensor(logits.shape[1], dtype=torch.int32,
+                                        device=logits.device),
+                    "layers": entries}
 
 
 def paged_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -383,11 +488,11 @@ def paged_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     idx = slot_ids.long()
     for i, (lp, entry) in enumerate(zip(params["layers"], cache["layers"])):
         cst = dict(entry, page_tables=page_tables)
-        x, new = _serve_layer(
+        x, new, _ = _serve_layer(
             lp, _spec(cfg, i), x, cfg,
             lambda h, cst=cst, lp=lp: attention.attn_decode_paged(
                 lp["mixer"], h, cfg, cst, lengths)[0],
-            _get_rows(entry, idx), None)
+            _get_rows(entry, idx), decode=True)
         _put_rows(entry, new, idx)
     return _logits(params, x, cfg)[:, 0], cache
 
@@ -431,11 +536,11 @@ def paged_prefill(params: dict, cache: dict, tokens: torch.Tensor,
         for i, (lp, entry) in enumerate(zip(params["layers"],
                                             cache["layers"])):
             cst = dict(entry, page_tables=page_tables)
-            x, carry[i] = _serve_layer(
+            x, carry[i], _ = _serve_layer(
                 lp, specs[i], x, cfg,
                 lambda h, cst=cst, lp=lp, s=start:
                 attention.attn_prefill_paged(lp["mixer"], h, cfg, cst,
-                                             s)[0], carry[i], valid)
+                                             s)[0], carry[i], valid=valid)
         # keep the hidden state of each request's last real token
         last = prompt_lens.long() - 1 - start
         rows = torch.gather(x, 1, last.clamp(0, chunk - 1)[:, None, None]

@@ -1,9 +1,9 @@
 """Validated construction surface for :class:`ServeEngine`.
 
 Port of ``repro.serving.config.EngineConfig`` with the knobs the port
-serves: slots, paging, chunking, datapath and KV format.  The reference's
-backend knobs, prefill mode, mesh rules and speculative decoding are not
-part of this slice.
+serves: slots, paging, chunking, datapath, KV format and the prefill
+mode.  The reference's backend knobs, mesh rules and speculative decoding
+are not part of the port yet.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ class EngineConfig:
     prefill_chunk: int = 64
     datapath: str = "qat"
     kv_format: str = "fp"
+    prefill_mode: str = "chunked"
 
     def validate(self) -> "EngineConfig":
         """Raise ``ValueError`` on the first violated rule; return self."""
@@ -56,4 +57,8 @@ class EngineConfig:
                 "kv_format='sc' keeps the cache on the SC coding and pairs "
                 "with the SC datapaths only: use datapath='sc_int' or "
                 "'sc_int_approx', or kv_format='int8'/'fp' with 'qat'")
+        if self.prefill_mode not in ("chunked", "exact"):
+            raise ValueError(f"prefill_mode must be 'chunked' or 'exact' "
+                             f"(the per-request oracle), got "
+                             f"{self.prefill_mode!r}")
         return self

@@ -8,7 +8,12 @@ Port of ``repro.serving.engine`` for greedy serving on one card:
   decode reads.
 * **Chunked prefill.**  Admitted requests prefill as one padded
   ``(G, L)`` batch, chunk by chunk, straight into the pools
-  (``paged_prefill``).
+  (``paged_prefill``).  ``prefill_mode="exact"`` instead prefills each
+  request alone at its exact length on the dense path (``prefill``) and
+  scatters the result into its pages and state rows: the per-request
+  oracle, which gives the chunked path's tokens on an fp cache (on a
+  compressed one its prefill attends to float K / V: ROADMAP Queue 3
+  item 11).
 * **One batched decode step** per tick over every active slot
   (``paged_decode_step``), mixed progress handled by per-slot lengths
   and page tables.
@@ -21,7 +26,9 @@ integer int8 x ternary -> int32 datapath, ``"sc_int_approx"`` the same
 through the approximate BSN adder.  On the card the paged attention and
 the BSN adder run the hand-written CUDA kernels; with ``device="cpu"``
 their plain PyTorch versions.  :func:`sequential_generate` is the
-one-request-at-a-time oracle the batched engine must reproduce.
+one-request-at-a-time oracle the batched engine must reproduce: the
+dense cache (``prefill`` + ``decode_step``) for ``kv_format="fp"``, as
+the reference's, and a private paged cache for the compressed formats.
 """
 
 from __future__ import annotations
@@ -34,8 +41,10 @@ import numpy as np
 import torch
 
 from ..configs.base import ModelConfig
+from ..core.kv_quant import check_kv_format, kv_quant
 from ..device import resolve_device
-from ..models import (init_paged_cache, paged_decode_step, paged_prefill)
+from ..models import (decode_step, init_paged_cache, paged_decode_step,
+                      paged_prefill, prefill, scatter_state_rows)
 from .config import DATAPATHS, EngineConfig
 from .paging import (TRASH_PAGE, PageAllocator, PageTable, pad_pow2,
                      pages_needed)
@@ -86,14 +95,16 @@ class ServeEngine:
     def __init__(self, params: dict, cfg: ModelConfig, max_slots: int = 4,
                  max_len: int = 256, page_size: int = 16,
                  num_pages: int | None = None, prefill_chunk: int = 64,
-                 datapath: str = "qat", kv_format: str = "fp", *,
+                 datapath: str = "qat", kv_format: str = "fp",
+                 prefill_mode: str = "chunked", *,
                  device: str | torch.device | None = None,
                  config: EngineConfig | None = None):
         if config is None:
             config = EngineConfig(
                 max_slots=max_slots, max_len=max_len, page_size=page_size,
                 num_pages=num_pages, prefill_chunk=prefill_chunk,
-                datapath=datapath, kv_format=kv_format)
+                datapath=datapath, kv_format=kv_format,
+                prefill_mode=prefill_mode)
         config.validate()
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
@@ -101,6 +112,7 @@ class ServeEngine:
         self.cfg = _cfg_for_datapath(cfg, config.datapath)
         self.datapath = config.datapath
         self.kv_format = config.kv_format
+        self.prefill_mode = config.prefill_mode
         self.max_slots, self.max_len = config.max_slots, config.max_len
         self.page_size = config.page_size
         self.max_pages = pages_needed(config.max_len, config.page_size)
@@ -162,8 +174,13 @@ class ServeEngine:
             req._table, req._len = table, len(req.prompt)
             self.slots[slot] = req
             group.append((slot, req))
-        if group:
+        if not group:
+            return
+        if self.prefill_mode == "chunked":
             self._prefill_group(group)
+        else:
+            for slot, r in group:
+                self._prefill_one(slot, r)
 
     def _prefill_group(self, group: list[tuple[int, Request]]) -> None:
         """Batched chunked prefill of one padded (G, L) bucket: padded
@@ -193,6 +210,48 @@ class ServeEngine:
         for g, r in enumerate(reqs):
             r.generated.append(int(nxt[g]))
             self._check_done(r)
+
+    def _prefill_one(self, slot: int, req: Request) -> None:
+        """Exact-length dense prefill of one request, then its K / V and
+        recurrent state scattered into its pages and its slot's rows
+        (``prefill_mode="exact"``)."""
+        toks = torch.tensor([req.prompt], dtype=torch.int32,
+                            device=self.device)
+        with torch.inference_mode():
+            logits, cache_one = prefill(self.params, {"tokens": toks},
+                                        self.cfg)
+            tok = int(greedy_tokens(logits[:, -1], self.cfg.vocab_size)[0])
+            self._scatter_prefill(slot, req, cache_one)
+        req.generated.append(tok)
+        self._check_done(req)
+
+    def _scatter_prefill(self, slot: int, req: Request,
+                         cache_one: dict) -> None:
+        """Write a one-request, exact-length dense cache into the paged
+        layout: each attention layer's K / V quantized per position
+        (``kv_quant``, as the chunked path's quantize-on-scatter), padded
+        to whole pages and written to the request's pages; each recurrent
+        layer's state into row ``slot``."""
+        plen = len(req.prompt)
+        page = self.page_size
+        npg = pages_needed(plen, page)
+        phys = torch.as_tensor(req._table.pages[:npg], dtype=torch.long,
+                               device=self.device)
+        rows = []
+        for entry, one in zip(self.cache["layers"], cache_one["layers"]):
+            for name in ("k", "v"):
+                if name not in one:
+                    continue
+                for part, val in kv_quant(one[name][0],
+                                          self.kv_format).items():
+                    pool = entry[f"{name}_pages" if part == "q"
+                                 else f"{name}_{part}"]
+                    pad = val.new_zeros((npg * page - plen, *val.shape[1:]))
+                    pool[phys] = torch.cat([val, pad]).reshape(
+                        npg, page, *val.shape[1:]).to(pool.dtype)
+            rows.append({k: v for k, v in one.items() if k not in ("k", "v")})
+        scatter_state_rows(self.cache, rows, torch.tensor(
+            [slot], dtype=torch.int32, device=self.device))
 
     def _check_done(self, r: Request) -> None:
         """The stop rule, mirroring ``sequential_generate``'s loop: stop
@@ -296,6 +355,20 @@ class ServeEngine:
 # sequential oracle
 # ---------------------------------------------------------------------------
 
+def _pad_prefill_cache(cache: dict, max_len: int) -> dict:
+    """A dense prefill cache with its ``k`` / ``v`` zero-padded along time
+    to ``max_len`` positions, the decode horizon."""
+    def fit(name, a):
+        if name in ("k", "v"):
+            return torch.cat([a, a.new_zeros((a.shape[0],
+                                              max_len - a.shape[1],
+                                              *a.shape[2:]))], dim=1)
+        return a
+    return {"pos": cache["pos"],
+            "layers": [{k: fit(k, v) for k, v in e.items()}
+                       for e in cache["layers"]]}
+
+
 def sequential_generate(params: dict, cfg: ModelConfig,
                         prompts: list[list[int]], max_new_tokens: int = 16,
                         eos_id: int | None = None, max_len: int = 256,
@@ -303,19 +376,57 @@ def sequential_generate(params: dict, cfg: ModelConfig,
                         page_size: int = 8, *,
                         device: str | torch.device | None = None
                         ) -> list[list[int]]:
-    """One request at a time, greedy: a private single-slot cache with an
-    identity page table (page ``j`` of the request at physical page
-    ``j + 1``), one chunked ``paged_prefill`` over the whole prompt, then
-    one ``paged_decode_step`` per token.  No allocator, bucketing,
-    admission or batching, so the batched engine's tokens can be held
-    against it.  Stop conditions mirror ``ServeEngine``.
+    """One request at a time, greedy: the oracle the batched engine's
+    tokens are held against.  Stop conditions mirror ``ServeEngine``.
 
-    The reference's fp oracle runs a dense (unpaged) cache; that path is
-    not ported, so every format runs this paged loop here.
+    ``kv_format="fp"`` runs the dense cache, as the reference's oracle:
+    ``prefill`` of the exact prompt, its K / V padded to ``max_len``, then
+    one ``decode_step`` a token.  The compressed formats have no dense
+    counterpart (their codes live in page pools), so they run
+    :func:`_paged_sequential_generate`.
     """
     dev = resolve_device(device)
     _check_params_device(params, dev)
+    check_kv_format(kv_format)
     cfg = _cfg_for_datapath(cfg, datapath)
+    if kv_format != "fp":
+        return _paged_sequential_generate(params, cfg, prompts,
+                                          max_new_tokens, eos_id, max_len,
+                                          kv_format, page_size, dev)
+    outs = []
+    with torch.inference_mode():
+        for prompt in prompts:
+            toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+            logits, cache = prefill(params, {"tokens": toks}, cfg)
+            cache = _pad_prefill_cache(cache, max_len)
+            length = len(prompt)
+            gen = [int(greedy_tokens(logits[:, -1], cfg.vocab_size)[0])]
+            while (len(gen) < max_new_tokens
+                   and length < max_len - 1
+                   and (eos_id is None or gen[-1] != eos_id)):
+                tok = torch.tensor([[gen[-1]]], dtype=torch.int32,
+                                   device=dev)
+                logits, cache = decode_step(params, cache, tok, cfg)
+                gen.append(int(greedy_tokens(logits[:, 0],
+                                             cfg.vocab_size)[0]))
+                length += 1
+            outs.append(gen)
+    return outs
+
+
+def _paged_sequential_generate(params: dict, cfg: ModelConfig,
+                               prompts: list[list[int]], max_new_tokens: int,
+                               eos_id: int | None, max_len: int,
+                               kv_format: str, page_size: int,
+                               device: torch.device) -> list[list[int]]:
+    """The one-request paged oracle (``cfg`` already on its datapath): a
+    private single-slot cache with an identity page table (page ``j`` of
+    the request at physical page ``j + 1``), one chunked
+    ``paged_prefill`` over the whole prompt, then one
+    ``paged_decode_step`` per token.  No allocator, bucketing, admission
+    or batching, so the batched engine's tokens can be held against it in
+    every format."""
+    dev = device
     slot_ids = torch.zeros((1,), dtype=torch.int32, device=dev)
     outs = []
     with torch.inference_mode():

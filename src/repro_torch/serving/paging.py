@@ -1,7 +1,7 @@
 """Paged KV-cache bookkeeping: page pool allocator + per-request tables.
 
-A copy of ``repro.serving.paging``'s allocator (numpy only; the port does
-not import the reference).  Position ``t`` of a request lives at
+A copy of ``repro.serving.paging``'s allocator and its KV accounting
+(numpy only; the port does not import the reference).  Position ``t`` of a request lives at
 ``(table[t // page_size], t % page_size)``.  Page 0 is the trash page:
 never allocated, the target of every padded table lane.  Tables handed to
 the device are padded to a power-of-two width.
@@ -14,7 +14,7 @@ from dataclasses import dataclass, field
 import numpy as np
 
 __all__ = ["TRASH_PAGE", "PageAllocator", "PageTable", "pages_needed",
-           "pad_pow2"]
+           "pad_pow2", "kv_page_bytes", "slots_per_gib"]
 
 TRASH_PAGE = 0
 
@@ -22,6 +22,34 @@ TRASH_PAGE = 0
 def pages_needed(length: int, page_size: int) -> int:
     """Pages required to hold ``length`` tokens (ceil division)."""
     return max(0, (length + page_size - 1) // page_size)
+
+
+def kv_page_bytes(page_size: int, n_kv_heads: int, head_dim: int,
+                  kv_format: str = "fp", dtype_bytes: int = 4) -> int:
+    """Device bytes one physical page costs an attention layer, K and V
+    together, with the scale and residual pools of a compressed format:
+    fp ``2 * page * Hkv * Dh * dtype_bytes``; int8 codes plus one float32
+    scale a (position, head); sc int8 codes and residuals plus the
+    scales."""
+    elems = page_size * n_kv_heads * head_dim
+    scales = page_size * n_kv_heads * 4
+    if kv_format == "fp":
+        return 2 * elems * dtype_bytes
+    if kv_format == "int8":
+        return 2 * (elems + scales)
+    if kv_format == "sc":
+        return 2 * (2 * elems + scales)
+    raise ValueError(f"unknown kv_format {kv_format!r}")
+
+
+def slots_per_gib(max_len: int, page_size: int, n_kv_heads: int,
+                  head_dim: int, kv_format: str = "fp",
+                  dtype_bytes: int = 4, n_layers: int = 1) -> float:
+    """Full-length request slots that one GiB of KV pool holds."""
+    per_slot = (pages_needed(max_len, page_size)
+                * kv_page_bytes(page_size, n_kv_heads, head_dim, kv_format,
+                                dtype_bytes) * n_layers)
+    return (1 << 30) / per_slot
 
 
 def _pow2_up(n: int) -> int:

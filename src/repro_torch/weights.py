@@ -14,8 +14,10 @@ reference's ``TrainState`` instead (as numpy, the same way), it returns
 the port's :class:`~repro_torch.train.step.TrainState`: the parameters,
 AdamW's ``m`` / ``v`` in the same layout, ``count`` and ``step``.
 :func:`cache_from_jax` carries the reference's paged serving cache the
-same way (page pools and per-slot state rows), so that a decode can
-continue from the reference's own state.
+same way (page pools and per-slot state rows), and
+:func:`dense_cache_from_jax` its dense cache (``init_cache`` /
+``prefill`` output: ``pos`` and each layer's K / V or state), so that a
+decode can continue from the reference's own state.
 
 :func:`tree_to_torch` carries any other numpy tree: an SC linear's QAT
 dict (``w``, ``alpha_w``, ``alpha_a``), the paper's TNN (``w_in``,
@@ -32,7 +34,8 @@ from .configs.base import ModelConfig
 from .device import resolve_device
 from .tree import tree_map
 
-__all__ = ["from_jax", "cache_from_jax", "to_torch", "tree_to_torch"]
+__all__ = ["from_jax", "cache_from_jax", "dense_cache_from_jax", "to_torch",
+           "tree_to_torch"]
 
 
 def to_torch(a, device: torch.device) -> torch.Tensor:
@@ -108,3 +111,14 @@ def cache_from_jax(cache_np: dict, cfg: ModelConfig,
     rows), in the reference's nesting (rwkv's ``cmix: {"shift"}``)."""
     return {"layers": _unstack(cache_np["periods"], cfg,
                                resolve_device(device))}
+
+
+def dense_cache_from_jax(cache_np: dict, cfg: ModelConfig,
+                         device: str | torch.device | None = None) -> dict:
+    """The reference's dense cache (``init_cache`` / ``prefill`` /
+    ``decode_step`` output) as numpy -> the port's: ``pos`` as a 0-d int32
+    tensor and one entry a layer (``k`` / ``v`` (B, T, Hkv, Dh), or the
+    recurrent state of B rows)."""
+    dev = resolve_device(device)
+    return {"pos": to_torch(np.asarray(cache_np["pos"], np.int32), dev),
+            "layers": _unstack(cache_np["periods"], cfg, dev)}

@@ -1160,3 +1160,132 @@ def test_recurrent_layer_on_the_card_equals_the_cpu(cuda, arch, mode):
         for k in wst1:
             _assert_card_close(gst[k], wst[k], tol, (name, "state", k))
             _assert_card_close(gst1[k], wst1[k], tol, (name, "state1", k))
+
+
+def test_flash_bf16_kernel_at_jamba_shape(cuda):
+    """jamba-1.5-large's attention over a train_4k sequence (B 1, S 4096,
+    64 q / 8 kv heads, D 128, causal) on the tensor-core kernel."""
+    q, k, v = _flash_case(cuda, 1, 4096, 64, 8, 128, torch.bfloat16, seed=5)
+    out, lse = flash_attention_cuda(q, k, v)
+    want, want_lse = flash_attention_ref(q, k, v, True, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+# tiny float32 recurrent configs (tests/test_models_smoke.py's REDUCED);
+# jamba's AdamW state in float32 so that m / v compare at 5e-5 / 1e-4
+_TINY_RECURRENT = {
+    "rwkv6-scan": ("rwkv6-7b", dict(
+        n_layers=2, d_model=64, d_ff=128, vocab_size=131, n_heads=4,
+        n_kv_heads=4, rwkv_head_dim=16, rwkv_wkv_impl="scan")),
+    "rwkv6-chunked": ("rwkv6-7b", dict(
+        n_layers=2, d_model=64, d_ff=128, vocab_size=131, n_heads=4,
+        n_kv_heads=4, rwkv_head_dim=16, rwkv_wkv_impl="chunked",
+        rwkv_chunk=8)),
+    "jamba": ("jamba-1.5-large-398b", dict(
+        n_layers=8, d_model=64, n_heads=4, n_kv_heads=2, d_ff=96,
+        vocab_size=131, n_experts=4, n_experts_per_tok=2, mamba_d_state=8,
+        moe_group_size=16, moe_capacity_factor=2.0,
+        opt_state_dtype="float32"))}
+
+
+def _tiny_recurrent(name, mode="none"):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    arch, kw = _TINY_RECURRENT[name]
+    cfg = get_arch(arch).scaled(dtype="float32", vocab_pad_multiple=32,
+                                mamba_chunk=8, **kw)
+    cfg = cfg.scaled(quant=cfg.quant.with_mode(mode))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    for lp in params["layers"]:         # a live SSM (conv taps at 10x)
+        if "conv_w" in lp["mixer"]:
+            lp["mixer"]["conv_w"].mul_(10)
+    return cfg, params
+
+
+@pytest.mark.parametrize("name", list(_TINY_RECURRENT))
+def test_recurrent_train_step_on_the_card_equals_the_cpu(cuda, name):
+    """One float32 train step of tiny rwkv6 (both wkv forms) or jamba (a
+    whole period: the flash kernel, MoE, mamba's scan) without
+    quantization, on the card and on the CPU: loss and grad norm within
+    1e-5 relative, m / v within 5e-5 / 1e-4 of each leaf's largest entry,
+    params within 2e-5, or 2 lr where the CPU's gradient is below 1e-6
+    (the step ``lr * g / (|g| + eps)`` is set by its rounding there)."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_leaves, tree_map
+    cfg, cpu = _tiny_recurrent(name)
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=96,
+                        seed=0).batch(0, 4)
+    step = build_train_step(cfg, lambda s: warmup_cosine(s + 1, 1e-3, 2,
+                                                         10))
+    sc, mc = step(init_train_state(cpu, cfg), batch)
+    sg, mg = step(init_train_state(gpu, cfg), batch)
+    for k in ("loss", "grad_norm"):
+        torch.testing.assert_close(mg[k].cpu(), mc[k], rtol=1e-5, atol=0)
+    lr = float(mc["lr"])
+    for a, b, m in zip(tree_leaves(sg.params), tree_leaves(sc.params),
+                       tree_leaves(sc.opt["m"])):
+        tol = torch.where(m.abs() < 0.1 * 1e-6, 2 * lr + 2e-5, 2e-5)
+        assert bool(((a.cpu() - b).abs() <= tol).all())
+    for key, tol in (("m", 5e-5), ("v", 1e-4)):
+        for a, b in zip(tree_leaves(sg.opt[key]), tree_leaves(sc.opt[key])):
+            assert (a.cpu() - b).abs().max() <= tol * b.abs().max()
+
+
+@pytest.mark.parametrize("name", ["rwkv6-scan", "jamba"])
+def test_dense_prefill_and_decode_on_the_card_equal_the_cpu(cuda, name):
+    """The dense path, float32 without quantization: ``prefill`` of 2 x 8
+    tokens (whole MoE dispatch groups of 16; jamba's attention through the
+    flash kernel, once) and four ``decode_step``s, logits within
+    ``atol=rtol=1e-4`` of the CPU's."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.serving.engine import _pad_prefill_cache
+    from repro_torch.tree import tree_map
+    cfg, cpu = _tiny_recurrent(name)
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    toks = torch.randint(0, cfg.vocab_size, (2, 12),
+                         generator=torch.Generator().manual_seed(1))
+    out = []
+    for params, dev in ((cpu, "cpu"), (gpu, cuda)):
+        build.reset_launches()
+        with torch.inference_mode():
+            lg, cache = prefill(params, {"tokens": toks[:, :8].to(dev)}, cfg)
+            cache = _pad_prefill_cache(cache, 12)
+            logits = [lg[:, -1]]
+            for t in range(8, 12):
+                lg, cache = decode_step(params, cache,
+                                        toks[:, t:t + 1].to(dev), cfg)
+                logits.append(lg[:, 0])
+        out.append(torch.stack(logits).cpu())
+        if dev is cuda:
+            assert build.LAUNCHES["flash_attention"] == \
+                cfg.has_mixer("attn")
+    torch.testing.assert_close(out[1], out[0], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("datapath,fmt", [("qat", "fp"), ("sc_int", "int8")])
+def test_exact_engine_and_dense_oracle_on_the_card_equal_the_cpu(
+        cuda, datapath, fmt):
+    """Tiny float32 jamba: the dense ``sequential_generate`` (fp) and the
+    ``prefill_mode="exact"`` engine give the card the CPU's tokens."""
+    from repro_torch.serving import ServeEngine, sequential_generate
+    from repro_torch.tree import tree_map
+    cfg, cpu = _tiny_recurrent("jamba", "sc_qat")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [10, 11, 12, 13, 14]]
+    toks = []
+    for params, dev in ((cpu, "cpu"), (gpu, cuda)):
+        dense = sequential_generate(params, cfg, prompts, max_new_tokens=5,
+                                    max_len=32, datapath=datapath,
+                                    device=dev)
+        eng = ServeEngine(params, cfg, max_slots=2, max_len=32, page_size=4,
+                          datapath=datapath, kv_format=fmt,
+                          prefill_mode="exact", device=dev)
+        for p in prompts:
+            eng.submit(p, max_new_tokens=5)
+        toks.append((dense, [r.generated for r in sorted(
+            eng.run_to_completion(), key=lambda r: r.rid)]))
+    assert toks[1] == toks[0]

@@ -464,10 +464,17 @@ def test_prefill_without_slot_ids_raises():
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_train_forward_refuses_recurrent_layers(arch):
+    """Named for the refusal it held while the training forward could not
+    run a recurrent layer.  That forward now runs them (held against the
+    reference in ``tests/test_torch_recurrent_train.py``); what it still
+    refuses on these configs is a mode other than "train" or
+    "prefill"."""
     _, c = _model_cfgs(arch)
     tp = init_params(c, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        forward(tp, {"tokens": torch.zeros((1, 8), dtype=torch.int32)}, c)
+    batch = {"tokens": torch.zeros((1, 8), dtype=torch.int32)}
+    for mode in ("decode", "paged_prefill"):
+        with pytest.raises(ValueError, match="mode"):
+            forward(tp, batch, c, mode=mode)
 
 
 @pytest.mark.parametrize("datapath,fmt", PAIRS)
