@@ -105,7 +105,25 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    paged kernels becomes whole quanta); and tiny float32 rwkv6 (both wkv
    forms) and jamba (a whole period) train steps, dense
    ``sequential_generate`` tokens and ``prefill_mode="exact"`` engine
-   tokens on the card equal to the CPU's.
+   tokens on the card equal to the CPU's;
+10. seeded sampling, logprobs and speculative decoding on granite-3-2b at
+   phase 4's depth and traffic: three lanes sampled (temperature 0.9,
+   top-p 0.8, top-k 50, seeds 100-102), one greedy, logprobs=5 on a
+   sampled and the greedy lane.  On the three pairs the batched tokens
+   equal the paged oracle's under the same ``SamplingParams``, the
+   sampled lanes part from phase 4's greedy tokens and the greedy lane
+   keeps them; a pool of 24 pages (one lane outgrows it) preempts and
+   gives the same tokens; on a captured decode step every logprob row's
+   logsumexp is within 1e-4 of 0, the tokens outside the kept set score
+   -inf, and the kept set equals a plain float64 rule's away from ties
+   (a boundary within 1e-5 of flipping); ``spec_decode=True, draft_len=4`` on qat x fp and sc_int x
+   int8 gives the tokens and logprobs of spec-off (and, with the target
+   as its own drafter on qat x fp, accepts every draft); tiny float32
+   granite and jamba give the CPU's sampled and speculative tokens on the
+   card.
+   It prints the sampled decode step's ms beside phase 4's greedy one,
+   the sampler's device ms, and ``spec_stats`` with the ms a committed
+   token, spec-on against spec-off.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
@@ -140,6 +158,7 @@ it holds the per-kernel JSON summary.  Details go to
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import subprocess
@@ -2237,6 +2256,372 @@ def tiny_dense_tokens_card_equals_cpu(torch, dev):
                 f"exact-prefill engine ({fmt}) tokens on the card == cpu")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: seeded sampling, logprobs and speculative decoding
+# ---------------------------------------------------------------------------
+
+SPEC_PAIRS = (("qat", "fp"), ("sc_int", "int8"))
+DRAFT_LEN = 4
+LSE_ATOL = 1e-4         # a full logprob row's logsumexp, float32
+KEPT_MARGIN = 1e-5      # a kept-set boundary nearer than this is a near-tie
+# phase 4's prompts hold 23 pages of 16 at admission (prompt + 1 each);
+# the 57-token lane needs a 24th at its 8th new token, so 23 usable pages
+# (plus the trash page) force a preemption
+PREEMPT_PAGES = 24
+
+
+def sampling_requests():
+    """Three sampled lanes (seeds 100-102) and a greedy one; logprobs=5 on
+    the second sampled lane and on the greedy lane."""
+    from repro_torch.serving import SamplingParams
+    sps = [SamplingParams(temperature=0.9, top_p=0.8, top_k=50,
+                          seed=100 + i) for i in range(3)]
+    sps.append(SamplingParams())
+    return [dataclasses.replace(sp, logprobs=5) if i in (1, 3) else sp
+            for i, sp in enumerate(sps)]
+
+
+def _spy_pick(capture):
+    """Wrap the engine's token pick so that its second call's (the first
+    decode step's, after the batched prefill's) logits, positions and
+    sampling tensors are kept; returns a function that undoes it."""
+    from repro_torch.serving import engine as eng_mod
+    inner = eng_mod._pick
+
+    calls = []
+
+    def spy(logits, positions, samp, vocab_size, do_sample, lp_k):
+        calls.append(lp_k)
+        if len(calls) == 2:             # the first decode step's
+            capture.append((logits.clone(), positions.clone(),
+                            {k: v.clone() for k, v in samp.items()}))
+        return inner(logits, positions, samp, vocab_size, do_sample, lp_k)
+    eng_mod._pick = spy
+
+    def undo():
+        eng_mod._pick = inner
+    return undo
+
+
+def serve_sampled(torch, dev, cfg, params, prompts, datapath, fmt, sps,
+                  kernels, spec=False, num_pages=None,
+                  perfect_draft=False):
+    """Serve ``prompts`` with ``sps`` through ``ServeEngine`` (4 slots,
+    pages of 16, chunks of 64), the launch counts set to 0 just before and
+    read just after (every kernel of ``kernels`` must launch).  Returns the
+    tokens, the logprobs records, the launches, the prefill and decode wall
+    times, the decode steps, the preemptions and ``spec_stats``.
+    ``perfect_draft`` drafts on the target's own datapath."""
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.serving import ServeEngine
+    eng = ServeEngine(params, cfg, max_slots=4, max_len=256, page_size=16,
+                      prefill_chunk=64, datapath=datapath, kv_format=fmt,
+                      num_pages=num_pages, spec_decode=spec,
+                      draft_len=DRAFT_LEN, device=dev)
+    if perfect_draft:
+        eng.cfg_draft = eng.cfg
+    preempted = []
+    grow = eng._grow_or_preempt
+
+    def watch(active):
+        before = [eng.slots[i] for i in active]
+        out = grow(active)
+        preempted.extend(r.rid for r in before if r._table is None)
+        return out
+    eng._grow_or_preempt = watch
+    for p, sp in zip(prompts, sps):
+        eng.submit(p, max_new_tokens=NEW_TOKENS, sampling=sp)
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._admit()
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    done, steps = [], 0
+    t1 = time.perf_counter()
+    while eng.queue or any(s is not None for s in eng.slots):
+        done += eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t1
+    launches = dict(kbuild.LAUNCHES)
+    tag = f"{cfg.name} {datapath}x{fmt}{' spec' if spec else ''}"
+    missing = [k for k in kernels if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{tag}: kernels never launched: {missing}")
+    done = sorted(done, key=lambda r: r.rid)
+    if len(done) != len(prompts):
+        raise AssertionError(f"{tag}: {len(done)} of {len(prompts)} "
+                             f"requests finished")
+    got = [r.generated for r in done]
+    if any(not 0 <= t < cfg.vocab_size for g in got for t in g):
+        raise AssertionError(f"{tag}: token out of vocab")
+    return dict(datapath=datapath, kv_format=fmt, spec=spec, tokens=got,
+                logprobs=[r.logprobs for r in done], launches=launches,
+                prefill_ms=t_prefill * 1e3, decode_ms=t_decode * 1e3,
+                decode_steps=steps,
+                decode_ms_per_step=t_decode * 1e3 / max(steps, 1),
+                # tokens committed by decode steps (prefill gives one)
+                decode_tokens=sum(len(g) - 1 for g in got),
+                preempted=preempted,
+                spec_stats=eng.spec_stats if spec else None)
+
+
+def plain_kept_set(torch, row, temperature, top_k, top_p, min_p):
+    """One sampled lane's kept set by the filters' plain rule, in float64
+    and with none of the sampler's code: sort the scaled row, keep every
+    value >= the k-th, softmax over those, keep the shortest descending
+    prefix whose preceding mass is < top_p (widened to ties), then min-p.
+    Returns (kept ids, margin): the margin is the least distance of a
+    boundary from flipping (relative for the k-th value, absolute for the
+    top-p mass and the min-p probability)."""
+    x = row.double() / max(float(temperature), 1e-8)
+    srt = torch.sort(x, descending=True).values
+    V = x.numel()
+    k = min(max(int(top_k) if int(top_k) > 0 else V, 1), V)
+    kth = srt[k - 1]
+    keep = x >= kth
+    below = srt[srt < kth]          # ties at the k-th value are all kept
+    margins = [float((kth - below[0]) / kth.abs().clamp_min(1e-30))
+               if below.numel() else float("inf")]
+    p = torch.softmax(torch.where(keep, x, -torch.inf), dim=0)
+    sp = torch.sort(p, descending=True).values
+    before = torch.cumsum(sp, 0) - sp
+    n = int((before < float(top_p)).sum())
+    keep = keep & (p >= sp[n - 1])
+    if float(top_p) < 1:            # 1 turns the filter off
+        if sp[n - 1] > 0:
+            margins.append(float(top_p) - float(before[n - 1]))
+        if n < V and sp[n] > 0:
+            margins.append(float(before[n]) - float(top_p))
+    thr = float(min_p) * float(p.max())
+    keep = keep & (p >= thr)
+    if float(min_p) > 0:
+        margins.append(float((p - thr).abs().min()))
+    return set(torch.nonzero(keep)[:, 0].tolist()), min(margins)
+
+
+def check_logprob_rows(torch, cfg, captured):
+    """On a captured decode step (the engine's own logits): every lane's
+    full logprob row has logsumexp within LSE_ATOL of 0; a sampled lane's
+    finite entries are exactly its kept set, a greedy lane's all finite;
+    and a sampled lane's kept set equals :func:`plain_kept_set`'s unless a
+    boundary lies within KEPT_MARGIN of flipping (a near-tie, counted).
+    Returns the sampler's, the logprobs' and the argmax's device ms on
+    those logits."""
+    from repro_torch.serving.sampling import (filter_logits, greedy_tokens,
+                                              sample_tokens,
+                                              token_logprobs)
+    logits, pos, samp = captured
+    V = cfg.vocab_size
+    tok = sample_tokens(logits, pos, samp, V)
+    _, ids, lps = token_logprobs(logits, tok, samp, V, V)
+    lse = torch.logsumexp(lps, dim=-1)
+    if lse.abs().max() > LSE_ATOL:
+        raise AssertionError(f"logprob rows' logsumexp {lse.tolist()}")
+    masked = filter_logits(logits[:, :V].float(), samp["temperature"],
+                           samp["top_k"], samp["top_p"], samp["min_p"])
+    kept, margins, near_ties = [], [], 0
+    for s in range(logits.shape[0]):
+        fin = set(ids[s][torch.isfinite(lps[s])].tolist())
+        want = set(range(V)) if samp["temperature"][s] == 0 else \
+            set(torch.nonzero(torch.isfinite(masked[s]))[:, 0].tolist())
+        if fin != want:
+            raise AssertionError(f"lane {s}: {len(fin)} finite logprobs, "
+                                 f"{len(want)} kept tokens")
+        kept.append(len(want))
+        if samp["temperature"][s] > 0:
+            plain, margin = plain_kept_set(
+                torch, logits[s, :V].float(), samp["temperature"][s],
+                samp["top_k"][s], samp["top_p"][s], samp["min_p"][s])
+            margins.append(margin)
+            if margin < KEPT_MARGIN:
+                near_ties += 1
+            elif plain != want:
+                raise AssertionError(
+                    f"lane {s}: {len(want)} kept tokens, the plain rule "
+                    f"keeps {len(plain)} (margin {margin:.3e})")
+    return dict(
+        logsumexp_max_abs=float(lse.abs().max()), kept=kept,
+        plain_kept_margin=min(margins), plain_kept_near_ties=near_ties,
+        sampler_ms=device_ms(torch, lambda: sample_tokens(logits, pos, samp,
+                                                          V)),
+        logprobs_ms=device_ms(torch, lambda: token_logprobs(
+            logits, tok, samp, V, 8)),
+        greedy_ms=device_ms(torch, lambda: greedy_tokens(logits, V)))
+
+
+def _spec_kernels(datapath):
+    return tuple(dict.fromkeys(PATH_KERNELS[datapath]
+                               + PATH_KERNELS["sc_int_approx"]))
+
+
+def sampled_serving(torch, dev, layers, greedy_runs, smi):
+    """Phase 10 at full width (see the module docstring); ``greedy_runs``
+    are phase 4's results on the same weights and prompts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving.engine import (_cfg_for_datapath,
+                                            _paged_sequential_generate)
+    cfg = get_arch("granite-3-2b")
+    if layers != cfg.n_layers:
+        cfg = cfg.scaled(n_layers=layers)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = _prompts(torch, cfg, (32, 57, 96, 128))
+    sps = sampling_requests()
+    greedy = {r["datapath"]: r for r in greedy_runs}
+    totals = dict.fromkeys(PATH_KERNELS["sc_int_approx"]
+                           + PATH_KERNELS["sc_int"], 0)
+    out = dict(layers=layers, requests=[dataclasses.asdict(sp)
+                                        for sp in sps], runs=[])
+
+    def add(res):
+        for k, v in res["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        out["runs"].append(res)
+
+    plain = {}
+    for datapath, fmt in PAIRS:
+        capture = []
+        undo = _spy_pick(capture)
+        try:
+            res = serve_sampled(torch, dev, cfg, params, prompts, datapath,
+                                fmt, sps, PATH_KERNELS[datapath])
+        finally:
+            undo()
+        tag = f"{datapath}x{fmt}"
+        want = _paged_sequential_generate(
+            params, _cfg_for_datapath(cfg, datapath), prompts, NEW_TOKENS,
+            None, 256, fmt, 16, dev, sps)
+        if res["tokens"] != want:
+            raise AssertionError(f"sampled {tag}: batched tokens differ "
+                                 f"from the paged oracle\n{res['tokens']}"
+                                 f"\n{want}")
+        g = greedy[datapath]["tokens"]
+        if res["tokens"][3] != g[3]:
+            raise AssertionError(f"sampled {tag}: the greedy lane parts "
+                                 f"from phase 4's tokens")
+        if any(res["tokens"][i] == g[i] for i in range(3)):
+            raise AssertionError(f"sampled {tag}: a sampled lane gave the "
+                                 f"greedy tokens")
+        res["lanes"] = check_logprob_rows(torch, cfg, capture[0])
+        res["greedy_decode_ms_per_step"] = \
+            greedy[datapath]["decode_ms_per_step"]
+        add(res)
+        plain[datapath] = res
+        la = res["lanes"]
+        log(f"sampled granite-3-2b {tag} ({smi}): batched == paged oracle, "
+            f"greedy lane == phase 4; decode_ms_per_step sampled "
+            f"{res['decode_ms_per_step']:.1f} vs greedy (phase 4) "
+            f"{res['greedy_decode_ms_per_step']:.1f}; sampler device ms "
+            f"{la['sampler_ms']:.3f}, logprobs (k 8) {la['logprobs_ms']:.3f}"
+            f", argmax {la['greedy_ms']:.3f} at 4 x {cfg.vocab_size}; "
+            f"logsumexp |max| {la['logsumexp_max_abs']:.2e}; kept "
+            f"{la['kept']} (== the plain float64 rule, least boundary "
+            f"margin {la['plain_kept_margin']:.3e}, near-ties "
+            f"{la['plain_kept_near_ties']}); launches {res['launches']}")
+
+    # (b) a pool that one lane outgrows: preemption replays the streams
+    res = serve_sampled(torch, dev, cfg, params, prompts, "qat", "fp", sps,
+                        PATH_KERNELS["qat"], num_pages=PREEMPT_PAGES)
+    if not res["preempted"]:
+        raise AssertionError("the small pool never preempted")
+    if res["tokens"] != plain["qat"]["tokens"]:
+        raise AssertionError(f"preempted tokens differ\n{res['tokens']}")
+    res["role"] = "preemption"
+    add(res)
+    log(f"sampled qatxfp with {PREEMPT_PAGES} pages ({smi}): preempted "
+        f"rids {res['preempted']}, tokens equal")
+
+    # (d) speculative decoding against spec-off
+    for datapath, fmt in SPEC_PAIRS:
+        res = serve_sampled(torch, dev, cfg, params, prompts, datapath, fmt,
+                            sps, _spec_kernels(datapath), spec=True)
+        off = plain[datapath]
+        tag = f"{datapath}x{fmt}"
+        if res["tokens"] != off["tokens"]:
+            raise AssertionError(f"spec {tag}: tokens differ from "
+                                 f"spec-off\n{res['tokens']}\n"
+                                 f"{off['tokens']}")
+        for a, b in zip(res["logprobs"], off["logprobs"]):
+            if len(a) != len(b) or any(
+                    [t for t, _ in x["top"]] != [t for t, _ in y["top"]]
+                    or abs(x["logprob"] - y["logprob"]) > 1e-6
+                    for x, y in zip(a, b)):
+                raise AssertionError(f"spec {tag}: logprobs differ from "
+                                     f"spec-off")
+        st = res["spec_stats"]
+        res["ms_per_token"] = res["decode_ms"] / res["decode_tokens"]
+        res["spec_off_ms_per_token"] = off["decode_ms"] / \
+            off["decode_tokens"]
+        add(res)
+        log(f"spec granite-3-2b {tag} draft_len {DRAFT_LEN} ({smi}): "
+            f"tokens and logprobs == spec-off; acceptance "
+            f"{st['acceptance_rate']:.3f}, tokens a round "
+            f"{st['tokens_per_round']:.2f} over {st['rounds']} rounds; ms a "
+            f"committed token {res['ms_per_token']:.1f} vs spec-off "
+            f"{res['spec_off_ms_per_token']:.1f}; launches "
+            f"{res['launches']}")
+
+    # (d') the drafter pointed at the target: every draft is accepted, so
+    # the commit of accepted drafts runs at full width too
+    res = serve_sampled(torch, dev, cfg, params, prompts, "qat", "fp", sps,
+                        PATH_KERNELS["qat"], spec=True, perfect_draft=True)
+    st = res["spec_stats"]
+    if res["tokens"] != plain["qat"]["tokens"] \
+            or st["acceptance_rate"] != 1.0:
+        raise AssertionError(f"spec with the target as drafter: {st}\n"
+                             f"{res['tokens']}")
+    res["role"] = "perfect drafter"
+    res["ms_per_token"] = res["decode_ms"] / res["decode_tokens"]
+    add(res)
+    log(f"spec granite-3-2b qatxfp, the target as drafter ({smi}): tokens "
+        f"== spec-off, acceptance 1.0, tokens a round "
+        f"{st['tokens_per_round']:.2f} over {st['rounds']} rounds; ms a "
+        f"committed token {res['ms_per_token']:.1f}")
+    return out, totals
+
+
+def tiny_sampled_card_equals_cpu(torch, dev):
+    """Tiny float32 granite and jamba: sampled tokens (the three pairs) and
+    speculative tokens (qat x fp, sc_int x int8) on the card equal the
+    CPU's, and spec-on equals spec-off."""
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+    prompts = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [10, 11, 12, 13, 14]]
+    sps = sampling_requests()
+    for arch in ("granite-3-2b", JAMBA_ARCH):
+        cfg = _tiny_cfg(arch)
+        cpu = live_ssm(init_params(cfg, torch.Generator().manual_seed(SEED),
+                                   "cpu"))
+        gpu = _to(cpu, dev)
+        for datapath, fmt in PAIRS:
+            specs = (False, True) if (datapath, fmt) in SPEC_PAIRS \
+                else (False,)
+            for spec in specs:
+                toks = []
+                for params, d in ((cpu, "cpu"), (gpu, dev)):
+                    eng = ServeEngine(params, cfg, max_slots=2, max_len=32,
+                                      page_size=4, datapath=datapath,
+                                      kv_format=fmt, spec_decode=spec,
+                                      draft_len=DRAFT_LEN, device=d)
+                    for p, sp in zip(prompts, sps):
+                        eng.submit(p, max_new_tokens=6, sampling=sp)
+                    toks.append([r.generated for r in sorted(
+                        eng.run_to_completion(), key=lambda r: r.rid)])
+                if toks[0] != toks[1]:
+                    raise AssertionError(
+                        f"tiny {arch} {datapath}x{fmt} spec={spec}: card "
+                        f"{toks[1]} != cpu {toks[0]}")
+                if spec and toks[1] != plain:
+                    raise AssertionError(f"tiny {arch} {datapath}x{fmt}: "
+                                         f"spec-on != spec-off")
+                plain = toks[1]
+            log(f"tiny {arch} {datapath}x{fmt}: sampled"
+                f"{' and spec' if len(specs) > 1 else ''} tokens on the "
+                f"card == cpu")
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -2388,6 +2773,15 @@ def main() -> int:
     tiny_dense_tokens_card_equals_cpu(torch, dev)
     mark(9)
 
+    # phase 10: seeded sampling, logprobs and speculative decoding, then
+    # tiny card==cpu sampled and speculative tokens
+    sampled, sampled_launches = sampled_serving(torch, dev, args.layers,
+                                                serving, smi)
+    for k, v in sampled_launches.items():
+        launches[k] += v
+    tiny_sampled_card_equals_cpu(torch, dev)
+    mark(10)
+
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
         return {"name": name, "route": "cuda", "source": source,
@@ -2430,6 +2824,7 @@ def main() -> int:
          "serving": serving, "sc_datapath": sc, "training": training,
          "moe_serving": moe_serving, "recurrent_serving": recurrent,
          "recurrent_training": recurrent_training, "dense_serving": dense,
+         "sampled_serving": sampled,
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

@@ -21,8 +21,8 @@ from .approx_bsn import (approx_bsn_cuda, approx_bsn_plain,
 from .flash_attention import FlashAttention, flash_attention_cuda
 from .paged_attention import paged_attn_decode_cuda, paged_attn_prefill_cuda
 
-__all__ = ["approx_bsn", "paged_attn_decode", "paged_attn_prefill",
-           "flash_attention"]
+__all__ = ["approx_bsn", "paged_attn_decode", "paged_attn_verify",
+           "paged_attn_prefill", "flash_attention"]
 
 _flash_plain = functools.partial(ref.flash_attention_ref, return_lse=True)
 
@@ -66,6 +66,22 @@ def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
     return ref.paged_attn_decode_ref(q, k_pages, v_pages, page_tables,
                                      lengths, kv_format=kv_format,
                                      kv_aux=aux)
+
+
+def paged_attn_verify(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, page_tables: torch.Tensor,
+                      lengths: torch.Tensor, *, kv_format: str = "fp",
+                      kv_aux: dict | None = None) -> torch.Tensor:
+    """The speculative verify window, (S, T, Hkv, G, D) queries at
+    positions ``lengths + t`` -> (S, T, Hkv, G, D).  Row t is
+    :func:`paged_attn_decode` at length ``lengths + t`` (on the card one
+    launch of the decode kernel), so each row equals plain decode's bit
+    for bit on either device."""
+    return torch.stack(
+        [paged_attn_decode(q[:, t].contiguous(), k_pages, v_pages,
+                           page_tables, lengths + t, kv_format=kv_format,
+                           kv_aux=kv_aux)
+         for t in range(q.shape[1])], dim=1)
 
 
 def paged_attn_prefill(q: torch.Tensor, k_pages: torch.Tensor,

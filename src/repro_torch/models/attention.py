@@ -1,6 +1,6 @@
 """GQA attention: full-sequence flash attention (training and the dense
 prefill), the dense cache's one-token decode, and the paged KV cache
-(serving decode + chunked prefill).
+(serving decode, the speculative verify window and chunked prefill).
 
 Port of ``repro.models.attention`` for attention layers.  ``attn_train``
 runs the differentiable flash attention over the whole sequence;
@@ -35,7 +35,7 @@ from ..kernels import dispatch
 from .common import apply_rope, dense_apply, dense_init, norm_apply, norm_init
 
 __all__ = ["attn_init", "attn_train", "attn_decode", "attn_decode_paged",
-           "attn_prefill_paged", "flash_attention"]
+           "attn_verify_paged", "attn_prefill_paged", "flash_attention"]
 
 _AUX_KEYS = ("k_scale", "v_scale", "k_resid", "v_resid")
 
@@ -179,6 +179,36 @@ def attn_decode_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
         q.reshape(S, hkv, hq // hkv, dh), pools["k_pages"], pools["v_pages"],
         page_tables, lengths, kv_format=fmt, kv_aux=_kv_aux(pools))
     o = o.reshape(S, 1, hq * dh).to(x.dtype)
+    return dense_apply(p["wo"], o, cfg.quant), pools
+
+
+def attn_verify_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                      pools: dict, lengths: torch.Tensor):
+    """The speculative verify window.  x: (S, T, D), token t of lane s at
+    cache position ``lengths[s] + t``.  All T K/V rows are scattered
+    (over whatever the draft left there; a window may straddle a page
+    boundary), then query t attends to positions ``<= lengths + t``
+    (``dispatch.paged_attn_verify``).  Returns (y (S, T, D), pools)."""
+    page_tables = pools["page_tables"]
+    page = pools["k_pages"].shape[1]
+    fmt = kv_format_of(pools)
+    S, T, _ = x.shape
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    positions = lengths[:, None] + torch.arange(T, dtype=torch.int32,
+                                                device=x.device)[None, :]
+    q, k, v = _project_qkv(p, x, cfg, positions)            # (S, T, H, Dh)
+    phys = torch.gather(page_tables, 1, (positions // page).long()).long()
+    off = (positions % page).long()
+
+    def put(pool, val):
+        pool[phys, off] = val.to(pool.dtype)
+
+    _scatter_pools(pools, fmt, k, v, put)
+    o = dispatch.paged_attn_verify(
+        q.reshape(S, T, hkv, hq // hkv, dh), pools["k_pages"],
+        pools["v_pages"], page_tables, lengths, kv_format=fmt,
+        kv_aux=_kv_aux(pools))
+    o = o.reshape(S, T, hq * dh).to(x.dtype)
     return dense_apply(p["wo"], o, cfg.quant), pools
 
 

@@ -5,10 +5,11 @@ Port of ``repro.models.transformer``: parameter init in the reference's
 shapes, the training forward with per-period recomputation and the loss
 (chunked cross-entropy too), the dense cache (``init_cache``,
 ``prefill``, ``decode_step``: the reference's unpaged entry points and
-its fp serving oracle), the paged cache, one batched decode step and the
-chunked paged prefill.  The reference stacks layers over a leading
-``n_periods`` axis and scans them; the port keeps one parameter dict and
-one cache dict per layer and loops over them in Python.
+its fp serving oracle), the paged cache, one batched decode step, the
+speculative verify step and the chunked paged prefill.  The reference
+stacks layers over a leading ``n_periods`` axis and scans them; the port
+keeps one parameter dict and one cache dict per layer and loops over
+them in Python.
 
 Each layer is the ``LayerSpec`` of its place in ``cfg.period``: a mixer
 (attention, ``mamba.py`` or the rwkv6 time mix), then a dense FFN
@@ -50,7 +51,8 @@ from .common import ACT_FNS, dense_apply, dense_init, norm_apply, norm_init
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill", "init_paged_cache", "paged_decode_step",
-           "paged_prefill", "gather_state_rows", "scatter_state_rows"]
+           "paged_prefill", "paged_verify_step", "gather_state_rows",
+           "scatter_state_rows", "select_state_snapshot"]
 
 _MIXER_INIT = {"attn": attention.attn_init, "mamba": mamba.mamba_init,
                "rwkv6": rwkv6.rwkv_tmix_init}
@@ -358,35 +360,61 @@ def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return logits + _vocab_bias(cfg, logits.dtype, logits.device)
 
 
+def _verify_scan(step, x: torch.Tensor, state: dict):
+    """A one-token recurrent ``step(x_t, state) -> (dx_t, state)`` over the
+    (S, T, D) verify window, token by token, so that the window's hidden
+    states are bit for bit those of T decode steps.  Returns (dx (S, T,
+    D), the state after each token, leaves stacked (T, S, ...))."""
+    dxs, snaps = [], []
+    for t in range(x.shape[1]):
+        dx, state = step(x[:, t:t + 1], state)
+        dxs.append(dx)
+        snaps.append(state)
+    return torch.cat(dxs, dim=1), tree_map(lambda *a: torch.stack(a),
+                                           *snaps)
+
+
 def _serve_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
                  cfg: ModelConfig, attn, state: dict, *,
-                 decode: bool = False, valid: torch.Tensor | None = None):
+                 mode: str = "prefill", valid: torch.Tensor | None = None):
     """One layer on a serving path (serving products).  ``attn(h)`` is
     the attention mixer's call on the cache; ``state`` the layer's
-    recurrent state (gathered rows or the dense cache's at decode, the
-    carry at prefill).  ``decode`` takes one token a lane through the
-    recurrences' ``*_decode``, else a chunk through ``*_prefill_chunk``
-    with ``valid`` the (G, C) mask of real prompt positions (None: all).
-    Returns (x, the new recurrent state, the MoE aux loss or None)."""
+    recurrent state (gathered rows or the dense cache's at decode and
+    verify, the carry at prefill).  ``mode="decode"`` takes one token a
+    lane through the recurrences' ``*_decode``; ``"verify"`` a window of
+    T tokens through the same steps one token at a time, the new state
+    then holding each token's snapshot (leaves (T, S, ...)); ``"prefill"``
+    a chunk through ``*_prefill_chunk`` with ``valid`` the (G, C) mask of
+    real prompt positions (None: all).  Returns (x, the new recurrent
+    state, the MoE aux loss or None)."""
     new = {}
+
+    def recur(step, x_, st):
+        if mode == "verify":
+            return _verify_scan(step, x_, st)
+        return step(x_, st)
 
     def mixer(h):
         if spec.mixer == "attn":
             return attn(h)
         keys, step, chunk = _RECURRENT[spec.mixer]
         st = {k: state[k] for k in keys}
-        dx, st = step(lp["mixer"], h, cfg, st) if decode \
-            else chunk(lp["mixer"], h, cfg, st, valid=valid)
+        if mode == "prefill":
+            dx, st = chunk(lp["mixer"], h, cfg, st, valid=valid)
+        else:
+            dx, st = recur(lambda xt, s: step(lp["mixer"], xt, cfg, s), h,
+                           st)
         new.update(st)
         return dx
 
     def cmix(h):
-        if decode:
-            dx, new["cmix"] = rwkv6.rwkv_cmix_decode(lp["ffn"], h, cfg,
-                                                     state["cmix"])
-        else:
+        if mode == "prefill":
             dx, new["cmix"] = rwkv6.rwkv_cmix_prefill_chunk(
                 lp["ffn"], h, cfg, state["cmix"], valid=valid)
+        else:
+            dx, new["cmix"] = recur(
+                lambda xt, s: rwkv6.rwkv_cmix_decode(lp["ffn"], xt, cfg, s),
+                h, state["cmix"])
         return dx
 
     x, aux = _apply_layer(lp, spec, x, cfg, mixer, cmix=cmix)
@@ -458,7 +486,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             lp, _spec(cfg, i), x, cfg,
             lambda h, lp=lp, e=entry: attention.attn_decode(
                 lp["mixer"], h, cfg, e["k"], e["v"], pos)[0],
-            entry, decode=True)
+            entry, mode="decode")
         layers.append(dict(entry, **new))
     return _logits(params, x, cfg), {"pos": pos + 1, "layers": layers}
 
@@ -492,9 +520,57 @@ def paged_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
             lp, _spec(cfg, i), x, cfg,
             lambda h, cst=cst, lp=lp: attention.attn_decode_paged(
                 lp["mixer"], h, cfg, cst, lengths)[0],
-            _get_rows(entry, idx), decode=True)
+            _get_rows(entry, idx), mode="decode")
         _put_rows(entry, new, idx)
     return _logits(params, x, cfg)[:, 0], cache
+
+
+def paged_verify_step(params: dict, cache: dict, tokens: torch.Tensor,
+                      slot_ids: torch.Tensor, page_tables: torch.Tensor,
+                      lengths: torch.Tensor, cfg: ModelConfig):
+    """The speculative verify step: a window of T tokens a lane in one
+    forward.
+
+    tokens: (S, T) int32, a lane's last committed token and its T - 1
+    drafts, at cache positions ``lengths .. lengths + T - 1``; the other
+    arguments as :func:`paged_decode_step`'s.  Attention layers scatter
+    the window's K / V and score row t at length ``lengths + t``
+    (``attention.attn_verify_paged``); recurrent layers run their decode
+    step once a token (:func:`_verify_scan`); the products and norms run
+    over all S x T rows.  So logits row t is the logits of the decode
+    step after window tokens ``0..t``.
+
+    Returns (logits (S, T, V), cache, snaps).  The cache holds the
+    window's K / V (past the accepted prefix they are dead: later reads
+    mask them and later writes overwrite them); the state rows are left
+    as they were.  ``snaps`` is one dict a layer, each recurrent leaf
+    (T, S, ...) the state after each window token: the engine commits one
+    a lane with :func:`select_state_snapshot` and
+    :func:`scatter_state_rows`.
+    """
+    x = params["embed"]["table"][tokens.long()]                # (S, T, D)
+    idx = slot_ids.long()
+    snaps = []
+    for i, (lp, entry) in enumerate(zip(params["layers"], cache["layers"])):
+        cst = dict(entry, page_tables=page_tables)
+        x, new, _ = _serve_layer(
+            lp, _spec(cfg, i), x, cfg,
+            lambda h, cst=cst, lp=lp: attention.attn_verify_paged(
+                lp["mixer"], h, cfg, cst, lengths)[0],
+            _get_rows(entry, idx), mode="verify")
+        snaps.append(new)
+    return _logits(params, x, cfg), cache, snaps
+
+
+def select_state_snapshot(snaps: list[dict], m: torch.Tensor) -> list[dict]:
+    """Lane s's state after window tokens ``0..m[s]``: from
+    :func:`paged_verify_step`'s ``snaps`` (leaves (T, S, ...)) and ``m``
+    (S,) in ``[0, T - 1]``, rows shaped for :func:`scatter_state_rows`
+    (leaves (S, ...))."""
+    m = m.long()
+    return [tree_map(lambda a: a[m, torch.arange(a.shape[1],
+                                                 device=a.device)], e)
+            for e in snaps]
 
 
 def paged_prefill(params: dict, cache: dict, tokens: torch.Tensor,

@@ -8,7 +8,9 @@ on the card.  They follow jax's default PRNG as jax 0.9.0 computes it with
 fold-like ``split`` and the counter layout of ``random_bits`` are those of
 that mode.  The names are the counterparts' in ``jax/_src/prng.py``
 (``threefry_seed``, ``iota_2x32_shape``, ``threefry2x32``) and
-``jax/_src/random.py`` (``key``, ``fold_in``, ``split``, ``randint``).
+``jax/_src/random.py`` (``key``, ``fold_in``, ``split``, ``randint``,
+``uniform``).  ``lane_keys`` is the serving sampler's key schedule,
+``fold_in(PRNGKey(seed), position)`` for a tensor of lanes at once.
 
 A key is a ``(2,)`` int64 tensor holding the two uint32 words of jax's
 raw key data, ``jax.random.key_data(k)``.
@@ -21,7 +23,8 @@ import math
 import torch
 
 __all__ = ["threefry2x32", "threefry_seed", "key", "fold_in", "split",
-           "iota_2x32_shape", "random_bits", "randint"]
+           "iota_2x32_shape", "random_bits", "randint", "lane_keys",
+           "uniform"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -116,3 +119,31 @@ def randint(k: torch.Tensor, shape: tuple[int, ...], minval: int,
     offset = _mul32(higher % span, multiplier) + lower % span
     offset = (offset & MASK) % span
     return (offset + minval).to(torch.int32)
+
+
+def lane_keys(seeds: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """``fold_in(PRNGKey(seed), position)`` for each lane: ``(S, 2)`` keys
+    from ``(S,)`` integer seeds and positions.
+
+    A seed is taken modulo 2**32, as ``PRNGKey`` of an int32 seed gives
+    the key ``(0, seed mod 2**32)``; the position is folded in as uint32.
+    Each lane's key is a function of its own seed and position only."""
+    s = seeds.to(torch.int64) & MASK
+    p = positions.to(device=s.device, dtype=torch.int64) & MASK
+    y1, y2 = threefry2x32(torch.zeros_like(s), s, torch.zeros_like(p), p)
+    return torch.stack([y1, y2], dim=-1)
+
+
+def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.uniform(k, (n,), float32)`` (``minval=0, maxval=1``)
+    for each of the ``(S, 2)`` keys: ``(S, n)`` float32 in [0, 1).
+
+    32 bits per element from :func:`random_bits`' counter layout; the top
+    23 become the mantissa of a float in [1, 2) (``bits >> 9 |
+    0x3F800000``), less 1; then ``* (maxval - minval) + minval`` and
+    ``max(minval, .)``, which leave every value as it is."""
+    hi, lo = iota_2x32_shape((n,), keys.device)
+    y1, y2 = threefry2x32(keys[:, :1], keys[:, 1:], hi[None], lo[None])
+    bits = (y1 ^ y2) >> 9 | 0x3F800000
+    f = bits.to(torch.int32).view(torch.float32) - 1.0
+    return torch.clamp_min(f * 1.0 + 0.0, 0.0)

@@ -1,8 +1,8 @@
 """Validated construction surface for :class:`ServeEngine`.
 
 Port of ``repro.serving.config.EngineConfig`` with the knobs the port
-serves: slots, paging, chunking, datapath, KV format and the prefill
-mode.  The reference's backend knobs, mesh rules and speculative decoding
+serves: slots, paging, chunking, datapath, KV format, the prefill mode
+and speculative decoding.  The reference's backend knobs and mesh rules
 are not part of the port yet.
 """
 
@@ -29,6 +29,8 @@ class EngineConfig:
     datapath: str = "qat"
     kv_format: str = "fp"
     prefill_mode: str = "chunked"
+    spec_decode: bool = False
+    draft_len: int = 4
 
     def validate(self) -> "EngineConfig":
         """Raise ``ValueError`` on the first violated rule; return self."""
@@ -61,4 +63,14 @@ class EngineConfig:
             raise ValueError(f"prefill_mode must be 'chunked' or 'exact' "
                              f"(the per-request oracle), got "
                              f"{self.prefill_mode!r}")
+        if self.draft_len < 1:
+            raise ValueError(f"draft_len must be >= 1 (a speculative "
+                             f"round drafts at least one token), "
+                             f"got {self.draft_len}")
+        if self.spec_decode and self.datapath == "sc_int_approx":
+            raise ValueError(
+                "spec_decode drafts on the sc_int_approx datapath and "
+                "verifies on the request's datapath: a sc_int_approx "
+                "target makes the drafter the verifier; use "
+                "datapath='qat' or 'sc_int'")
         return self

@@ -33,6 +33,8 @@ from repro_torch.launch.train import reduced_config
 from repro_torch.models import common, forward
 from repro_torch.serving import ServeEngine, sequential_generate
 from repro_torch.weights import from_jax
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 COMMON = dict(dtype="float32", vocab_pad_multiple=32)
 REDUCED = {

@@ -1289,3 +1289,102 @@ def test_exact_engine_and_dense_oracle_on_the_card_equal_the_cpu(
         toks.append((dense, [r.generated for r in sorted(
             eng.run_to_completion(), key=lambda r: r.rid)]))
     assert toks[1] == toks[0]
+
+
+def _sampler_case(V=49152, S=8, seed=0):
+    """Seeded logits (scale 3) and a mix of lanes: sampled under every
+    filter, greedy, with and without logprobs."""
+    from repro_torch.serving import SamplingParams
+    gen = torch.Generator().manual_seed(seed)
+    logits = torch.randn((S, V + 256), generator=gen) * 3
+    sps = [SamplingParams(temperature=0.9, top_p=0.8, top_k=50, seed=100),
+           SamplingParams(),
+           SamplingParams(temperature=1.3, top_p=0.95, seed=2 ** 31 + 5),
+           SamplingParams(temperature=0.7, min_p=0.05, seed=-3),
+           SamplingParams(temperature=1.0, top_k=1, seed=7),
+           SamplingParams(temperature=2.0, seed=8),
+           SamplingParams(top_k=5, seed=9),
+           SamplingParams(temperature=0.5, top_k=400, top_p=0.5, seed=10)]
+    positions = torch.arange(S, dtype=torch.int32) * 37 + 5
+    return logits, positions, sps[:S]
+
+
+def _sample_rows(dev, logits, positions, sps, V, rows):
+    from repro_torch.serving.sampling import (pack_sampling, sample_tokens,
+                                              token_logprobs)
+    samp = pack_sampling([sps[r] for r in rows], device=dev)
+    lg, pos = logits[rows].to(dev), positions[rows].to(dev)
+    tok = sample_tokens(lg, pos, samp, V)
+    lp = token_logprobs(lg, tok, samp, V, 8)
+    return tok.cpu(), tuple(a.cpu() for a in lp)
+
+
+def test_sampler_on_the_card_is_batch_invariant_and_equals_the_cpu(cuda):
+    """At granite's vocabulary: each lane draws the same token at batch
+    1, 4 and 8 on the card and its logprobs are the same bits; the tokens
+    equal the CPU's and the logprobs agree within 1e-5 (exp / log differ
+    in the last ulp between the devices)."""
+    V = 49152
+    logits, positions, sps = _sampler_case(V)
+    full_tok, full_lp = _sample_rows(cuda, logits, positions, sps, V,
+                                     list(range(8)))
+    for rows in ([0, 1, 2, 3], [4, 5, 6, 7], [2], [7], [0]):
+        tok, lp = _sample_rows(cuda, logits, positions, sps, V, rows)
+        assert torch.equal(tok, full_tok[rows])
+        for a, b in zip(lp, full_lp):
+            assert torch.equal(a, b[rows])
+    cpu_tok, cpu_lp = _sample_rows("cpu", logits, positions, sps, V,
+                                   list(range(8)))
+    assert torch.equal(full_tok, cpu_tok)
+    assert torch.equal(full_lp[1], cpu_lp[1])
+    for a, b in ((full_lp[0], cpu_lp[0]), (full_lp[2], cpu_lp[2])):
+        assert torch.equal(torch.isfinite(a), torch.isfinite(b))
+        fin = torch.isfinite(b)
+        torch.testing.assert_close(a[fin], b[fin], rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("datapath,fmt", [("qat", "fp"), ("sc_int", "int8"),
+                                          ("sc_int_approx", "sc")])
+def test_verify_window_logits_equal_plain_decode_steps(cuda, datapath, fmt):
+    """A bf16 granite-shaped model (head_dim 64: the split decode kernel):
+    the verify window's logits row t equal, bit for bit, the logits of the
+    decode step after window tokens 0..t, and each row of the window is
+    one launch of the decode kernel."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.models import (init_paged_cache, init_params,
+                                    paged_decode_step, paged_verify_step)
+    from repro_torch.tree import tree_map
+    cfg = get_arch("granite-3-2b").scaled(
+        n_layers=2, d_model=256, n_heads=4, n_kv_heads=2, d_ff=512,
+        vocab_size=512, vocab_pad_multiple=64)
+    if datapath != "qat":
+        cfg = cfg.scaled(quant=dataclasses.replace(
+            cfg.quant, mode="sc_int",
+            int_approx=datapath == "sc_int_approx"))
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    S, page, maxp, T = 3, 16, 4, 5
+    cache = init_paged_cache(cfg, S, S * maxp + 1, page, fmt, device=cuda)
+    tables = (1 + torch.arange(S * maxp, dtype=torch.int32,
+                               device=cuda)).reshape(S, maxp)
+    slots = torch.arange(S, dtype=torch.int32, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (S, 20), generator=gen,
+                         device=cuda, dtype=torch.int32)
+    lengths = torch.tensor([13, 16, 30], dtype=torch.int32, device=cuda)
+    with torch.inference_mode():
+        for t in range(30):                 # fill positions 0..29
+            pos = torch.clamp(torch.full((S,), t, dtype=torch.int32,
+                                         device=cuda), max=lengths - 1)
+            _, cache = paged_decode_step(params, cache, toks[:, t % 20],
+                                         slots, tables, pos, cfg)
+        plain = tree_map(torch.clone, cache)
+        win = toks[:, :T]
+        build.reset_launches()
+        vl, _, _ = paged_verify_step(params, cache, win, slots, tables,
+                                     lengths, cfg)
+        assert build.LAUNCHES["paged_attn_decode"] == cfg.n_layers * T
+        for t in range(T):
+            lg, plain = paged_decode_step(params, plain, win[:, t], slots,
+                                          tables, lengths + t, cfg)
+            assert torch.equal(vl[:, t], lg), t

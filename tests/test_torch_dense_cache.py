@@ -59,6 +59,7 @@ from repro_torch.serving import EngineConfig, ServeEngine, sequential_generate
 from repro_torch.serving.engine import _cfg_for_datapath, _pad_prefill_cache
 from repro_torch.serving.paging import kv_page_bytes, slots_per_gib
 from repro_torch.weights import dense_cache_from_jax, from_jax, tree_to_torch
+from port_fixtures import _one_torch_thread  # noqa: F401
 
 TOL = {"none": 1e-5, "sc_int": 1e-5, "sc_qat": 5e-5}
 # tests/test_models_smoke.py
@@ -83,17 +84,6 @@ B, S = 2, 16
 PROMPTS = [[1, 2, 3], [4, 5, 6, 7], [8, 9], [10, 11, 12, 13, 14]]
 ENGINE = dict(max_slots=2, max_len=32, page_size=4)
 QAT_ATOL = 5e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's tiny shapes: under pytest-xdist
-    every worker's thread pool would spread over all the cores, and the
-    pools' contention costs more than they gain here."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

@@ -33,6 +33,8 @@ from repro_torch.kernels.paged_attention import (paged_attn_decode_cuda,
 from repro_torch.kernels.ref import (paged_attn_decode_ref,
                                      paged_attn_prefill_ref)
 from repro_torch.kernels.ternary_matmul import ternary_matmul_cuda
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 TOL = dict(rtol=2e-5, atol=2e-6)
 BF16_TOL = dict(rtol=0, atol=1e-2)

@@ -34,6 +34,8 @@ from repro_torch.core.sc_layers import SCQuantConfig
 from repro_torch.models import common, init_paged_cache, paged_decode_step
 from repro_torch.models import paged_prefill
 from repro_torch.weights import from_jax
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 SCALE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
              vocab_size=64, vocab_pad_multiple=32, dtype="float32")

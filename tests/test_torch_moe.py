@@ -46,6 +46,8 @@ from repro_torch.serving import ServeEngine, sequential_generate
 from repro_torch.train import TrainState, build_train_step
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import from_jax
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 COMMON = dict(dtype="float32", vocab_pad_multiple=32)
 # the reference's REDUCED sizes; cf = E / k, so no token drops

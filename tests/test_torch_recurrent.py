@@ -56,6 +56,8 @@ from repro_torch.models import (common, forward, gather_state_rows,
                                 paged_decode_step, paged_prefill, rwkv6,
                                 scatter_state_rows)
 from repro_torch.weights import cache_from_jax, from_jax, tree_to_torch
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 ATOL = 1e-5
 QAT_ATOL = 5e-5

@@ -27,6 +27,8 @@ from repro_torch.models import (init_paged_cache, paged_decode_step,
                                 paged_prefill)
 from repro_torch.serving import ServeEngine, sequential_generate
 from repro_torch.weights import from_jax
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 QAT_ATOL = 5e-5
 ARCHS = ("rwkv6-7b", "jamba-1.5-large-398b")

@@ -73,6 +73,7 @@ from repro_torch.optim import warmup_cosine
 from repro_torch.train import build_train_step
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import from_jax, tree_to_torch
+from port_fixtures import _one_torch_thread  # noqa: F401
 
 TOL = {"none": 1e-5, "sc_qat": 5e-5}
 LSQ_SCALE_TOL = 1e-3
@@ -100,17 +101,6 @@ REDUCED = {
 COMMON = dict(dtype="float32", mamba_chunk=8, vocab_pad_multiple=32)
 B, S = 2, 13
 _ZERO_INIT = ("maa_x", "maa", "u", "mk", "mr", "conv_b")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """One intra-op thread for the port's tiny shapes: under pytest-xdist
-    every worker's thread pool would spread over all the cores, and the
-    pools' contention costs more than they gain here."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(tree):

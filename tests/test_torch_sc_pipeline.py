@@ -32,10 +32,16 @@ from repro_torch.kernels import build, dispatch, ops, ref
 from repro_torch.kernels.approx_bsn import approx_bsn_temporal_plain
 from repro_torch.kernels.bsn_sort import bsn_sort_plain
 from repro_torch.weights import tree_to_torch
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 ACT_BSL = 8
 # the reference's Pallas matmul at small blocks, so interpret mode is fast
 JMM = dict(min_flops_for_kernel=0, block_m=8, block_n=8, block_k=8)
+# blocks that divide the largest aligned case (256 x 2048 x 512): 128 grid
+# steps in interpret mode where JMM's 8-wide blocks take 524 288
+JMM_ALIGNED = dict(min_flops_for_kernel=0, block_m=64, block_n=128,
+                   block_k=256)
 
 
 def _t(a):
@@ -290,9 +296,10 @@ def test_ternary_matmul_operands_padded_for_each_kernel(m, k, n, with_si):
     if k % mult == 0 and n % mult == 0:
         assert xp is xt and wp is wt and tp is tt
     got = ref.ternary_matmul_ref(xp, wp, tp)[:, :n]
+    blocks = JMM_ALIGNED if (m, k, n) == (256, 2048, 512) else JMM
     want = _n(jops.ternary_matmul(
         jnp.asarray(x), jnp.asarray(w),
-        None if t is None else jnp.asarray(t), **JMM))
+        None if t is None else jnp.asarray(t), **blocks))
     np.testing.assert_array_equal(got.numpy(), want)
 
 

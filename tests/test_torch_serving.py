@@ -18,6 +18,8 @@ from repro.serving import ServeEngine as JServeEngine
 from repro_torch.configs import get_arch
 from repro_torch.serving import ServeEngine, sequential_generate
 from repro_torch.weights import from_jax
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 SCALE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
              vocab_size=64, vocab_pad_multiple=32, dtype="float32")

@@ -47,6 +47,8 @@ from repro_torch.train import (TrainState, build_train_step,
                                init_train_state, run_training)
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.weights import from_jax
+from port_fixtures import _one_torch_thread  # noqa: F401
+
 
 SCALE = dict(n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
              vocab_size=64, vocab_pad_multiple=32, dtype="float32")
