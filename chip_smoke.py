@@ -124,6 +124,22 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    It prints the sampled decode step's ms beside phase 4's greedy one,
    the sampler's device ms, and ``spec_stats`` with the ms a committed
    token, spec-on against spec-off.
+11. mesh serving: 2 ranks of a (1, 2) tensor-parallel mesh on the one
+   card (gloo: NCCL refuses two ranks on one card; the parent builds the
+   kernels, the ranks load them) serve granite-3-2b at phase 4's depth
+   and traffic on the three pairs, each rank holding 4 of 8 KV heads,
+   4096 of d_ff 8192 and 24704 of the padded vocabulary's 49408: every
+   rank's tokens equal phase 4's mesh-off tokens, every kernel of the
+   pair's path launched on every rank, the sc_int q-domain sums of a
+   captured decode step equal the mesh-off step's bit for bit, a seeded
+   sampled run with logprobs and a ``spec_decode`` run on qat x fp equal
+   their mesh-off runs, qwen3-moe-235b-a22b at 2 layers on sc_int x int8
+   (64 experts a rank, cf 16) equals its mesh-off tokens, a (1, 1) mesh
+   equals no mesh, and a tiny float32 mesh gives the same tokens on the
+   card as on the CPU.  Each rank's decode ms a step, prefill ms, peak
+   memory and the collectives' ms in a profiled step are printed, and
+   labelled: two ranks sharing one H100 are not a tensor-parallel
+   speedup.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
@@ -2622,6 +2638,378 @@ def tiny_sampled_card_equals_cpu(torch, dev):
                 f"card == cpu")
 
 
+# ---------------------------------------------------------------------------
+# phase 11: mesh serving, 2 ranks of a tensor-parallel mesh on the one card
+# ---------------------------------------------------------------------------
+
+MESH_RANKS = 2
+MESH_MOE_LAYERS = 2
+MESH_LABEL = "2 ranks sharing one H100; not a tensor-parallel speedup"
+
+
+def _granite(torch, dev, layers):
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    cfg = get_arch("granite-3-2b")
+    if layers != cfg.n_layers:
+        cfg = cfg.scaled(n_layers=layers)
+    return cfg, init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+
+
+def _moe_cfg(layers):
+    from repro_torch.configs import get_arch
+    base = get_arch(MOE_ARCH)
+    return base.scaled(n_layers=layers, moe_capacity_factor=float(
+        base.n_experts // base.n_experts_per_tok))
+
+
+def _engine(params, cfg, dev, datapath, fmt, mesh=None, **kw):
+    from repro_torch.serving import ServeEngine
+    return ServeEngine(params, cfg, max_slots=4, max_len=256, page_size=16,
+                       prefill_chunk=64, datapath=datapath, kv_format=fmt,
+                       device=dev, mesh=mesh, **kw)
+
+
+def _serve_timed(torch, eng, prompts, new_tokens, sps=None):
+    """Queue ``prompts``, prefill (timed), decode to the end (timed), with
+    the launch counts set to 0 just before: tokens, logprobs, ms, launches
+    and the peak memory."""
+    from repro_torch.kernels import build as kbuild
+    for i, p in enumerate(prompts):
+        eng.submit(p, max_new_tokens=new_tokens,
+                   sampling=None if sps is None else sps[i])
+    torch.cuda.reset_peak_memory_stats()
+    kbuild.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng._admit()
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    done, steps = [], 0
+    t1 = time.perf_counter()
+    while eng.queue or any(s is not None for s in eng.slots):
+        done += eng.step()
+        steps += 1
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t1
+    done = sorted(done, key=lambda r: r.rid)
+    return dict(tokens=[r.generated for r in done],
+                logprobs=[r.logprobs for r in done],
+                prefill_ms=t_prefill * 1e3, decode_steps=steps,
+                decode_ms_per_step=t_decode * 1e3 / max(steps, 1),
+                launches=dict(kbuild.LAUNCHES),
+                max_memory_allocated=torch.cuda.max_memory_allocated())
+
+
+def _captured_sums(torch, eng, prompts):
+    """Every sc_int q-domain sum of the first decode step after the
+    batched prefill, in call order, on the host."""
+    from repro_torch.core import sc_layers
+    for p in prompts:
+        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    eng._admit()
+    inner, sums = sc_layers.sc_linear_int, []
+
+    def spy(int_params, x_q):
+        out = inner(int_params, x_q)
+        sums.append(out.cpu().numpy())
+        return out
+    sc_layers.sc_linear_int = spy
+    try:
+        eng.step()
+    finally:
+        sc_layers.sc_linear_int = inner
+    return sums
+
+
+def _collective_step(torch, eng):
+    """One decode step (the engine's third) under torch.profiler, each
+    mesh gather timed by a pair of CUDA events: the device busy ms and
+    the collectives' ms (each gather's device-to-host copy, gloo, and
+    host-to-device copy, the card idle in between)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import sharding
+    eng.step()
+    eng.step()
+    inner, pairs = sharding.gather, []
+
+    def timed(x, axis=sharding.MODEL, dim=-1):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = inner(x, axis, dim)
+        b.record()
+        pairs.append((a, b))
+        return out
+    # every module that imported the function by name
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("repro_torch.")
+            and getattr(m, "gather", None) is inner]
+    torch.cuda.synchronize()
+    for m in mods:
+        m.gather = timed
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        for m in mods:
+            m.gather = inner
+    cuda = torch.autograd.DeviceType.CUDA
+    busy = sum(_dev_us(e) for e in prof.key_averages()
+               if e.device_type == cuda) / 1e3
+    return dict(wall_ms=wall, device_busy_ms=busy, gathers=len(pairs),
+                collective_ms=sum(a.elapsed_time(b) for a, b in pairs))
+
+
+def mesh_rank_work(torch, rules, layers, dev):
+    """One rank of phase 11 (both ranks run it): granite-3-2b at ``layers``
+    on the three pairs under the (1, 2) mesh, a captured sc_int step, a
+    sampled run with logprobs and a speculative run on qat x fp, a
+    profiled step, qwen3-moe at ``MESH_MOE_LAYERS`` layers expert-parallel
+    on sc_int x int8, and a tiny float32 mesh on the card and on the
+    CPU."""
+    from repro_torch.models import init_params
+    cfg, params = _granite(torch, dev, layers)
+    prompts = _prompts(torch, cfg, (32, 57, 96, 128))
+    out = {"pairs": {}}
+    for datapath, fmt in PAIRS:
+        out["pairs"][datapath] = _serve_timed(
+            torch, _engine(params, cfg, dev, datapath, fmt, rules), prompts,
+            NEW_TOKENS)
+    out["sums"] = _captured_sums(
+        torch, _engine(params, cfg, dev, "sc_int", "int8", rules), prompts)
+    out["sampled"] = _serve_timed(
+        torch, _engine(params, cfg, dev, "qat", "fp", rules), prompts,
+        NEW_TOKENS, sampling_requests())
+    out["spec"] = _serve_timed(
+        torch, _engine(params, cfg, dev, "qat", "fp", rules,
+                       spec_decode=True, draft_len=DRAFT_LEN), prompts,
+        NEW_TOKENS)
+    eng = _engine(params, cfg, dev, "qat", "fp", rules)
+    for p in prompts:
+        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    out["profile"] = _collective_step(torch, eng)
+    del eng, params
+    torch.cuda.empty_cache()
+    mcfg = _moe_cfg(MESH_MOE_LAYERS)
+    mparams = init_params(mcfg, torch.Generator(dev).manual_seed(SEED), dev)
+    out["moe"] = _serve_timed(
+        torch, _engine(mparams, mcfg, dev, "sc_int", "int8", rules),
+        _prompts(torch, mcfg, (32, 57, 96, 128)), ARCH_NEW_TOKENS)
+    del mparams
+    torch.cuda.empty_cache()
+    tcfg = _tiny_cfg("granite-3-2b")
+    cpu = init_params(tcfg, torch.Generator().manual_seed(SEED), "cpu")
+    tiny = {}
+    for datapath, fmt in PAIRS:
+        for params_d, d, on in ((cpu, "cpu", "cpu"),
+                                (_to(cpu, dev), dev, "card")):
+            from repro_torch.serving import ServeEngine
+            e = ServeEngine(params_d, tcfg, max_slots=2, max_len=32,
+                            page_size=4, datapath=datapath, kv_format=fmt,
+                            device=d, mesh=rules)
+            for p in ([1, 2, 3], [4, 5, 6, 7], [8, 9], [10, 11, 12, 13, 14]):
+                e.submit(p, max_new_tokens=5)
+            tiny[f"{datapath}/{on}"] = [r.generated for r in sorted(
+                e.run_to_completion(), key=lambda r: r.rid)]
+    out["tiny"] = tiny
+    return out
+
+
+def mesh_rank(rank, port, layers, queue):
+    """The entry point of a spawned rank: the gloo group over localhost,
+    the (1, 2) serving mesh, the kernels the parent built (loaded, not
+    rebuilt), then :func:`mesh_rank_work`.  Any failure goes back to the
+    parent, which fails the run."""
+    import datetime
+    import traceback
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}",
+            world_size=MESH_RANKS, rank=rank,
+            timeout=datetime.timedelta(seconds=600))
+        from repro_torch.kernels import build as kbuild
+        kbuild.library()
+        from repro_torch.launch.mesh import make_serving_mesh, serving_rules
+        rules = serving_rules(make_serving_mesh(
+            model_parallel=MESH_RANKS, backend="gloo"))
+        out = mesh_rank_work(torch, rules, layers, torch.device("cuda"))
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _spawn_ranks(layers, timeout=900):
+    """Start the ranks of phase 11 and wait for them; every rank must
+    report and exit 0, and none outlives this call."""
+    import socket
+    import torch.multiprocessing as mp
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    ctx = mp.get_context("spawn")
+    queue = ctx.Queue()
+    procs = [ctx.Process(target=mesh_rank, args=(r, port, layers, queue),
+                         daemon=True) for r in range(MESH_RANKS)]
+    for p in procs:
+        p.start()
+    results, errors = {}, []
+    try:
+        for _ in procs:
+            rank, out, err = queue.get(timeout=timeout)
+            if err is not None:
+                errors.append(f"rank {rank}:\n{err}")
+                break
+            results[rank] = out
+    finally:
+        for p in procs:
+            p.join(timeout=60 if not errors else 5)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    codes = [p.exitcode for p in procs]
+    if errors or any(c != 0 for c in codes):
+        raise AssertionError(f"phase 11: mesh ranks failed (exit codes "
+                             f"{codes})\n" + "\n".join(errors))
+    return [results[r] for r in range(MESH_RANKS)]
+
+
+def _mesh_off(torch, dev, layers):
+    """Phase 11's mesh-off runs, before any rank starts (so that the card
+    never holds three copies of a model): the captured sc_int step, the
+    sampled and speculative qat x fp runs, a (1, 1) mesh with no process
+    group (tokens), and qwen3-moe at ``MESH_MOE_LAYERS`` layers."""
+    from repro_torch.launch.mesh import make_serving_mesh, serving_rules
+    from repro_torch.models import init_params
+    cfg, params = _granite(torch, dev, layers)
+    prompts = _prompts(torch, cfg, (32, 57, 96, 128))
+    off = {"sums": _captured_sums(
+        torch, _engine(params, cfg, dev, "sc_int", "int8"), prompts)}
+    off["sampled"] = _serve_timed(torch, _engine(params, cfg, dev, "qat",
+                                                 "fp"), prompts, NEW_TOKENS,
+                                  sampling_requests())
+    off["spec"] = _serve_timed(
+        torch, _engine(params, cfg, dev, "qat", "fp", spec_decode=True,
+                       draft_len=DRAFT_LEN), prompts, NEW_TOKENS)
+    one = serving_rules(make_serving_mesh(model_parallel=1))
+    off["mesh_1x1"] = _serve_timed(
+        torch, _engine(params, cfg, dev, "qat", "fp", one), prompts,
+        NEW_TOKENS)
+    del params
+    torch.cuda.empty_cache()
+    mcfg = _moe_cfg(MESH_MOE_LAYERS)
+    mparams = init_params(mcfg, torch.Generator(dev).manual_seed(SEED), dev)
+    off["moe"] = _serve_timed(
+        torch, _engine(mparams, mcfg, dev, "sc_int", "int8"),
+        _prompts(torch, mcfg, (32, 57, 96, 128)), ARCH_NEW_TOKENS)
+    del mparams
+    torch.cuda.empty_cache()
+    return off
+
+
+def mesh_serving(torch, dev, layers, greedy_runs, smi):
+    """Phase 11 (see the module docstring); ``greedy_runs`` are phase 4's
+    mesh-off results on the same weights and prompts.  Returns the
+    results and the ranks' launch counts, summed."""
+    from repro_torch.kernels import build as kbuild
+    off = _mesh_off(torch, dev, layers)
+    phase4 = {r["datapath"]: r["tokens"] for r in greedy_runs}
+    if off["mesh_1x1"]["tokens"] != phase4["qat"]:
+        raise AssertionError("phase 11: a (1, 1) mesh's tokens differ from "
+                             "no mesh's")
+    log("phase 11: (1, 1) mesh == no mesh (granite qat x fp tokens)")
+    t0 = time.perf_counter()
+    ranks = _spawn_ranks(layers)
+    ranks_s = time.perf_counter() - t0
+    launches = dict.fromkeys(kbuild.KERNELS, 0)
+    for rank, res in enumerate(ranks):
+        for datapath, fmt in PAIRS:
+            r = res["pairs"][datapath]
+            tag = f"phase 11 rank {rank} granite {datapath}x{fmt}"
+            if r["tokens"] != phase4[datapath]:
+                raise AssertionError(f"{tag}: mesh tokens differ from "
+                                     f"phase 4's mesh-off tokens\n"
+                                     f"{r['tokens']}\n{phase4[datapath]}")
+            missing = [k for k in PATH_KERNELS[datapath]
+                       if r["launches"][k] == 0]
+            if missing:
+                raise AssertionError(f"{tag}: kernels never launched: "
+                                     f"{missing}")
+            for k, v in r["launches"].items():
+                launches[k] += v
+            log(f"{tag}: prefill_ms={r['prefill_ms']:.1f} "
+                f"decode_ms_per_step={r['decode_ms_per_step']:.1f} "
+                f"max_memory_allocated="
+                f"{r['max_memory_allocated'] / 2**30:.2f} GiB launches="
+                f"{ {k: v for k, v in r['launches'].items() if v} } "
+                f"({MESH_LABEL}; {smi})")
+        m = res["moe"]
+        if m["tokens"] != off["moe"]["tokens"]:
+            raise AssertionError(f"phase 11 rank {rank} qwen3-moe: mesh "
+                                 f"tokens differ from mesh-off")
+        missing = [k for k in arch_path_kernels(_moe_cfg(MESH_MOE_LAYERS),
+                                                "sc_int")
+                   if m["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"phase 11 rank {rank} qwen3-moe: kernels "
+                                 f"never launched: {missing}")
+        for k, v in m["launches"].items():
+            launches[k] += v
+        for key in ("sampled", "spec"):
+            if (res[key]["tokens"], res[key]["logprobs"]) != (
+                    off[key]["tokens"], off[key]["logprobs"]):
+                raise AssertionError(f"phase 11 rank {rank}: {key} run "
+                                     f"differs from mesh-off")
+            for k, v in res[key]["launches"].items():
+                launches[k] += v
+        for datapath, fmt in PAIRS:
+            tiny = res["tiny"]
+            if tiny[f"{datapath}/cpu"] != tiny[f"{datapath}/card"]:
+                raise AssertionError(f"phase 11 rank {rank} tiny "
+                                     f"{datapath}x{fmt}: card != cpu")
+        p = res["profile"]
+        log(f"phase 11 rank {rank}: profiled qat decode step wall_ms="
+            f"{p['wall_ms']:.1f} device_busy_ms={p['device_busy_ms']:.1f} "
+            f"collective_ms={p['collective_ms']:.1f} over {p['gathers']} "
+            f"gathers; qwen3-moe {MESH_MOE_LAYERS} layers sc_int x int8 "
+            f"decode_ms_per_step={m['decode_ms_per_step']:.1f} "
+            f"prefill_ms={m['prefill_ms']:.1f} ({MESH_LABEL}; {smi})")
+    import numpy as np
+    want = off["sums"]
+    if not want or any(len(r["sums"]) != len(want) for r in ranks):
+        raise AssertionError("phase 11: captured steps differ in length")
+    for i, parts in enumerate(zip(*(r["sums"] for r in ranks))):
+        got = np.concatenate(parts, axis=-1)
+        if got.shape != want[i].shape or not np.array_equal(got, want[i]):
+            raise AssertionError(f"phase 11: sc_int sum {i} of the captured "
+                                 f"step differs from mesh-off")
+    log(f"phase 11: mesh tokens == phase 4 on the three pairs, sc_int sums "
+        f"of a step ({len(want)} products) == mesh-off bit for bit, "
+        f"sampled + logprobs and spec_decode == mesh-off, qwen3-moe "
+        f"expert-parallel == mesh-off, tiny mesh card == cpu; ranks "
+        f"{ranks_s:.1f} s")
+    return dict(ranks=[{k: v for k, v in r.items() if k != "sums"}
+                       for r in ranks], ranks_s=ranks_s,
+                label=MESH_LABEL, nvidia_smi=smi,
+                mesh_off={k: v for k, v in off.items() if k != "sums"},
+                sums_checked=len(want)), launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -2635,8 +3023,8 @@ def main() -> int:
     # phases 4, 6 and 7 were cut from 40 and 8 layers when phase 8 came,
     # to keep the whole run near half the driver's 1200 s
     ap.add_argument("--layers", type=int, default=20,
-                    help="granite-3-2b depth to serve and train (of 40; "
-                         "full width always)")
+                    help="granite-3-2b depth to serve (phases 4, 10 and "
+                         "11) and train (of 40; full width always)")
     ap.add_argument("--moe-layers", type=int, default=4,
                     help="qwen3-moe-235b-a22b depth to serve in phase 7 "
                          "(of 94; full width always)")
@@ -2782,6 +3170,12 @@ def main() -> int:
     tiny_sampled_card_equals_cpu(torch, dev)
     mark(10)
 
+    # phase 11: mesh serving, 2 ranks of a (1, 2) mesh on the one card
+    mesh, mesh_launches = mesh_serving(torch, dev, args.layers, serving, smi)
+    for k, v in mesh_launches.items():
+        launches[k] += v
+    mark(11)
+
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
         return {"name": name, "route": "cuda", "source": source,
@@ -2824,7 +3218,7 @@ def main() -> int:
          "serving": serving, "sc_datapath": sc, "training": training,
          "moe_serving": moe_serving, "recurrent_serving": recurrent,
          "recurrent_training": recurrent_training, "dense_serving": dense,
-         "sampled_serving": sampled,
+         "sampled_serving": sampled, "mesh_serving": mesh,
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

@@ -19,7 +19,7 @@ import torch
 
 from .. import prng
 
-__all__ = ["SyntheticLM"]
+__all__ = ["SyntheticLM", "host_batch"]
 
 
 @dataclass(frozen=True)
@@ -56,3 +56,17 @@ class SyntheticLM:
         """CE of the perfect model: log(branching) (uniform choice)."""
         return float(np.log(self.branching))
 
+
+
+def host_batch(ds: SyntheticLM, step: int, global_batch: int,
+               host_id: int = 0, n_hosts: int = 1) -> dict:
+    """Host ``host_id``'s rows of step ``step``'s global batch: its
+    ``global_batch / n_hosts`` contiguous rows, so that a job restarted
+    on another host count sees the same global data."""
+    if global_batch % n_hosts:
+        raise ValueError(f"global batch {global_batch} does not split "
+                         f"over {n_hosts} hosts")
+    per_host = global_batch // n_hosts
+    full = ds.batch(step, global_batch)
+    lo = host_id * per_host
+    return {k: v[lo:lo + per_host] for k, v in full.items()}

@@ -9,7 +9,8 @@ Port of ``repro.launch.train``.  It trains on the CUDA card unless
 kernel in every attention layer and the recurrent archs' training scans
 (``--arch rwkv6-7b`` / ``jamba-1.5-large-398b``), AdamW in the arch's
 state dtype, asynchronous checkpoints, SIGTERM-safe preemption and
-stateless data resume.
+stateless data resume; ``--grad-compress`` adds the int8
+error-feedback gradient compression.
 """
 
 from __future__ import annotations
@@ -66,6 +67,8 @@ def main(argv: list[str] | None = None):
                     help="width/depth reduction factor (1 = full config)")
     ap.add_argument("--quant", choices=["none", "sc_qat"], default=None)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--grad-compress", action="store_true",
+                    help="int8 error-feedback gradient compression")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--seed", type=int, default=0)
@@ -85,12 +88,12 @@ def main(argv: list[str] | None = None):
     params = init_params(cfg, gen, dev)
     n = sum(p.numel() for p in tree_leaves(params))
     print(f"[train] {n / 1e6:.1f}M parameters")
-    state = init_train_state(params, cfg)
+    state = init_train_state(params, cfg, grad_compress=args.grad_compress)
     ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=args.seq,
                      seed=args.seed)
     step_fn = build_train_step(
         cfg, lambda s: warmup_cosine(s, args.lr, 10, args.steps),
-        grad_accum=args.grad_accum)
+        grad_accum=args.grad_accum, grad_compress=args.grad_compress)
     state, history = run_training(
         step_fn, state, lambda step: ds.batch(step, args.batch), args.steps,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,

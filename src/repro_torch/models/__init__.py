@@ -1,14 +1,15 @@
 """The decoder LM (attention, mamba or rwkv6 mixers; dense FFN, MoE or
-the rwkv channel mix): training forward and loss, and serving on the
-dense cache and on the paged cache."""
+the rwkv channel mix): training forward and loss, serving on the dense
+cache and on the paged cache, and the serving mesh's layouts."""
 
 from .transformer import (decode_step, forward, gather_state_rows,
                           init_cache, init_paged_cache, init_params, loss_fn,
-                          paged_decode_step, paged_prefill,
-                          paged_verify_step, prefill, scatter_state_rows,
-                          select_state_snapshot)
+                          paged_cache_specs, paged_decode_step, paged_prefill,
+                          paged_verify_step, param_specs, prefill,
+                          scatter_state_rows, select_state_snapshot)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill", "init_paged_cache", "paged_decode_step",
            "paged_prefill", "paged_verify_step", "gather_state_rows",
-           "scatter_state_rows", "select_state_snapshot"]
+           "scatter_state_rows", "select_state_snapshot", "param_specs",
+           "paged_cache_specs"]

@@ -21,6 +21,16 @@ port writes the pools in place (the reference returns new arrays) and
 returns the same dict.  Attention itself goes through
 ``kernels/dispatch.py``: the CUDA kernels on the card, their plain
 versions on the CPU.
+
+Under a serving mesh (:func:`attn_spec`) a rank owns ``Hkv / tp`` KV
+heads and their ``Hq / tp`` query heads, when "model" splits the KV
+heads: its q / k / v projections keep their local columns, its pools
+hold its heads, and attention runs the same kernels on them; the
+context is gathered over "model" before ``wo``, whose contraction is
+never split.  Otherwise every rank runs every head.  When a step's lanes
+are split over "data", the new K / V rows of all lanes are gathered
+before the scatter (the pools are whole on every data rank) and each
+rank attends for its own lanes.
 """
 
 from __future__ import annotations
@@ -31,11 +41,15 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.kv_quant import kv_format_of, kv_quant
+from ..distributed.sharding import (MODEL, axis_size, gather, gather_lanes,
+                                    lane_slice, splits)
 from ..kernels import dispatch
-from .common import apply_rope, dense_apply, dense_init, norm_apply, norm_init
+from .common import (apply_rope, dense_apply, dense_init, dense_spec,
+                     norm_apply, norm_init, norm_spec)
 
-__all__ = ["attn_init", "attn_train", "attn_decode", "attn_decode_paged",
-           "attn_verify_paged", "attn_prefill_paged", "flash_attention"]
+__all__ = ["attn_init", "attn_spec", "attn_train", "attn_decode",
+           "attn_decode_paged", "attn_verify_paged", "attn_prefill_paged",
+           "flash_attention"]
 
 _AUX_KEYS = ("k_scale", "v_scale", "k_resid", "v_resid")
 
@@ -55,11 +69,40 @@ def attn_init(cfg: ModelConfig, *, generator: torch.Generator,
     return p
 
 
+def attn_spec(cfg: ModelConfig) -> dict:
+    """The serving layout: every projection column-parallel (output
+    channels over "model", the contraction whole on each rank), as the
+    reference's ``attn_spec(serving=True)``."""
+    s = {k: dense_spec(None, MODEL, cfg.quant)
+         for k in ("wq", "wk", "wv", "wo")}
+    if cfg.qk_norm:
+        s["q_norm"] = norm_spec("rmsnorm")
+        s["k_norm"] = norm_spec("rmsnorm")
+    return s
+
+
+def _heads(cfg: ModelConfig) -> tuple[int, int, bool]:
+    """(query heads, KV heads, local): a rank's own heads when "model"
+    splits the KV heads, every head otherwise."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if splits(hkv):
+        tp = axis_size()
+        return hq // tp, hkv // tp, True
+    return hq, hkv, False
+
+
+def _context(o: torch.Tensor, local: bool) -> torch.Tensor:
+    """The attention context of every head (gathered over "model" from a
+    rank's own heads), the input of ``wo``."""
+    return gather(o, MODEL, -1) if local else o
+
+
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
                  positions: torch.Tensor, batch_invariant: bool = True):
     B, S, _ = x.shape
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    kw = dict(batch_invariant=batch_invariant)
+    dh = cfg.head_dim
+    hq, hkv, local = _heads(cfg)
+    kw = dict(batch_invariant=batch_invariant, local=local)
     q = dense_apply(p["wq"], x, cfg.quant, **kw).reshape(B, S, hq, dh)
     k = dense_apply(p["wk"], x, cfg.quant, **kw).reshape(B, S, hkv, dh)
     v = dense_apply(p["wv"], x, cfg.quant, **kw).reshape(B, S, hkv, dh)
@@ -96,13 +139,14 @@ def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
     forward (plain products) and, with ``batch_invariant``, the dense
     prefill (the serving products)."""
     B, S, _ = x.shape
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.head_dim
+    hq, hkv, local = _heads(cfg)
     q, k, v = _project_qkv(p, x, cfg, positions,
                            batch_invariant=batch_invariant)
     o = flash_attention(q.reshape(B, S, hkv, hq // hkv, dh), k, v,
                         cfg.causal)
-    y = dense_apply(p["wo"], o.reshape(B, S, hq * dh), cfg.quant,
-                    batch_invariant=batch_invariant)
+    y = dense_apply(p["wo"], _context(o.reshape(B, S, hq * dh), local),
+                    cfg.quant, batch_invariant=batch_invariant)
     return y, (k, v)
 
 
@@ -118,7 +162,8 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     reference's order).  Returns (y (B, 1, D), k_cache, v_cache)."""
     B = x.shape[0]
     T = k_cache.shape[1]
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.head_dim
+    hq, hkv, local = _heads(cfg)
     positions = pos.to(torch.int32).expand(B, 1)
     q, k, v = _project_qkv(p, x, cfg, positions)
     idx = pos.reshape(1).long()
@@ -133,7 +178,8 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     w = torch.softmax(logits, dim=-1)
     o = torch.einsum("bhgt,bthd->bhgd", w, v_cache.to(torch.float32))
     o = o.reshape(B, 1, hq * dh).to(x.dtype)
-    return dense_apply(p["wo"], o, cfg.quant), k_cache, v_cache
+    return dense_apply(p["wo"], _context(o, local), cfg.quant), k_cache, \
+        v_cache
 
 
 def _scatter_pools(pools: dict, fmt: str, k_new: torch.Tensor,
@@ -158,13 +204,16 @@ def attn_decode_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
                       pools: dict, lengths: torch.Tensor):
     """Batched one-token decode.  x: (S, 1, D), one token per lane;
     lengths: (S,) int32 tokens already cached (== the new token's
-    position).  Returns (y (S, 1, D), pools)."""
+    position), of all the step's lanes (x holds this rank's
+    ``lane_slice()`` of them).  Returns (y (S, 1, D), pools)."""
     page_tables = pools["page_tables"]
     page = pools["k_pages"].shape[1]
     fmt = kv_format_of(pools)
+    lanes = lane_slice()
     S = x.shape[0]
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    q, k, v = _project_qkv(p, x, cfg, lengths[:, None])
+    dh = cfg.head_dim
+    hq, hkv, local = _heads(cfg)
+    q, k, v = _project_qkv(p, x, cfg, lengths[lanes, None])
     # one (page, offset) per lane; distinct live lanes own distinct pages,
     # padded lanes all hit the trash page
     phys = torch.gather(page_tables, 1,
@@ -174,12 +223,14 @@ def attn_decode_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
     def put(pool, val):
         pool[phys, off] = val.to(pool.dtype)
 
-    _scatter_pools(pools, fmt, k[:, 0], v[:, 0], put)
+    _scatter_pools(pools, fmt, gather_lanes(k[:, 0]), gather_lanes(v[:, 0]),
+                   put)
     o = dispatch.paged_attn_decode(
         q.reshape(S, hkv, hq // hkv, dh), pools["k_pages"], pools["v_pages"],
-        page_tables, lengths, kv_format=fmt, kv_aux=_kv_aux(pools))
+        page_tables[lanes], lengths[lanes], kv_format=fmt,
+        kv_aux=_kv_aux(pools))
     o = o.reshape(S, 1, hq * dh).to(x.dtype)
-    return dense_apply(p["wo"], o, cfg.quant), pools
+    return dense_apply(p["wo"], _context(o, local), cfg.quant), pools
 
 
 def attn_verify_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -188,28 +239,31 @@ def attn_verify_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
     cache position ``lengths[s] + t``.  All T K/V rows are scattered
     (over whatever the draft left there; a window may straddle a page
     boundary), then query t attends to positions ``<= lengths + t``
-    (``dispatch.paged_attn_verify``).  Returns (y (S, T, D), pools)."""
+    (``dispatch.paged_attn_verify``); lanes as
+    :func:`attn_decode_paged`'s.  Returns (y (S, T, D), pools)."""
     page_tables = pools["page_tables"]
     page = pools["k_pages"].shape[1]
     fmt = kv_format_of(pools)
+    lanes = lane_slice()
     S, T, _ = x.shape
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.head_dim
+    hq, hkv, local = _heads(cfg)
     positions = lengths[:, None] + torch.arange(T, dtype=torch.int32,
                                                 device=x.device)[None, :]
-    q, k, v = _project_qkv(p, x, cfg, positions)            # (S, T, H, Dh)
+    q, k, v = _project_qkv(p, x, cfg, positions[lanes])     # (S, T, H, Dh)
     phys = torch.gather(page_tables, 1, (positions // page).long()).long()
     off = (positions % page).long()
 
     def put(pool, val):
         pool[phys, off] = val.to(pool.dtype)
 
-    _scatter_pools(pools, fmt, k, v, put)
+    _scatter_pools(pools, fmt, gather_lanes(k), gather_lanes(v), put)
     o = dispatch.paged_attn_verify(
         q.reshape(S, T, hkv, hq // hkv, dh), pools["k_pages"],
-        pools["v_pages"], page_tables, lengths, kv_format=fmt,
+        pools["v_pages"], page_tables[lanes], lengths[lanes], kv_format=fmt,
         kv_aux=_kv_aux(pools))
     o = o.reshape(S, T, hq * dh).to(x.dtype)
-    return dense_apply(p["wo"], o, cfg.quant), pools
+    return dense_apply(p["wo"], _context(o, local), cfg.quant), pools
 
 
 def attn_prefill_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
@@ -229,20 +283,23 @@ def attn_prefill_paged(p: dict, x: torch.Tensor, cfg: ModelConfig,
     if C % page or start % page:
         raise ValueError(f"chunk {C} / start {start} not page-aligned "
                          f"(page={page})")
-    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    dh = cfg.head_dim
+    hq, hkv, local = _heads(cfg)
+    lanes = lane_slice()
     positions = start + torch.arange(C, dtype=torch.int32,
                                      device=x.device).expand(G, C)
     q, k, v = _project_qkv(p, x, cfg, positions)            # (G, C, H, Dh)
+    k, v = gather_lanes(k), gather_lanes(v)
     p0, npg = start // page, C // page
-    phys = page_tables[:, p0:p0 + npg].reshape(-1).long()   # (G*npg,)
+    phys = page_tables[:, p0:p0 + npg].reshape(-1).long()   # (all lanes)
 
     def put(pool, val):
-        pool[phys] = val.reshape(G * npg, page, *val.shape[2:]).to(pool.dtype)
+        pool[phys] = val.reshape(-1, page, *val.shape[2:]).to(pool.dtype)
 
     _scatter_pools(pools, fmt, k, v, put)
     o = dispatch.paged_attn_prefill(
         q.reshape(G, C, hkv, hq // hkv, dh), pools["k_pages"],
-        pools["v_pages"], page_tables, start, kv_format=fmt,
+        pools["v_pages"], page_tables[lanes], start, kv_format=fmt,
         kv_aux=_kv_aux(pools))
     o = o.reshape(G, C, hq * dh).to(x.dtype)
-    return dense_apply(p["wo"], o, cfg.quant), pools
+    return dense_apply(p["wo"], _context(o, local), cfg.quant), pools

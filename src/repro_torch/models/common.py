@@ -19,6 +19,14 @@ every call writes and re-reads a float64 copy of the weight.  Training
 has no such contract, so the train forward passes
 ``batch_invariant=False`` and its products are the reference's plain
 ``x @ w`` in the working dtype (a bf16 ``torch.matmul`` on the card).
+
+Mesh serving.  The serving layout shards every projection's output
+channels over "model" (:func:`dense_spec` ``(None, MODEL)``), never a
+contraction, so each output channel's sum, exact or through the
+approximate BSN adder, stays whole on one rank.  :func:`dense_apply`
+computes the rank's columns through the same products and then gathers
+them (``distributed.sharding.cols``), or keeps them (``local=True``) for
+a layer that runs its own heads or channels.
 """
 
 from __future__ import annotations
@@ -31,10 +39,11 @@ import torch.nn.functional as F
 
 from ..core.quant import ternary_weight_quant, thermometer_act_quant
 from ..core.sc_layers import SCQuantConfig, sc_linear_int_from_qat
+from ..distributed.sharding import MODEL, cols
 
-__all__ = ["dense_init", "dense_apply", "matmul_rows", "sum_fixed",
-           "norm_init", "norm_apply", "rope_freqs", "apply_rope", "ACT_FNS",
-           "big_neg"]
+__all__ = ["dense_init", "dense_apply", "dense_spec", "matmul_rows",
+           "sum_fixed", "norm_init", "norm_apply", "norm_spec", "rope_freqs",
+           "apply_rope", "ACT_FNS", "big_neg"]
 
 
 def big_neg(dtype: torch.dtype) -> float:
@@ -84,19 +93,36 @@ def sum_fixed(x: torch.Tensor, dim: int) -> torch.Tensor:
     return x.squeeze(dim)
 
 
+def dense_spec(in_axis: str | None, out_axis: str | None,
+               quant: SCQuantConfig) -> dict:
+    """The specs of one dense layer's leaves: ``w`` (in, out), a
+    per-channel ``alpha_w`` with its column, ``alpha_a`` whole."""
+    s = {"w": (in_axis, out_axis)}
+    if quant.enabled:
+        s["alpha_w"] = (out_axis,) if quant.per_channel else ()
+        s["alpha_a"] = ()
+    return s
+
+
 def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
-                batch_invariant: bool = True) -> torch.Tensor:
+                batch_invariant: bool = True,
+                local: bool = False) -> torch.Tensor:
     """The SC integration point (see the module docstring).  Float
     products go through :func:`matmul_rows` when ``batch_invariant`` (the
-    serving engine), else through a plain ``x @ w`` (training)."""
+    serving engine), else through a plain ``x @ w`` (training).  Under a
+    mesh the output is this rank's block of columns with ``local``, all
+    of them otherwise."""
     if quant.enabled and quant.mode == "sc_int":
-        return sc_linear_int_from_qat(p, x, quant)
-    product = matmul_rows if batch_invariant else torch.matmul
-    if not quant.enabled or quant.mode != "sc_qat":
-        return product(x, p["w"])
-    x_fq = thermometer_act_quant(x, p["alpha_a"], quant.act_bsl)
-    w_fq = ternary_weight_quant(p["w"], p["alpha_w"])
-    return product(x_fq, w_fq.to(x_fq.dtype))
+        y = sc_linear_int_from_qat(p, x, quant)
+    else:
+        product = matmul_rows if batch_invariant else torch.matmul
+        if not quant.enabled or quant.mode != "sc_qat":
+            y = product(x, p["w"])
+        else:
+            x_fq = thermometer_act_quant(x, p["alpha_a"], quant.act_bsl)
+            w_fq = ternary_weight_quant(p["w"], p["alpha_w"])
+            y = product(x_fq, w_fq.to(x_fq.dtype))
+    return cols(y, p["w"], local, MODEL)
 
 
 def norm_init(d: int, kind: str, device: torch.device) -> dict:
@@ -105,6 +131,13 @@ def norm_init(d: int, kind: str, device: torch.device) -> dict:
     if kind == "layernorm":
         p["bias"] = torch.zeros(d, device=device)
     return p
+
+
+def norm_spec(kind: str, axis: str | None = None) -> dict:
+    s = {"scale": (axis,)}
+    if kind == "layernorm":
+        s["bias"] = (axis,)
+    return s
 
 
 def _mean64(x: torch.Tensor, square: bool = False) -> torch.Tensor:

@@ -26,6 +26,13 @@ as :func:`~.common.sum_fixed`: elementwise adds in one fixed order, so a
 lane's output never depends on the other lanes of the call.  The
 training forms take plain products (``batch_invariant=False``), as the
 rest of the training forward.
+
+Under a serving mesh (:func:`mamba_spec`) the state rows, the conv taps
+and the per-channel leaves shard over ``d_inner`` ("model"), when it
+splits: a rank runs the conv and the recurrence on its block of channels
+and gathers the channels before each contraction over them (``x_proj``,
+``out_proj``).  Every projection is column-parallel, so ``dt_proj``
+gives a rank its own channels directly.
 """
 
 from __future__ import annotations
@@ -34,10 +41,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from .common import ACT_FNS, dense_apply, dense_init, sum_fixed
+from ..distributed.sharding import MODEL, block, gather, splits
+from .common import ACT_FNS, dense_apply, dense_init, dense_spec, sum_fixed
 
-__all__ = ["mamba_init", "mamba_train", "mamba_prefill_chunk",
-           "mamba_decode", "mamba_state_init"]
+__all__ = ["mamba_init", "mamba_spec", "mamba_train", "mamba_prefill_chunk",
+           "mamba_decode", "mamba_state_init", "mamba_state_spec"]
 
 _silu = ACT_FNS["silu"]
 
@@ -69,6 +77,26 @@ def mamba_init(cfg: ModelConfig, *, generator: torch.Generator,
     }
 
 
+def mamba_spec(cfg: ModelConfig) -> dict:
+    """The serving layout: the projections column-parallel, the
+    per-channel leaves over ``d_inner`` ("model").  The reference's
+    ``mamba_spec`` splits ``x_proj``'s and ``out_proj``'s contraction
+    over "model"; the port keeps every contraction whole."""
+    q = cfg.quant
+    return {"in_proj": dense_spec(None, MODEL, q),
+            "conv_w": (MODEL, None), "conv_b": (MODEL,),
+            "x_proj": dense_spec(None, MODEL, q),
+            "dt_proj": dense_spec(None, MODEL, q),
+            "dt_bias": (MODEL,), "a_log": (MODEL, None), "d_skip": (MODEL,),
+            "out_proj": dense_spec(None, MODEL, q)}
+
+
+def mamba_state_spec() -> dict:
+    """Logical axes of the state rows: ``h`` (rows, d_inner, n) and the
+    conv tail (rows, k-1, d_inner) over their channels."""
+    return {"h": (None, "model", None), "conv": (None, None, "model")}
+
+
 def mamba_state_init(cfg: ModelConfig, batch: int,
                      dtype: torch.dtype = torch.float32,
                      device: torch.device | None = None) -> dict:
@@ -80,12 +108,24 @@ def mamba_state_init(cfg: ModelConfig, batch: int,
                                 device=device)}
 
 
+def _channels(cfg: ModelConfig) -> slice:
+    """This rank's block of ``d_inner`` (all of it without a mesh)."""
+    return block(cfg.mamba_d_inner)
+
+
+def _whole(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Every channel of a (..., d_inner) activation, from a rank's block."""
+    return gather(x, MODEL, -1) if splits(cfg.mamba_d_inner) else x
+
+
 def _split_xz(p: dict, u: torch.Tensor, cfg: ModelConfig,
               batch_invariant: bool = True):
+    """The pre-conv x and the gate z, this rank's channels of each."""
     xz = dense_apply(p["in_proj"], u, cfg.quant,
                      batch_invariant=batch_invariant)
     din = cfg.mamba_d_inner
-    return xz[..., :din], xz[..., din:]
+    ch = _channels(cfg)
+    return xz[..., :din][..., ch], xz[..., din:][..., ch]
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -95,12 +135,14 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def _ssm_params(p: dict, x: torch.Tensor, cfg: ModelConfig,
                 batch_invariant: bool = True):
-    """x: (..., din) -> dt (..., din), B (..., N), C (..., N), float32."""
+    """x: (..., din) -> dt (..., din), B (..., N), C (..., N), float32
+    (x and dt: this rank's channels under a mesh)."""
     n, r = cfg.mamba_d_state, cfg.dt_rank
     kw = dict(batch_invariant=batch_invariant)
-    dbc = dense_apply(p["x_proj"], x, cfg.quant, **kw)
+    dbc = dense_apply(p["x_proj"], _whole(x, cfg), cfg.quant, **kw)
     dt_r, bm, cm = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
-    dt = _softplus(dense_apply(p["dt_proj"], dt_r, cfg.quant, **kw)
+    dt = _softplus(dense_apply(p["dt_proj"], dt_r, cfg.quant,
+                               local=splits(cfg.mamba_d_inner), **kw)
                    .to(torch.float32) + p["dt_bias"])
     return dt, bm.to(torch.float32), cm.to(torch.float32)
 
@@ -272,7 +314,7 @@ def mamba_prefill_chunk(p: dict, u: torch.Tensor, cfg: ModelConfig,
     y = sum_fixed(torch.stack(hs, dim=1) * cm[:, :, None, :], -1)
     y = y + xf * p["d_skip"]
     y = (y * _silu(z.to(torch.float32))).to(u.dtype)
-    out = dense_apply(p["out_proj"], y, cfg.quant)
+    out = dense_apply(p["out_proj"], _whole(y, cfg), cfg.quant)
     nvalid = vmask.sum(dim=1)                                 # (B,)
     idx = nvalid[:, None] + torch.arange(k - 1, device=u.device)[None, :]
     tail = torch.gather(xcat, 1, idx[:, :, None].expand(B, k - 1,
@@ -299,7 +341,7 @@ def mamba_decode(p: dict, u: torch.Tensor, cfg: ModelConfig, state: dict):
     h = state["h"] * da + (dt * xc)[..., None] * bm[:, None, :]
     y = sum_fixed(h * cm[:, None, :], -1) + xc * p["d_skip"]
     y = (y * _silu(z[:, 0].to(torch.float32))).to(u.dtype)
-    out = dense_apply(p["out_proj"], y[:, None, :], cfg.quant)
+    out = dense_apply(p["out_proj"], _whole(y, cfg)[:, None, :], cfg.quant)
     new_conv = torch.cat([state["conv"][:, 1:], x.to(state["conv"].dtype)],
                          dim=1)
     return out, {"h": h, "conv": new_conv}

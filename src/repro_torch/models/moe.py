@@ -29,6 +29,15 @@ order, in float64.  Tokens do share capacity: at ``cf >= E / k`` no
 token can drop and a token's output is its own (the serving convention,
 ``tests/test_paged_kv.py``); below it drops depend on the group's other
 tokens, as in the reference.
+
+Under a serving mesh (:func:`moe_spec`) experts are whole on one rank:
+a rank runs the experts of its "model" block (one batched
+``ternary_matmul`` launch over them under ``sc_int``), on every token of
+the step (the lanes of all data ranks are gathered first, so the groups
+and capacities are those of the unsharded call), and ``d_ff`` is split
+over "data" with the hidden layer gathered before ``w_down``, so no
+expert's sum is ever split.  The expert outputs are gathered over
+"model" and combined in the unsharded order; routing is replicated.
 """
 
 from __future__ import annotations
@@ -41,10 +50,12 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core.quant import ternary_weight_quant, thermometer_act_quant
 from ..core.sc_layers import SCQuantConfig
+from ..distributed.sharding import (DATA, MODEL, block, cols, gather_lanes,
+                                    is_sharded, lane_slice)
 from ..kernels.ops import ternary_matmul
 from .common import ACT_FNS, matmul_rows
 
-__all__ = ["moe_init", "moe_apply", "route"]
+__all__ = ["moe_init", "moe_apply", "moe_spec", "route"]
 
 # experts are quantized and multiplied in chunks whose float64 weight copy
 # stays below this many bytes (experts are independent: chunking changes
@@ -84,6 +95,30 @@ def moe_init(cfg: ModelConfig, *, generator: torch.Generator,
     if cfg.ffn_gated:
         p["w_gate"] = _expert_dense_init(e, d, f, cfg.quant, **kw)
     return p
+
+
+def _expert_dense_spec(quant: SCQuantConfig, spec: tuple) -> dict:
+    s = {"w": spec}
+    if quant.enabled:
+        s["alpha_w"] = (spec[0], None, spec[2]) if quant.per_channel \
+            else (spec[0],)
+        s["alpha_a"] = ()
+    return s
+
+
+def moe_spec(cfg: ModelConfig) -> dict:
+    """The serving layout: experts over "model", each expert's output
+    channels over "data" (``w_gate`` / ``w_up``: ``d_ff``; ``w_down``:
+    ``d_model``), the router whole.  The reference's ``moe_spec(serving=
+    True)`` puts ``w_down``'s ``d_ff`` (its contraction) over "data" and
+    all-reduces partial sums; the port gathers the hidden layer instead,
+    by the reference's own rule that no contraction is split."""
+    s = {"router": (None, None),
+         "w_up": _expert_dense_spec(cfg.quant, (MODEL, None, DATA)),
+         "w_down": _expert_dense_spec(cfg.quant, (MODEL, None, DATA))}
+    if cfg.ffn_gated:
+        s["w_gate"] = _expert_dense_spec(cfg.quant, (MODEL, None, DATA))
+    return s
 
 
 def _chunks(w: torch.Tensor) -> list[slice]:
@@ -167,7 +202,9 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
               batch_invariant: bool = True):
     """x: (B, S, D) -> (y (B, S, D), aux loss); see the module docstring.
     The serving engine calls it on (S, 1, D) decode lanes and (G, C, D)
-    prefill chunks; training passes ``batch_invariant=False``."""
+    prefill chunks (a data rank's block of the lanes under a mesh);
+    training passes ``batch_invariant=False``."""
+    x = gather_lanes(x)
     B, S, D = x.shape
     E, k = cfg.n_experts, cfg.n_experts_per_tok
     T = B * S
@@ -194,9 +231,16 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     g_idx = torch.arange(G, device=x.device)[:, None, None]
     dest = torch.where(keep, (top_i * G + g_idx) * cap + pos,
                        E * G * cap).reshape(-1)
+    # this rank's experts (all of them without a mesh)
+    w_up = p["w_up"]["w"]
+    mine = block(E) if is_sharded(w_up, 0) else slice(0, E)
+    e0, El = mine.start, mine.stop - mine.start
+    ours = keep & (top_i >= e0) & (top_i < e0 + El)
+    dest_l = torch.where(ours, ((top_i - e0) * G + g_idx) * cap + pos,
+                         El * G * cap).reshape(-1)
     src = xt[:, :, None, :].expand(G, sg, k, D).reshape(-1, D)
-    rows = x.new_zeros((E * G * cap + 1, D)).index_put((dest,), src)
-    ein = rows[:-1].reshape(E, G * cap, D)
+    rows = x.new_zeros((El * G * cap + 1, D)).index_put((dest_l,), src)
+    ein = rows[:-1].reshape(El, G * cap, D)
 
     act = ACT_FNS[cfg.ffn_act]
     kw = dict(batch_invariant=batch_invariant)
@@ -205,7 +249,10 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             * _expert_matmul(p["w_up"], ein, cfg.quant, **kw)
     else:
         h = act(_expert_matmul(p["w_up"], ein, cfg.quant, **kw))
-    eout = _expert_matmul(p["w_down"], h, cfg.quant, **kw)   # (E, G*cap, D)
+    h = cols(h, w_up, False, DATA)              # d_ff whole: the contraction
+    eout = _expert_matmul(p["w_down"], h, cfg.quant, **kw)  # (El, G*cap, D)
+    eout = cols(eout, p["w_down"]["w"], False, DATA)
+    eout = cols(eout, w_up, False, MODEL, w_dim=0, y_dim=0)  # every expert
 
     # combine: each token's k expert rows, weighted (the weights rounded
     # to x.dtype, as the reference's combine tensor), summed in slot order
@@ -217,7 +264,7 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     y = wts[..., 0, None].to(acc_dt) * picked[:, :, 0].to(acc_dt)
     for j in range(1, k):
         y = y + wts[..., j, None].to(acc_dt) * picked[:, :, j].to(acc_dt)
-    y = y.to(x.dtype).reshape(B, S, D)
+    y = y.to(x.dtype).reshape(B, S, D)[lane_slice()]
 
     # Switch-style load-balance loss + router z-loss
     density = onehot.sum(2).to(torch.float32).mean(1)          # (G, E)

@@ -26,6 +26,14 @@ recurrence, or with ``cfg.rwkv_wkv_impl == "chunked"`` the GLA-style
 chunked form :func:`_wkv_chunked` (the same recurrence, S / C steps of
 dense products in log-space decays); serving prefill always takes the
 token recurrence, the only form whose bits ignore where chunks split.
+
+Under a serving mesh (:func:`rwkv_tmix_spec`) the wkv heads shard over
+"model", when it splits them: a rank's r / k / v / g and decay are its
+heads' channels (column-parallel products), its state rows hold its
+heads, ``ln_x`` normalizes its heads, and the output is gathered before
+``wo``.  The token-shift LoRA's ``tm_w2`` is column-parallel and
+gathered; the other LoRA factors stay whole, as in the reference.  The
+channel mix gathers its hidden layer before ``wv``.
 """
 
 from __future__ import annotations
@@ -33,12 +41,14 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from .common import (ACT_FNS, dense_apply, dense_init, matmul_rows,
-                     norm_apply, norm_init, sum_fixed)
+from ..distributed.sharding import MODEL, axis_size, cols, gather, splits
+from .common import (ACT_FNS, dense_apply, dense_init, dense_spec,
+                     matmul_rows, norm_apply, norm_init, norm_spec, sum_fixed)
 
 __all__ = ["rwkv_tmix_init", "rwkv_tmix_train", "rwkv_tmix_decode",
            "rwkv_tmix_prefill_chunk", "rwkv_cmix_init", "rwkv_cmix_train",
-           "rwkv_cmix_decode", "rwkv_cmix_prefill_chunk", "rwkv_state_init"]
+           "rwkv_cmix_decode", "rwkv_cmix_prefill_chunk", "rwkv_state_init",
+           "rwkv_tmix_spec", "rwkv_cmix_spec", "rwkv_state_spec"]
 
 _silu = ACT_FNS["silu"]
 
@@ -94,6 +104,34 @@ def rwkv_cmix_init(cfg: ModelConfig, *, generator: torch.Generator,
             "wr": dense_init(d, d, q, **kw)}
 
 
+def rwkv_tmix_spec(cfg: ModelConfig) -> dict:
+    """The serving layout: the projections column-parallel, the per-head
+    leaves (``w0``, ``u``, ``ln_x``) and ``dw2`` / ``tm_w2``'s outputs
+    over "model"; ``maa*``, ``tm_w1`` and ``dw1`` whole, as the
+    reference's.  The reference's ``wo`` splits its contraction; the
+    port's is column-parallel."""
+    q = cfg.quant
+    s = {"maa_x": (None,), "maa": (None, None), "tm_w1": (None, None),
+         "tm_w2": (None, None, MODEL), "w0": (MODEL,), "dw1": (None, None),
+         "dw2": (None, MODEL), "u": (MODEL, None),
+         "ln_x": norm_spec("layernorm", MODEL)}
+    s.update({k: dense_spec(None, MODEL, q)
+              for k in ("wr", "wk", "wv", "wg", "wo")})
+    return s
+
+
+def rwkv_cmix_spec(cfg: ModelConfig) -> dict:
+    q = cfg.quant
+    return {"mk": (None,), "mr": (None,), "wk": dense_spec(None, MODEL, q),
+            "wv": dense_spec(None, MODEL, q), "wr": dense_spec(None, MODEL, q)}
+
+
+def rwkv_state_spec() -> dict:
+    """Logical axes of the time mix's state rows: ``s`` over its heads,
+    the token shift whole."""
+    return {"s": (None, "model", None, None), "shift": (None, None)}
+
+
 def rwkv_state_init(cfg: ModelConfig, batch: int,
                     dtype: torch.dtype = torch.float32,
                     device: torch.device | None = None) -> dict:
@@ -122,17 +160,19 @@ def _ddlerp(p: dict, x: torch.Tensor, sx: torch.Tensor,
     xxx = x + sx * p["maa_x"]
     lora = torch.tanh(_mm(xxx, p["tm_w1"], batch_invariant))   # (B,S,5L)
     lora = lora.reshape(B * S, 5, -1).transpose(0, 1)          # (5,BS,L)
-    adj = _mm(lora, p["tm_w2"], batch_invariant)               # (5,BS,d)
+    adj = cols(_mm(lora, p["tm_w2"], batch_invariant), p["tm_w2"],
+               False)                                          # (5,BS,d)
     return [x + sx * (p["maa"][i] + adj[i].reshape(B, S, d)
                       .to(torch.float32)).to(x.dtype)
             for i in range(5)]                                 # w k v r g
 
 
-def _decay(p: dict, xw: torch.Tensor,
-           batch_invariant: bool = True) -> torch.Tensor:
-    ww = _mm(torch.tanh(_mm(xw, p["dw1"], batch_invariant)), p["dw2"],
-             batch_invariant)
-    return torch.exp(-torch.exp(p["w0"] + ww.to(torch.float32)))
+def _decay(p: dict, xw: torch.Tensor, batch_invariant: bool = True,
+           local: bool = False) -> torch.Tensor:
+    ww = cols(_mm(torch.tanh(_mm(xw, p["dw1"], batch_invariant)), p["dw2"],
+                  batch_invariant), p["dw2"], local)
+    w0 = cols(p["w0"], p["w0"], local)
+    return torch.exp(-torch.exp(w0 + ww.to(torch.float32)))
 
 
 def _wkv_scan(r, k, v, w, u, s0, valid=None):
@@ -211,20 +251,30 @@ def _tmix_core(p: dict, x: torch.Tensor, sx: torch.Tensor, cfg: ModelConfig,
     chunk splits must not move a bit); else the token recurrence."""
     B, S, d = x.shape
     h, dh = _n_heads(cfg), cfg.rwkv_head_dim
+    local = splits(h)                 # this rank's heads under a mesh
+    if local:
+        h, d = h // axis_size(), d // axis_size()
     kw = dict(batch_invariant=batch_invariant)
     xw, xk, xv, xr, xg = _ddlerp(p, x, sx, batch_invariant)
-    w = _decay(p, xw, batch_invariant).reshape(B, S, h, dh)
-    r = dense_apply(p["wr"], xr, cfg.quant, **kw).reshape(B, S, h, dh)
-    k = dense_apply(p["wk"], xk, cfg.quant, **kw).reshape(B, S, h, dh)
-    v = dense_apply(p["wv"], xv, cfg.quant, **kw).reshape(B, S, h, dh)
-    g = _silu(dense_apply(p["wg"], xg, cfg.quant, **kw))
+    w = _decay(p, xw, batch_invariant, local).reshape(B, S, h, dh)
+    r = dense_apply(p["wr"], xr, cfg.quant, local=local, **kw) \
+        .reshape(B, S, h, dh)
+    k = dense_apply(p["wk"], xk, cfg.quant, local=local, **kw) \
+        .reshape(B, S, h, dh)
+    v = dense_apply(p["wv"], xv, cfg.quant, local=local, **kw) \
+        .reshape(B, S, h, dh)
+    g = _silu(dense_apply(p["wg"], xg, cfg.quant, local=local, **kw))
+    u = cols(p["u"], p["u"], local, w_dim=0, y_dim=0)
     if cfg.rwkv_wkv_impl == "chunked" and S > 1 and not force_scan:
-        y, sT = _wkv_chunked(r, k, v, w, p["u"], s0, cfg.rwkv_chunk)
+        y, sT = _wkv_chunked(r, k, v, w, u, s0, cfg.rwkv_chunk)
     else:
-        y, sT = _wkv_scan(r, k, v, w, p["u"], s0, valid)
-    y = norm_apply(p["ln_x"], y.reshape(B, S, d), "layernorm", eps=1e-5,
-                   groups=h)
-    return dense_apply(p["wo"], (y * g).to(x.dtype), cfg.quant, **kw), sT
+        y, sT = _wkv_scan(r, k, v, w, u, s0, valid)
+    ln = {n: cols(t, t, local) for n, t in p["ln_x"].items()}
+    y = norm_apply(ln, y.reshape(B, S, d), "layernorm", eps=1e-5, groups=h)
+    y = (y * g).to(x.dtype)
+    if local:
+        y = gather(y, MODEL, -1)
+    return dense_apply(p["wo"], y, cfg.quant, **kw), sT
 
 
 def _last_valid(x: torch.Tensor, valid: torch.Tensor | None,
@@ -286,7 +336,11 @@ def _cmix_core(p: dict, x: torch.Tensor, sx: torch.Tensor, cfg: ModelConfig,
     kw = dict(batch_invariant=batch_invariant)
     xk = x + sx * p["mk"].to(x.dtype)
     xr = x + sx * p["mr"].to(x.dtype)
-    k = torch.square(torch.relu(dense_apply(p["wk"], xk, cfg.quant, **kw)))
+    local = splits(cfg.d_ff)
+    k = torch.square(torch.relu(dense_apply(p["wk"], xk, cfg.quant,
+                                            local=local, **kw)))
+    if local:
+        k = gather(k, MODEL, -1)
     kv = dense_apply(p["wv"], k, cfg.quant, **kw)
     return torch.sigmoid(dense_apply(p["wr"], xr, cfg.quant, **kw)) * kv
 

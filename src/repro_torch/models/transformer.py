@@ -32,6 +32,18 @@ carry into its slot's rows.
 High-precision residual (paper §III): under ``sc_qat`` (the ``qat``
 serving datapath) the residual stream re-quantizes at ``resid_bsl`` after
 every add with the learned scales ``alpha_r1`` / ``alpha_r2``.
+
+Mesh serving.  Under active ``distributed.sharding`` rules every rank
+holds its block of the parameters (:func:`param_specs`) and of the paged
+cache (:func:`paged_cache_specs`) and runs the same steps on them: each
+layer gathers what it sharded, so the residual stream and the logits are
+whole on every rank (the embedding's owner rows, the lm_head's vocabulary
+columns).  A step's lanes split over "data" in contiguous blocks
+(``split_lanes``): each data rank embeds and runs its block, the new K /
+V rows, state rows, verify snapshots and logits of all lanes are
+gathered over "data", and the pools and state rows stay whole on every
+data rank.  The dense entry points (``prefill``, ``decode_step``) shard
+over "model" only.
 """
 
 from __future__ import annotations
@@ -45,19 +57,28 @@ from ..configs.base import LayerSpec, ModelConfig
 from ..core.kv_quant import check_kv_format
 from ..core.quant import lsq_fake_quant
 from ..device import resolve_device
+from ..distributed.sharding import (DATA, MODEL, axis_index, cols,
+                                    current_rules, gather, gather_lanes,
+                                    is_sharded, shard_tree, split_lanes)
 from ..tree import tree_map
 from . import attention, ffn, mamba, moe, rwkv6
-from .common import ACT_FNS, dense_apply, dense_init, norm_apply, norm_init
+from .common import (ACT_FNS, dense_apply, dense_init, dense_spec, norm_apply,
+                     norm_init, norm_spec)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill", "init_paged_cache", "paged_decode_step",
            "paged_prefill", "paged_verify_step", "gather_state_rows",
-           "scatter_state_rows", "select_state_snapshot"]
+           "scatter_state_rows", "select_state_snapshot", "param_specs",
+           "paged_cache_specs"]
 
 _MIXER_INIT = {"attn": attention.attn_init, "mamba": mamba.mamba_init,
                "rwkv6": rwkv6.rwkv_tmix_init}
 _FFN_INIT = {"dense": ffn.ffn_init, "moe": moe.moe_init,
              "rwkv_cmix": rwkv6.rwkv_cmix_init}
+_MIXER_SPEC = {"attn": attention.attn_spec, "mamba": mamba.mamba_spec,
+               "rwkv6": rwkv6.rwkv_tmix_spec}
+_FFN_SPEC = {"dense": ffn.ffn_spec, "moe": moe.moe_spec,
+             "rwkv_cmix": rwkv6.rwkv_cmix_spec}
 # a recurrent mixer's state keys, its one-token step and its prefill chunk
 _RECURRENT = {"mamba": (("h", "conv"), mamba.mamba_decode,
                         mamba.mamba_prefill_chunk),
@@ -117,6 +138,64 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                                   dtype=dt, **kw)}
 
 
+def param_specs(cfg: ModelConfig) -> dict:
+    """The serving layout of :func:`init_params`'s tree (physical spec
+    tuples, for ``shard_tree``): every projection column-parallel over
+    "model", experts over "model", the embedding's vocabulary over
+    "model" and its width over "data" (the reference's ``embed_spec``),
+    the lm_head's vocabulary over "model", norms and scalars whole."""
+    _check_ported(cfg)
+
+    def layer(spec: LayerSpec) -> dict:
+        s = {"norm1": norm_spec(cfg.norm),
+             "mixer": _MIXER_SPEC[spec.mixer](cfg),
+             "norm2": norm_spec(cfg.norm),
+             "ffn": _FFN_SPEC[spec.ffn](cfg)}
+        if cfg.quant.enabled:
+            s["alpha_r1"] = ()
+            s["alpha_r2"] = ()
+        return s
+    return {"embed": {"table": (MODEL, DATA)},
+            "layers": [layer(_spec(cfg, i)) for i in range(cfg.n_layers)],
+            "final_norm": norm_spec(cfg.norm),
+            "lm_head": dense_spec(None, MODEL, cfg.quant)}
+
+
+def _state_specs(spec: LayerSpec) -> dict:
+    """Logical axes of one layer's state rows (:func:`_state_entry`)."""
+    e = {}
+    if spec.mixer == "mamba":
+        e.update(mamba.mamba_state_spec())
+    elif spec.mixer == "rwkv6":
+        e.update(rwkv6.rwkv_state_spec())
+    if spec.ffn == "rwkv_cmix":
+        e["cmix"] = {"shift": (None, None)}
+    return e
+
+
+def paged_cache_specs(cfg: ModelConfig, kv_format: str = "fp") -> dict:
+    """Logical axes of :func:`init_paged_cache`'s tree (``shard_tree(...,
+    logical=True)``): the KV pools (and their scale / residual pools)
+    over their KV heads, the state rows over their channels (mamba's
+    ``d_inner``, rwkv6's heads).  Page and row axes are never sharded:
+    the allocator and the page tables never see the mesh."""
+    check_kv_format(kv_format)
+    _check_ported(cfg)
+    pool = (None, None, "model", None)        # (num_pages, page, Hkv, Dh)
+    layers = []
+    for i in range(cfg.n_layers):
+        spec = _spec(cfg, i)
+        e = _state_specs(spec)
+        if spec.mixer == "attn":
+            e["k_pages"] = e["v_pages"] = pool
+            if kv_format != "fp":
+                e["k_scale"] = e["v_scale"] = pool[:3]
+            if kv_format == "sc":
+                e["k_resid"] = e["v_resid"] = pool
+        layers.append(e)
+    return {"layers": layers}
+
+
 def _state_entry(cfg: ModelConfig, spec: LayerSpec, rows: int,
                  device: torch.device) -> dict:
     """Zero recurrent state of one layer for ``rows`` rows: the mixer's
@@ -132,6 +211,42 @@ def _state_entry(cfg: ModelConfig, spec: LayerSpec, rows: int,
         e["cmix"] = {"shift": torch.zeros((rows, cfg.d_model), dtype=dt,
                                           device=device)}
     return e
+
+
+def _carry_entry(cfg: ModelConfig, spec: LayerSpec, rows: int,
+                 device: torch.device) -> dict:
+    """:func:`_state_entry`, this rank's block of it under a mesh: the
+    zero state a prefill starts from."""
+    e = _state_entry(cfg, spec, rows, device)
+    rules = current_rules()
+    if rules is None or not e:
+        return e
+    return shard_tree(e, _state_specs(spec), rules, logical=True)
+
+
+def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """The embedding rows of ``tokens`` (any shape), whole on every rank.
+    Under a mesh a rank holds a block of the vocabulary (and of d_model
+    over "data"): it looks up the tokens its block owns, the blocks'
+    rows are gathered over "model" and each token keeps its owner's row
+    (a copy), then d_model is gathered over "data"."""
+    tok = tokens.long()
+    if not is_sharded(table, 0):
+        x = table[tok]
+    else:
+        rows = table.shape[0]
+        own = tok // rows
+        mine = torch.where(own == axis_index(MODEL), tok - own * rows, 0)
+        every = gather(table[mine].reshape(1, tok.numel(), -1), MODEL, 0)
+        x = every[own.reshape(-1), torch.arange(
+            tok.numel(), device=tok.device)].reshape(*tok.shape, -1)
+    return cols(x, table, False, DATA)
+
+
+def _gather_rows(rows: dict, dim: int = 0) -> dict:
+    """A layer's new state rows (or verify snapshots: ``dim=1``) of all
+    lanes, from a data rank's block."""
+    return tree_map(lambda a: gather_lanes(a, dim), rows)
 
 
 def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
@@ -274,7 +389,7 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
     table = params["embed"]["table"]
     tokens = batch["tokens"].to(device=table.device, dtype=torch.long)
     B, S = tokens.shape
-    x = table[tokens]
+    x = _embed(table, tokens)
     positions = torch.arange(S, dtype=torch.int32,
                              device=x.device).expand(B, S)
     if mode == "prefill":
@@ -436,7 +551,7 @@ def _prefill_forward(params: dict, x: torch.Tensor, positions: torch.Tensor,
                 lp["mixer"], h, cfg, positions, batch_invariant=True)
             return y
         x, new, a = _serve_layer(lp, spec, x, cfg, attn,
-                                 _state_entry(cfg, spec, B, x.device))
+                                 _carry_entry(cfg, spec, B, x.device))
         if a is not None:
             aux = aux + a
         entries.append(dict(kv, **new))
@@ -479,7 +594,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     recurrent layers take one step of their recurrence.  Returns (logits
     (B, 1, V), the cache with ``pos`` advanced and the new states)."""
     pos = cache["pos"]
-    x = params["embed"]["table"][tokens.long()]                # (B, 1, D)
+    x = _embed(params["embed"]["table"], tokens)               # (B, 1, D)
     layers = []
     for i, (lp, entry) in enumerate(zip(params["layers"], cache["layers"])):
         x, new, _ = _serve_layer(
@@ -512,17 +627,19 @@ def paged_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     layers gather their state rows by ``slot_ids`` and write the new rows
     back.  The cache updates in place.  Returns (logits (S, V), cache).
     """
-    x = params["embed"]["table"][tokens.long()][:, None, :]      # (S, 1, D)
     idx = slot_ids.long()
-    for i, (lp, entry) in enumerate(zip(params["layers"], cache["layers"])):
-        cst = dict(entry, page_tables=page_tables)
-        x, new, _ = _serve_layer(
-            lp, _spec(cfg, i), x, cfg,
-            lambda h, cst=cst, lp=lp: attention.attn_decode_paged(
-                lp["mixer"], h, cfg, cst, lengths)[0],
-            _get_rows(entry, idx), mode="decode")
-        _put_rows(entry, new, idx)
-    return _logits(params, x, cfg)[:, 0], cache
+    with split_lanes(tokens.shape[0]) as lanes:
+        x = _embed(params["embed"]["table"], tokens)[lanes][:, None, :]
+        for i, (lp, entry) in enumerate(zip(params["layers"],
+                                            cache["layers"])):
+            cst = dict(entry, page_tables=page_tables)
+            x, new, _ = _serve_layer(
+                lp, _spec(cfg, i), x, cfg,
+                lambda h, cst=cst, lp=lp: attention.attn_decode_paged(
+                    lp["mixer"], h, cfg, cst, lengths)[0],
+                _get_rows(entry, idx[lanes]), mode="decode")
+            _put_rows(entry, _gather_rows(new), idx)
+        return gather_lanes(_logits(params, x, cfg)[:, 0]), cache
 
 
 def paged_verify_step(params: dict, cache: dict, tokens: torch.Tensor,
@@ -548,18 +665,20 @@ def paged_verify_step(params: dict, cache: dict, tokens: torch.Tensor,
     a lane with :func:`select_state_snapshot` and
     :func:`scatter_state_rows`.
     """
-    x = params["embed"]["table"][tokens.long()]                # (S, T, D)
     idx = slot_ids.long()
     snaps = []
-    for i, (lp, entry) in enumerate(zip(params["layers"], cache["layers"])):
-        cst = dict(entry, page_tables=page_tables)
-        x, new, _ = _serve_layer(
-            lp, _spec(cfg, i), x, cfg,
-            lambda h, cst=cst, lp=lp: attention.attn_verify_paged(
-                lp["mixer"], h, cfg, cst, lengths)[0],
-            _get_rows(entry, idx), mode="verify")
-        snaps.append(new)
-    return _logits(params, x, cfg), cache, snaps
+    with split_lanes(tokens.shape[0]) as lanes:
+        x = _embed(params["embed"]["table"], tokens)[lanes]    # (S, T, D)
+        for i, (lp, entry) in enumerate(zip(params["layers"],
+                                            cache["layers"])):
+            cst = dict(entry, page_tables=page_tables)
+            x, new, _ = _serve_layer(
+                lp, _spec(cfg, i), x, cfg,
+                lambda h, cst=cst, lp=lp: attention.attn_verify_paged(
+                    lp["mixer"], h, cfg, cst, lengths)[0],
+                _get_rows(entry, idx[lanes]), mode="verify")
+            snaps.append(_gather_rows(new, dim=1))
+        return gather_lanes(_logits(params, x, cfg)), cache, snaps
 
 
 def select_state_snapshot(snaps: list[dict], m: torch.Tensor) -> list[dict]:
@@ -597,32 +716,38 @@ def paged_prefill(params: dict, cache: dict, tokens: torch.Tensor,
                          f"chunk {chunk}")
     table = params["embed"]["table"]
     specs = [_spec(cfg, i) for i in range(len(params["layers"]))]
-    # prompt state starts from zero, never from a slot's previous rows
-    carry = [_state_entry(cfg, spec, G, table.device) for spec in specs]
-    if any(carry) and slot_ids is None:
-        raise ValueError("recurrent layers need slot_ids to place their "
-                         "state rows")
-    h_last = torch.zeros((G, cfg.d_model), dtype=table.dtype,
-                         device=table.device)
-    pos = torch.arange(chunk, device=table.device)
-    for c in range(L // chunk):
-        start = c * chunk
-        x = table[tokens[:, start:start + chunk].long()]         # (G, C, D)
-        valid = (start + pos)[None, :] < prompt_lens[:, None]   # (G, C)
-        for i, (lp, entry) in enumerate(zip(params["layers"],
-                                            cache["layers"])):
-            cst = dict(entry, page_tables=page_tables)
-            x, carry[i], _ = _serve_layer(
-                lp, specs[i], x, cfg,
-                lambda h, cst=cst, lp=lp, s=start:
-                attention.attn_prefill_paged(lp["mixer"], h, cfg, cst,
-                                             s)[0], carry[i], valid=valid)
-        # keep the hidden state of each request's last real token
-        last = prompt_lens.long() - 1 - start
-        rows = torch.gather(x, 1, last.clamp(0, chunk - 1)[:, None, None]
-                            .expand(G, 1, cfg.d_model))[:, 0]
-        hit = ((last >= 0) & (last < chunk))[:, None]
-        h_last = torch.where(hit, rows, h_last)
-    if any(carry):
-        scatter_state_rows(cache, carry, slot_ids)
-    return _logits(params, h_last[:, None, :], cfg)[:, 0], cache
+    with split_lanes(G) as lanes:
+        plens = prompt_lens[lanes]
+        Gl = plens.shape[0]
+        # prompt state starts from zero, never from a slot's previous rows
+        carry = [_carry_entry(cfg, spec, Gl, table.device) for spec in specs]
+        if any(carry) and slot_ids is None:
+            raise ValueError("recurrent layers need slot_ids to place their "
+                             "state rows")
+        h_last = torch.zeros((Gl, cfg.d_model), dtype=table.dtype,
+                             device=table.device)
+        pos = torch.arange(chunk, device=table.device)
+        for c in range(L // chunk):
+            start = c * chunk
+            x = _embed(table, tokens[:, start:start + chunk])[lanes]
+            valid = (start + pos)[None, :] < plens[:, None]     # (G, C)
+            for i, (lp, entry) in enumerate(zip(params["layers"],
+                                                cache["layers"])):
+                cst = dict(entry, page_tables=page_tables)
+                x, carry[i], _ = _serve_layer(
+                    lp, specs[i], x, cfg,
+                    lambda h, cst=cst, lp=lp, s=start:
+                    attention.attn_prefill_paged(lp["mixer"], h, cfg, cst,
+                                                 s)[0], carry[i],
+                    valid=valid)
+            # keep the hidden state of each request's last real token
+            last = plens.long() - 1 - start
+            rows = torch.gather(x, 1, last.clamp(0, chunk - 1)[:, None, None]
+                                .expand(Gl, 1, cfg.d_model))[:, 0]
+            hit = ((last >= 0) & (last < chunk))[:, None]
+            h_last = torch.where(hit, rows, h_last)
+        if any(carry):
+            scatter_state_rows(cache, [_gather_rows(e) for e in carry],
+                               slot_ids)
+        return gather_lanes(_logits(params, h_last[:, None, :], cfg)[:, 0]), \
+            cache

@@ -1,9 +1,12 @@
 """Validated construction surface for :class:`ServeEngine`.
 
 Port of ``repro.serving.config.EngineConfig`` with the knobs the port
-serves: slots, paging, chunking, datapath, KV format, the prefill mode
-and speculative decoding.  The reference's backend knobs and mesh rules
-are not part of the port yet.
+serves: slots, paging, chunking, datapath, KV format, the prefill mode,
+speculative decoding and the serving mesh.  The port has no backend
+knobs: a tensor's device decides whether a kernel or its plain version
+runs, so the reference's rule against pinning a Pallas attention backend
+under a mesh has nothing to bind to (under a mesh each rank runs the
+same kernels on its own heads).
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from ..core.kv_quant import KV_FORMATS
+from ..distributed.sharding import MeshRules
 
 __all__ = ["DATAPATHS", "EngineConfig"]
 
@@ -31,6 +35,8 @@ class EngineConfig:
     prefill_mode: str = "chunked"
     spec_decode: bool = False
     draft_len: int = 4
+    # the serving mesh's rules (launch.mesh.serving_rules), or None
+    mesh: MeshRules | None = None
 
     def validate(self) -> "EngineConfig":
         """Raise ``ValueError`` on the first violated rule; return self."""
@@ -63,6 +69,10 @@ class EngineConfig:
             raise ValueError(f"prefill_mode must be 'chunked' or 'exact' "
                              f"(the per-request oracle), got "
                              f"{self.prefill_mode!r}")
+        if self.mesh is not None and not isinstance(self.mesh, MeshRules):
+            raise ValueError(f"mesh must be a MeshRules (launch.mesh."
+                             f"serving_rules) or None, got "
+                             f"{type(self.mesh).__name__}")
         if self.draft_len < 1:
             raise ValueError(f"draft_len must be >= 1 (a speculative "
                              f"round drafts at least one token), "

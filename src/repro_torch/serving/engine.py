@@ -1,6 +1,7 @@
 """Continuous-batching serve engine: paged KV cache, batched decode.
 
-Port of ``repro.serving.engine`` for serving on one card:
+Port of ``repro.serving.engine`` for serving on one card, or on each rank
+of a ``torch.distributed`` mesh:
 
 * **Paged KV.**  Attention KV lives in flat page pools shared by every
   request; a host-side free-list allocator (``paging.py``) hands out
@@ -33,6 +34,13 @@ Port of ``repro.serving.engine`` for serving on one card:
   (``paged_verify_step``) with the same (seed, position) streams, and
   commits the target's tokens up to and including the first that differs
   from its draft: spec-on gives the tokens of spec-off.
+* **Mesh serving** (``mesh``: ``launch.mesh.serving_rules``).  One
+  process a rank, every rank running this same engine: the parameters
+  and the paged cache are cut to the rank's block at construction
+  (``models.param_specs`` / ``paged_cache_specs``), every model call runs
+  under the rules, and the logits come back whole on every rank, so every
+  rank picks and commits the same tokens.  All host bookkeeping (queue,
+  slots, allocator, page tables) ignores the mesh.
 
 Datapaths: ``"qat"`` serves the fake-quant forward, ``"sc_int"`` the
 integer int8 x ternary -> int32 datapath, ``"sc_int_approx"`` the same
@@ -46,6 +54,7 @@ the reference's, and a private paged cache for the compressed formats.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from dataclasses import dataclass, field
@@ -56,9 +65,11 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.kv_quant import check_kv_format, kv_quant
 from ..device import resolve_device
+from ..distributed.sharding import MeshRules, mesh_rules, shard_tree
 from ..models import (decode_step, gather_state_rows, init_paged_cache,
-                      paged_decode_step, paged_prefill, paged_verify_step,
-                      prefill, scatter_state_rows, select_state_snapshot)
+                      paged_cache_specs, paged_decode_step, paged_prefill,
+                      paged_verify_step, param_specs, prefill,
+                      scatter_state_rows, select_state_snapshot)
 from .config import DATAPATHS, EngineConfig
 from .paging import (TRASH_PAGE, PageAllocator, PageTable, pad_pow2,
                      pages_needed)
@@ -145,7 +156,9 @@ class ServeEngine:
     """Continuous-batching engine over the paged cache.
 
     ``device`` defaults to ``cuda`` and must be where ``params`` live;
-    ``device="cpu"`` runs the plain versions of the kernels.
+    ``device="cpu"`` runs the plain versions of the kernels.  With a
+    ``mesh``, ``params`` are the whole parameters (the same on every
+    rank) and the engine keeps only this rank's block of them.
     """
 
     def __init__(self, params: dict, cfg: ModelConfig, max_slots: int = 4,
@@ -154,6 +167,7 @@ class ServeEngine:
                  datapath: str = "qat", kv_format: str = "fp",
                  prefill_mode: str = "chunked", spec_decode: bool = False,
                  draft_len: int = 4, *,
+                 mesh: MeshRules | None = None,
                  device: str | torch.device | None = None,
                  config: EngineConfig | None = None):
         if config is None:
@@ -162,7 +176,7 @@ class ServeEngine:
                 num_pages=num_pages, prefill_chunk=prefill_chunk,
                 datapath=datapath, kv_format=kv_format,
                 prefill_mode=prefill_mode, spec_decode=spec_decode,
-                draft_len=draft_len)
+                draft_len=draft_len, mesh=mesh)
         config.validate()
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
@@ -189,14 +203,26 @@ class ServeEngine:
         self._rid = itertools.count()
         self.queue: list[Request] = []
         self.slots: list[Request | None] = [None] * config.max_slots
-        self.params = params
-        self.cache = init_paged_cache(self.cfg, config.max_slots, num_pages,
-                                      config.page_size, config.kv_format,
-                                      device=self.device)
+        cache = init_paged_cache(self.cfg, config.max_slots, num_pages,
+                                 config.page_size, config.kv_format,
+                                 device=self.device)
+        self.rules = config.mesh
+        if self.rules is not None:
+            params = shard_tree(params, param_specs(self.cfg), self.rules)
+            cache = shard_tree(cache, paged_cache_specs(
+                self.cfg, config.kv_format), self.rules, logical=True)
+        self.params, self.cache = params, cache
         self._chunk = pad_pow2(max(config.prefill_chunk, config.page_size))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
+
+    @contextlib.contextmanager
+    def _run(self):
+        """The scope of every model call: no autograd, and the mesh's
+        rules active."""
+        with torch.inference_mode(), mesh_rules(self.rules):
+            yield
 
     # -- submission -----------------------------------------------------
     def submit(self, prompt: list[int], max_new_tokens: int = 16,
@@ -273,7 +299,7 @@ class ServeEngine:
         samp = pack_sampling(sps, pad_to=G, device=self.device) \
             if do_sample or lp_k else None
         lens = self._tensor(lens)
-        with torch.inference_mode():
+        with self._run():
             logits, self.cache = paged_prefill(
                 self.params, self.cache, self._tensor(tokens),
                 self._tensor(tables), lens, self.cfg,
@@ -296,7 +322,7 @@ class ServeEngine:
             if do_sample or lp_k else None
         pos = torch.tensor([len(req.prompt)], dtype=torch.int32,
                            device=self.device)
-        with torch.inference_mode():
+        with self._run():
             logits, cache_one = prefill(self.params, {"tokens": toks},
                                         self.cfg)
             tok, lp = _pick(logits[:, -1], pos, samp, self.cfg.vocab_size,
@@ -490,7 +516,7 @@ class ServeEngine:
         requests cannot tell this from plain decode)."""
         tokens, slot_ids, tables, lengths, samp, do_sample, lp_k = \
             self._step_batch(active)
-        with torch.inference_mode():
+        with self._run():
             drafts = self._draft(tokens, slot_ids, tables, lengths, samp,
                                  do_sample)
             tau, m, lp = self._verify(tokens, drafts, slot_ids, tables,
@@ -548,7 +574,7 @@ class ServeEngine:
         index ``lengths + 1``."""
         tokens, slot_ids, tables, lengths, samp, do_sample, lp_k = \
             self._step_batch(active)
-        with torch.inference_mode():
+        with self._run():
             logits, self.cache = paged_decode_step(
                 self.params, self.cache, tokens, slot_ids, tables, lengths,
                 self.cfg)

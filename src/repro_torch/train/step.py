@@ -1,4 +1,4 @@
-"""The train step: loss -> grads -> clip -> AdamW.
+"""The train step: loss -> grads -> clip -> (compress) -> AdamW.
 
 Port of ``repro.train.step``.  Gradients come from ``torch.autograd``
 through the port's loss (the flash kernel forward, the LSQ gradient);
@@ -12,6 +12,12 @@ layout: ``p.ndim >= 2`` there counts the leading axis that stacks the
 layers, so every per-layer leaf of two or more entries per layer decays,
 norm scales and per-channel ``alpha_w`` included, while the final norm
 and the per-layer scalars do not (:func:`decay_mask`).
+
+With ``grad_compress`` the clipped gradients go through the int8
+error-feedback round trip (``distributed.compression``) before AdamW,
+the residual carried in ``TrainState.error``.  One scale covers a leaf
+of every layer of one period position, as one stacked leaf of the
+reference's (:func:`_scale_groups`).
 """
 
 from __future__ import annotations
@@ -21,9 +27,10 @@ from typing import Callable, NamedTuple
 import torch
 
 from ..configs.base import ModelConfig
+from ..distributed.compression import compress_decompress, init_error_state
 from ..models import loss_fn
 from ..optim import adamw_init, adamw_update, clip_by_global_norm
-from ..tree import tree_leaves, tree_paths
+from ..tree import tree_leaves, tree_map, tree_paths
 
 __all__ = ["TrainState", "init_train_state", "build_train_step",
            "decay_mask"]
@@ -33,13 +40,23 @@ class TrainState(NamedTuple):
     params: dict
     opt: dict
     step: torch.Tensor          # 0-d int32, on the parameters' device
-    error: dict | None = None   # gradient compression (not ported)
+    error: dict | None = None   # gradient compression's error feedback
 
 
-def _no_compression() -> None:
-    raise NotImplementedError(
-        "grad_compress is not ported yet: distributed/compression.py comes "
-        "with mesh serving (ROADMAP Queue 1 item 11)")
+def _scale_groups(params: dict, cfg: ModelConfig) -> dict:
+    """A key a leaf of ``params``: layer ``i``'s leaves share it with the
+    same leaf of every layer at ``i``'s period position (one stacked leaf
+    of the reference's, one compression scale); every other leaf its own
+    path."""
+    n = len(cfg.period)
+
+    def key(path: str) -> str:
+        parts = path.split("/")
+        if parts[0] == "layers":
+            return "/".join(["layers", str(int(parts[1]) % n), *parts[2:]])
+        return path
+    paths = iter(tree_paths(params))
+    return tree_map(lambda _: key(next(paths)[0]), params)
 
 
 def decay_mask(params: dict) -> list[bool]:
@@ -52,12 +69,12 @@ def decay_mask(params: dict) -> list[bool]:
 
 def init_train_state(params, cfg: ModelConfig,
                      grad_compress: bool = False) -> TrainState:
-    if grad_compress:
-        _no_compression()
     opt = adamw_init(params, cfg.opt_state_dtype)
     return TrainState(params=params, opt=opt,
                       step=torch.zeros((), dtype=torch.int32,
-                                       device=opt["count"].device))
+                                       device=opt["count"].device),
+                      error=init_error_state(params) if grad_compress
+                      else None)
 
 
 def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
@@ -66,8 +83,6 @@ def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
     """Returns ``train_step(state, batch) -> (state, metrics)``; metrics
     are 0-d tensors: loss, ce and aux (the MoE balance loss; with
     accumulation, means over the microbatches), grad_norm, lr, step."""
-    if grad_compress:
-        _no_compression()
     if grad_accum < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
 
@@ -107,12 +122,19 @@ def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
             p.requires_grad_(False)
         # grads: a flat list in tree_leaves(params) order
         grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        error = state.error
+        if grad_compress and error is not None:
+            it = iter(grads)
+            gtree, error = compress_decompress(
+                tree_map(lambda _: next(it), params), error,
+                shared=_scale_groups(params, cfg))
+            grads = tree_leaves(gtree)
         lr = lr_schedule(state.step)
         adamw_update(grads, state.opt, params, lr,
                      decay_mask=decay_mask(params))
         metrics = dict(metrics, grad_norm=gnorm, lr=lr,
                        step=state.step.to(torch.float32))
         return TrainState(params, state.opt, state.step + 1,
-                          state.error), metrics
+                          error), metrics
 
     return train_step

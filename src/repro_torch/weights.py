@@ -17,7 +17,12 @@ AdamW's ``m`` / ``v`` in the same layout, ``count`` and ``step``.
 same way (page pools and per-slot state rows), and
 :func:`dense_cache_from_jax` its dense cache (``init_cache`` /
 ``prefill`` output: ``pos`` and each layer's K / V or state), so that a
-decode can continue from the reference's own state.
+decode can continue from the reference's own state.  Given a serving mesh's rules (``mesh=``),
+:func:`from_jax` and :func:`cache_from_jax` return this rank's block of
+the parameters or of the cache, in the serving layout
+(``models.param_specs`` / ``paged_cache_specs``).  A compressed
+``TrainState`` brings its error state along (None where the reference's
+leaf has none).
 
 :func:`tree_to_torch` carries any other numpy tree: an SC linear's QAT
 dict (``w``, ``alpha_w``, ``alpha_a``), the paper's TNN (``w_in``,
@@ -32,6 +37,7 @@ import torch
 
 from .configs.base import ModelConfig
 from .device import resolve_device
+from .distributed.sharding import MeshRules, shard_tree
 from .tree import tree_map
 
 __all__ = ["from_jax", "cache_from_jax", "dense_cache_from_jax", "to_torch",
@@ -84,33 +90,49 @@ def _params(params_np: dict, cfg: ModelConfig, dev: torch.device) -> dict:
 
 
 def from_jax(tree_np, cfg: ModelConfig,
-             device: str | torch.device | None = None):
+             device: str | torch.device | None = None, *,
+             mesh: MeshRules | None = None):
     """The reference's parameter tree, or its ``TrainState``, as numpy ->
-    the port's."""
+    the port's; with ``mesh``, this rank's block of the parameters."""
     dev = resolve_device(device)
     if not hasattr(tree_np, "opt"):
-        return _params(tree_np, cfg, dev)
+        params = _params(tree_np, cfg, dev)
+        if mesh is None:
+            return params
+        from .models import param_specs
+        return shard_tree(params, param_specs(cfg), mesh)
+    if mesh is not None:
+        raise ValueError("a TrainState has no serving layout: call "
+                         "from_jax without mesh=")
     from .train.step import TrainState
-    if getattr(tree_np, "error", None) is not None:
-        raise NotImplementedError("gradient compression's error state is "
-                                  "not ported yet (ROADMAP Queue 1 item 11)")
     opt = tree_np.opt
+    error = getattr(tree_np, "error", None)
     return TrainState(
         params=_params(tree_np.params, cfg, dev),
         opt={"m": _params(opt["m"], cfg, dev),
              "v": _params(opt["v"], cfg, dev),
              "count": to_torch(opt["count"], dev)},
-        step=to_torch(tree_np.step, dev))
+        step=to_torch(tree_np.step, dev),
+        error=None if error is None else _params(error, cfg, dev))
 
 
 def cache_from_jax(cache_np: dict, cfg: ModelConfig,
-                   device: str | torch.device | None = None) -> dict:
+                   device: str | torch.device | None = None, *,
+                   mesh: MeshRules | None = None) -> dict:
     """The reference's paged cache (``init_paged_cache`` / the serving
     steps' output) as numpy -> the port's: one entry a layer, each with
     its attention pools or its per-slot state rows (``max_slots + 1``
-    rows), in the reference's nesting (rwkv's ``cmix: {"shift"}``)."""
-    return {"layers": _unstack(cache_np["periods"], cfg,
-                               resolve_device(device))}
+    rows), in the reference's nesting (rwkv's ``cmix: {"shift"}``); with
+    ``mesh``, this rank's block of it."""
+    cache = {"layers": _unstack(cache_np["periods"], cfg,
+                                resolve_device(device))}
+    if mesh is None:
+        return cache
+    from .models import paged_cache_specs
+    keys = {k for e in cache["layers"] for k in e}
+    fmt = "sc" if "k_resid" in keys else "int8" if "k_scale" in keys \
+        else "fp"
+    return shard_tree(cache, paged_cache_specs(cfg, fmt), mesh, logical=True)
 
 
 def dense_cache_from_jax(cache_np: dict, cfg: ModelConfig,

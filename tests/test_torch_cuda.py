@@ -1388,3 +1388,65 @@ def test_verify_window_logits_equal_plain_decode_steps(cuda, datapath, fmt):
             lg, plain = paged_decode_step(params, plain, win[:, t], slots,
                                           tables, lengths + t, cfg)
             assert torch.equal(vl[:, t], lg), t
+
+
+# ---------------------------------------------------------------------------
+# mesh serving: 2 ranks on the one card, gloo (tests/mesh_worker.py)
+# ---------------------------------------------------------------------------
+
+MESH_TINY = {"granite-3-2b": dict(d_ff=128, vocab_size=64),
+             "qwen3-moe-235b-a22b": dict(d_ff=48, vocab_size=131,
+                                         n_experts=8, n_experts_per_tok=2,
+                                         moe_group_size=16,
+                                         moe_capacity_factor=4.0)}
+
+
+@pytest.mark.parametrize("arch", list(MESH_TINY))
+def test_mesh_on_the_card_equals_mesh_off(cuda, arch):
+    """Two ranks on cuda:0 under gloo (NCCL refuses two ranks on one
+    card) serve tiny float32 granite and qwen3-moe (4 experts a rank) on
+    the three datapaths: every rank's tokens equal the mesh-off engine's
+    on the card, which runs the same kernels on whole heads."""
+    import mesh_worker as mw
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch).scaled(n_layers=2, d_model=64, n_heads=4,
+                                n_kv_heads=2, vocab_pad_multiple=32,
+                                dtype="float32", **MESH_TINY[arch])
+    params = tree_map(lambda t: t.numpy(), init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu"))
+    cases = {dp: dict(cfg=cfg, port_params=params, device="cuda",
+                      engine=dict(datapath=dp))
+             for dp in ("qat", "sc_int", "sc_int_approx")}
+    ranks = mw.Job({"1x2": (2, 1)}, cases).collect()["1x2"]
+    for dp, case in cases.items():
+        want = mw.serve(case)["generated"]
+        for r in ranks:
+            assert r[dp]["generated"] == want, (arch, dp)
+
+
+def test_mesh_gather_is_exact_on_cuda(cuda):
+    """The gather over gloo stages CUDA tensors through the host: bf16,
+    int8 and int32 come back bit for bit, -0.0 included (an all-reduce
+    of zero-padded blocks would turn it into +0.0)."""
+    import numpy as np
+
+    import mesh_worker as mw
+    gen = torch.Generator().manual_seed(0)
+
+    def blocks(dtype, shape):
+        out = []
+        for r in range(2):
+            x = torch.randn(shape, generator=gen) * 50
+            x[0] = -0.0
+            out.append(x.to(dtype).view(mw._raw(dtype)).numpy())
+        return out
+    parts = {"bf16": (blocks(torch.bfloat16, (3, 4, 8)), "bfloat16", -1),
+             "int8": (blocks(torch.int8, (5, 6)), "int8", 0),
+             "int32": (blocks(torch.int32, (2, 7)), "int32", 1)}
+    for res in mw.on_ranks(mw.gathered, 2, parts, "cuda"):
+        for name, (arrays, _, dim) in parts.items():
+            np.testing.assert_array_equal(
+                res[name], np.concatenate(arrays, axis=dim))
+    assert (parts["bf16"][0][0][0].view(np.uint16) == 0x8000).all()

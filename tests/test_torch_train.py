@@ -513,11 +513,22 @@ def test_grad_accum_matches_single_batch():
 
 
 def test_grad_compress_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        build_train_step(CFG, lambda s: 1e-3, grad_compress=True)
+    """Named when ``grad_compress`` raised; it is ported now: the state
+    carries an error leaf where the reference's has one (same None
+    pattern as ``jinit_train_state(grad_compress=True)``), and a step runs
+    and leaves a residual (tests/test_torch_compression.py holds the
+    numbers against the reference)."""
     p = init_params(CFG, torch.Generator().manual_seed(0), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        init_train_state(p, CFG, grad_compress=True)
+    state = init_train_state(p, CFG, grad_compress=True)
+    jstate = jinit_train_state(jinit_params(jax.random.key(0), JCFG), JCFG,
+                               grad_compress=True)
+    want = from_jax(_np(jstate), CFG, device="cpu").error
+    assert tree_map(lambda e: tuple(e.shape), state.error) \
+        == tree_map(lambda e: tuple(e.shape), want)
+    step = build_train_step(CFG, lambda s: 1e-3, grad_compress=True)
+    state, m = step(state, _tbatch(_batch(2, B=2)))
+    assert np.isfinite(float(m["loss"]))
+    assert any(float(e.abs().max()) > 0 for e in tree_leaves(state.error))
 
 
 def test_train_steps_lower_the_loss():
