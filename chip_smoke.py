@@ -140,6 +140,18 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    memory and the collectives' ms in a profiled step are printed, and
    labelled: two ranks sharing one H100 are not a tensor-parallel
    speedup.
+12. the analysis gates (``repro_torch.analysis``) on the card: every
+   registered launch plan's geometry equals its launcher's C++
+   (``*_geometry`` entry points), the kernel audit passes with this
+   build's ``ptxas`` registers, spills and static shared memory (printed
+   per kernel instance), the ``inplace``, ``dtype`` and ``host`` contract
+   passes hold on phase 4's engine (full-width granite at phase 4's depth)
+   on qat x fp and sc_int x int8 (every device-to-host sync of a prefill
+   and a decode step named by its site, each on the allowance list), the
+   roofline of the qat decode step is printed beside its measured time,
+   and the autotune sweeps of the prefill's ``block_q`` and of
+   ``DP4A_MAX_ROWS`` print their times (candidates the audit refuses are
+   pruned, never launched).  Any violation fails the run.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
@@ -185,13 +197,21 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
-# H100 SXM published peaks (dense): HBM3 bytes/s; bf16 and int8
-# tensor-core and fp32 CUDA-core operations/s (the CUDA-core rate also
-# stands for the integer adds and compares of the BSN kernels)
-HBM_BPS = 3.35e12
-BF16_OPS = 989e12
-INT8_OPS = 1979e12
-FP32_OPS = 67e12
+# The H100 SXM's published peaks (HBM3 bytes/s; bf16 and int8 tensor-core
+# and fp32 CUDA-core operations/s, the last also standing for the integer
+# adds and compares of the BSN kernels), the least time of a kernel's
+# work (bound) and each kernel's bytes and operations: one copy, in the
+# port's roofline (repro_torch.analysis.roofline, .op_cost)
+sys.path.insert(0, str(ROOT / "src"))
+try:
+    from repro_torch.analysis.op_cost import (
+        approx_bsn_cost, batched_ternary_cost, flash_cost,
+        paged_decode_cost, paged_prefill_cost, sort_cost, ternary_cost)
+    from repro_torch.analysis.roofline import (BF16_OPS, FP32_OPS, HBM_BPS,
+                                               INT8_OPS, bound)
+    _NO_PORT = None
+except ImportError as e:            # chip_smoke.py without its repository
+    _NO_PORT = e
 
 ATTN_ATOL = 1e-2        # bf16 outputs: one bf16 ulp at |o| <= 2 is 7.8e-3
 SEED = 0
@@ -224,9 +244,12 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(nbytes, ops, ops_rate):
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, ops / ops_rate * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def kernel_bound(cost):
+    """(ms, "bytes" | "operations") of an op_cost formula's (bytes,
+    operations, precision)."""
+    nbytes, ops, prec = cost
+    return bound(nbytes, ops, {"bf16": BF16_OPS, "int8": INT8_OPS}.get(
+        prec, FP32_OPS))
 
 
 SASS_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
@@ -335,7 +358,7 @@ def check_approx_bsn(torch, dev, gen):
             raise AssertionError(f"approx_bsn {label}: kernel != plain")
         ms = time_ms(lambda: approx_bsn_cuda(counts, **kw))
         plain_ms = time_ms(lambda: approx_bsn_plain(counts, **kw), iters=5)
-        b_ms, b_by = bound(rows * k * 4 + rows * 4, rows * k, FP32_OPS)
+        b_ms, b_by = kernel_bound(approx_bsn_cost(rows, k))
         cases.append(dict(label=label, rows=rows, width=k,
                           stages=list(kw["stages"]), max_abs_err=0,
                           ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
@@ -490,9 +513,7 @@ def check_ternary_matmul(torch, dev, gen, shapes=TERNARY_SHAPES):
         if t is None:
             lib = int_mm_yardstick(torch, x, w)
             stop_ms = device_ms_per_call(torch, lambda: stopgap(x, w))
-        nbytes = m * k + k * n + 4 * m * n + 4 * n * out_bsl
-        b_ms, b_by = bound(nbytes, 2 * m * n * k + m * n * out_bsl,
-                           INT8_OPS)
+        b_ms, b_by = kernel_bound(ternary_cost(m, k, n, out_bsl))
         cases.append(dict(label=label, M=m, K=k, N=n, out_bsl=out_bsl,
                           max_abs_err=0, ms=ms, call_ms=call_ms,
                           plain_ms=plain_ms, stopgap_ms=stop_ms,
@@ -573,8 +594,7 @@ def check_ternary_matmul_batched(torch, dev, gen, shapes=BATCHED_SHAPES):
                                       lambda: ternary_matmul_ref(x, w),
                                       calls=2)
         lib_ms = int_mm_experts_ms(torch, x, w)
-        nbytes = e * k * n + e * m * k + 4 * e * m * n
-        b_ms, b_by = bound(nbytes, 2 * e * m * n * k, INT8_OPS)
+        b_ms, b_by = kernel_bound(batched_ternary_cost(e, m, k, n))
         cases.append(dict(label=label, E=e, M=m, K=k, N=n, max_abs_err=0,
                           ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                           library_note=f"{e} x _int_mm, w column-major",
@@ -613,8 +633,7 @@ def check_temporal(torch, dev, gen):
         plain_ms = time_ms(lambda: approx_bsn_temporal_plain(counts, **kw),
                            iters=5)
         total = cycles * width
-        b_ms, b_by = bound(rows * total * 4 + rows * 4, rows * total,
-                           FP32_OPS)
+        b_ms, b_by = kernel_bound(approx_bsn_cost(rows, total))
         cases.append(dict(label=label, rows=rows, width=width,
                           cycles=cycles, stages=list(kw["stages"]),
                           max_abs_err=0, ms=ms, plain_ms=plain_ms,
@@ -635,9 +654,7 @@ def _exact_bsn_bits(torch, x_q, w_int):
 
 
 def sort_bound(nbytes, rows, length):
-    levels = length.bit_length() - 1
-    exchanges = rows * (length // 2) * levels * (levels + 1) // 2
-    return bound(nbytes, 2 * exchanges, FP32_OPS)
+    return kernel_bound(sort_cost(nbytes, rows, length))
 
 
 def check_bsn_sort(torch, dev, gen):
@@ -699,12 +716,6 @@ def _poison(torch, pools, pages):
     for v in out.values():
         v[idx] = 127 if v.dtype == torch.int8 else 3.0e4
     return out
-
-
-def _kv_bytes_per_pos(fmt, Hkv, D):
-    """Bytes one cached position costs per K or V (codes+scales+resid)."""
-    return {"fp": 2 * Hkv * D, "int8": Hkv * D + 4 * Hkv,
-            "sc": 2 * Hkv * D + 4 * Hkv}[fmt]
 
 
 def _gathered_heads(torch, pools, aux, tables, fmt, group):
@@ -807,9 +818,9 @@ def check_decode(torch, dev, gen, G=4, D=64, shapes=None):
                                                        attn_mask=mask))
             del kh, vh
             n_live = sum(n + 1 for n in lens)
-            nbytes = (2 * q.numel() * 2 + tables.numel() * 4 + S * 4
-                      + 2 * n_live * _kv_bytes_per_pos(fmt, Hkv, D))
-            b_ms, b_by = bound(nbytes, 4 * n_live * Hkv * G * D, BF16_OPS)
+            b_ms, b_by = kernel_bound(paged_decode_cost(
+                q_numel=q.numel(), q_itemsize=2, table_numel=tables.numel(),
+                S=S, n_live=n_live, fmt=fmt, Hkv=Hkv, G=G, D=D))
             cases.append(dict(label=label, S=S, Hkv=Hkv, G=G, D=D,
                               page=page, maxp=maxp, lengths=lens,
                               max_abs_err=err, **times, bound_ms=b_ms,
@@ -893,11 +904,9 @@ def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
             times["ms_block_q16"] = device_ms_per_call(
                 torch, lambda: paged_attn_prefill_cuda(
                     *args, start=start, block_q=16, kv_format=fmt, **aux))
-            pairs = sum(start + c + 1 for c in range(C))    # causal (q, k)
-            nbytes = (2 * q.numel() * 2 + tables.numel() * 4
-                      + 2 * Gr * T * _kv_bytes_per_pos(fmt, Hkv, D))
-            b_ms, b_by = bound(nbytes, 4 * Gr * pairs * Hkv * Gq * D,
-                               BF16_OPS)
+            b_ms, b_by = kernel_bound(paged_prefill_cost(
+                q_numel=q.numel(), q_itemsize=2, table_numel=tables.numel(),
+                G=Gr, C=C, Hkv=Hkv, Gq=Gq, D=D, start=start, fmt=fmt))
             cases.append(dict(label=label, G=Gr, C=C, Hkv=Hkv, Gq=Gq, D=D,
                               page=page, start=start, width=width,
                               max_abs_err=err, **times, bound_ms=b_ms,
@@ -930,10 +939,7 @@ def flash_bound(B, S, Hq, Hkv, D, causal, itemsize=2):
     """q, k, v, o read / written once plus the float32 LSE; 4 D operations
     per (query, key) pair the mask keeps (q.k and p.v), at the bf16
     tensor-core peak (``itemsize`` 2) or the float32 CUDA-core peak (4)."""
-    pairs = S * (S + 1) // 2 if causal else S * S
-    nbytes = itemsize * B * S * D * (2 * Hq + 2 * Hkv) + 4 * B * Hq * S
-    return bound(nbytes, 4 * B * Hq * pairs * D,
-                 BF16_OPS if itemsize == 2 else FP32_OPS)
+    return kernel_bound(flash_cost(B, S, Hq, Hkv, D, causal, itemsize))
 
 
 def p_rounding_error(torch, q, k, v, rows=512):
@@ -3010,6 +3016,182 @@ def mesh_serving(torch, dev, layers, greedy_runs, smi):
                 sums_checked=len(want)), launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the analysis gates on the card
+# ---------------------------------------------------------------------------
+
+def plan_equals_geometry(torch, kbuild):
+    """Every registered launch plan's geometry against its launcher's C++
+    (``*_geometry``) on this card; returns the number of cases."""
+    from repro_torch.kernels.dispatch import KERNEL_REGISTRY
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    bad, n = [], 0
+    for entry in KERNEL_REGISTRY.values():
+        for label, kw in entry.cases():
+            want = entry.plan(sms=sms, **kw).geometry()
+            got = kbuild.geometry(entry.geometry_entry,
+                                  *entry.geometry_args(**kw))
+            n += 1
+            if got != want:
+                bad.append((entry.name, label, {
+                    k: (want[k], got[k]) for k in want
+                    if want[k] != got[k]}))
+    if bad:
+        raise AssertionError(f"launch plans differ from the C geometry "
+                             f"(plan, C): {bad}")
+    return n, sms
+
+
+def kernel_instances(kernels, sms):
+    """This build's registers, spills and static shared memory of every
+    kernel instance a registered case launches, beside the case's threads
+    and dynamic shared memory (the largest of its cases)."""
+    from repro_torch.analysis.kernel_audit import find_instance
+    from repro_torch.kernels.dispatch import KERNEL_REGISTRY
+    out = {}
+    for entry in KERNEL_REGISTRY.values():
+        for label, kw in entry.cases():
+            plan = entry.plan(sms=sms, **kw)
+            for p in (plan, plan.combine):
+                if p is None:
+                    continue
+                k = find_instance(kernels, p.kernel)
+                row = out.setdefault(p.kernel, dict(
+                    launcher=entry.name, registers=k["registers"],
+                    spill_stores=k["spill_stores"],
+                    spill_loads=k["spill_loads"], static_smem=k["smem"],
+                    threads=p.threads, dynamic_smem=0, case=label))
+                if p.smem >= row["dynamic_smem"]:
+                    row.update(dynamic_smem=p.smem, threads=p.threads,
+                               case=label)
+    return out
+
+
+def analysis_gates(torch, dev, layers, smi, ptxas_log):
+    """Phase 12: plans == C geometry, the kernel audit with this build's
+    ptxas log, the contract passes on phase 4's engine (qat x fp and
+    sc_int x int8), the roofline of its qat decode step and the autotune
+    sweeps; any violation raises."""
+    from repro_torch.analysis.contracts import run_engine_contracts
+    from repro_torch.analysis.kernel_audit import (audit_registry,
+                                                   parse_ptxas_log)
+    from repro_torch.analysis.op_cost import step_cost
+    from repro_torch.analysis.report import roofline_table
+    from repro_torch.analysis.roofline import StepShape, roofline_from_step
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+    out = {"nvidia_smi": smi}
+    n, sms = plan_equals_geometry(torch, kbuild)
+    out["geometry_cases"] = n
+    log(f"analysis: {n} launch plans == their C geometry ({sms} SMs)")
+
+    audit = audit_registry(ptxas_log=ptxas_log, sms=sms)
+    bad = [(k, v["message"]) for k, c in audit["kernels"].items()
+           for p in c["passes"] for v in p["violations"]]
+    if bad:
+        raise AssertionError(f"kernel audit with this build's ptxas log: "
+                             f"{bad[:10]}")
+    kernels = parse_ptxas_log(ptxas_log)
+    out["kernel_audit_cells"] = len(audit["kernels"])
+    out["instances"] = kernel_instances(kernels, sms)
+    log(f"kernel audit: {len(audit['kernels'])} cells clean with this "
+        f"build's ptxas log ({smi}); by kernel instance:")
+    for k, r in sorted(out["instances"].items()):
+        log(f"  {k} ({r['launcher']}, largest at {r['case']}): "
+            f"{r['registers']} registers x {r['threads']} threads, spills "
+            f"{r['spill_stores']} / {r['spill_loads']} B, smem "
+            f"{r['dynamic_smem']} dynamic + {r['static_smem']} static B")
+
+    cfg = get_arch("granite-3-2b")
+    if layers != cfg.n_layers:
+        cfg = cfg.scaled(n_layers=layers)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    prompts = _prompts(torch, cfg, (32, 57, 96, 128))
+
+    def engine(datapath, fmt):
+        return ServeEngine(params, cfg, max_slots=4, max_len=256,
+                           page_size=16, prefill_chunk=64,
+                           datapath=datapath, kv_format=fmt, device=dev)
+    out["contracts"] = {}
+    for datapath, fmt in (("qat", "fp"), ("sc_int", "int8")):
+        label = f"granite/{datapath}/{fmt}"
+        results = run_engine_contracts(engine(datapath, fmt), label,
+                                       prompts, on_card=True)
+        out["contracts"][label] = [r.to_dict() for r in results]
+        bad = [v.message for r in results for v in r.violations]
+        if bad:
+            raise AssertionError(f"contracts {label}: {bad}")
+        for r in results:
+            log(f"contract {r.passname} {r.label}: ok; "
+                + "; ".join(r.notes))
+
+    # the roofline of the qat decode step: one step unrecorded (timed),
+    # then one counted
+    eng = engine("qat", "fp")
+    for p in prompts:
+        eng.submit(p, max_new_tokens=NEW_TOKENS)
+    eng._admit()
+    eng.step()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng.step()
+    torch.cuda.synchronize()
+    measured = time.perf_counter() - t0
+    cost = step_cost(eng.step)
+    rep = roofline_from_step(
+        cost, eng.cfg, StepShape("decode 4 lanes", 256, 4, "decode"),
+        measured_s=measured,
+        peak_hbm_bytes=torch.cuda.max_memory_allocated(),
+        note=f"{cfg.name} at {layers} layers, phase 4's engine; {smi}")
+    out["roofline"] = [dataclasses.asdict(rep)]
+    out["roofline_top"] = cost.top(10)
+    log(f"roofline of the qat decode step ({smi}):\n"
+        + roofline_table(out["roofline"]))
+    log("  counted by site (ops, bytes): " + "; ".join(
+        f"{s} {o:.3g} {b:.3g}" for s, o, b in out["roofline_top"]))
+
+    # autotune sweeps (report only: no default changes)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    sweeps = {}
+    Hkv, Gq, page, width = 8, 4, 16, 16
+    # phase 3's serving chunk (the second 64 of a 128-token prompt) on the
+    # bf16 kernel (at most 128 / Gq = 32 rows a block); a 256-row chunk
+    # on the float32 kernel, whose block_q 256 needs 298 KB of shared
+    # memory and is pruned
+    for tag, dtype, d, Gr, C, start, cands in (
+            ("bf16 D64 fp, 4 x 64 at 64", torch.bfloat16, 64, 4, 64, 64,
+             (8, 16, 32)),
+            ("float32 D128 fp32, 1 x 256 at 0", torch.float32, 128, 1, 256,
+             0, (16, 32, 64, 128, 256))):
+        N = Gr * width + 1
+        tables = (torch.randperm(N - 1, generator=gen, device=dev) + 1)[
+            :Gr * width].reshape(Gr, width).to(torch.int32).contiguous()
+        q = torch.randn((Gr, C, Hkv, Gq, d), generator=gen,
+                        device=dev).to(dtype)
+        kp = torch.randn((N, page, Hkv, d), generator=gen,
+                         device=dev).to(dtype)
+        vp = torch.randn((N, page, Hkv, d), generator=gen,
+                         device=dev).to(dtype)
+        sweeps[f"block_q {tag}"] = autotune.sweep_block_q(
+            q, kp, vp, tables, start=start, candidates=cands,
+            kernels=kernels)
+    for m in (8, 16, 32):
+        x = _levels(torch, gen, dev, (m, 2048))
+        w = _ternary(torch, gen, dev, (2048, 2048))
+        sweeps[f"DP4A_MAX_ROWS M {m} q/o"] = autotune.sweep_dp4a_rows(
+            x, w, candidates=(4, 8, 16, 32), kernels=kernels, sms=sms)
+    out["autotune"] = sweeps
+    for tag, sw in sweeps.items():
+        log(f"autotune {tag} ({smi}): winner {sw['winner']}; ms "
+            + ", ".join(f"{k} {v:.4f}" for k, v in sw["ms"].items())
+            + (f"; pruned {sorted(sw['pruned'])}" if sw["pruned"] else ""))
+    return out
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -3046,8 +3228,9 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
     try:
+        if _NO_PORT is not None:
+            raise _NO_PORT
         from repro_torch.kernels import build as kbuild
     except ImportError as e:
         print(f"chip_smoke: the repro_torch package is missing ({e})",
@@ -3176,6 +3359,10 @@ def main() -> int:
         launches[k] += v
     mark(11)
 
+    # phase 12: the analysis gates on the card
+    analysis = analysis_gates(torch, dev, args.layers, smi, res.log)
+    mark(12)
+
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
         return {"name": name, "route": "cuda", "source": source,
@@ -3219,6 +3406,7 @@ def main() -> int:
          "moe_serving": moe_serving, "recurrent_serving": recurrent,
          "recurrent_training": recurrent_training, "dense_serving": dense,
          "sampled_serving": sampled, "mesh_serving": mesh,
+         "analysis": analysis, "roofline": analysis["roofline"],
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

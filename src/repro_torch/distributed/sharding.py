@@ -259,7 +259,8 @@ def gather(x: torch.Tensor, axis: str = MODEL, dim: int = -1
     raw = x.contiguous().reshape(-1).view(torch.uint8)
     staged = rules.mesh.backend == "gloo" and raw.is_cuda
     if staged:
-        raw = raw.cpu()
+        # gloo gathers host tensors only (NCCL gathers on the card)
+        raw = raw.cpu()  # lint: host-ok: gloo stages through the host
     parts = [torch.empty_like(raw) for _ in range(n)]
     torch.distributed.all_gather(parts, raw, group=group)
     out = torch.cat([p.view(x.dtype).reshape(x.shape) for p in parts],

@@ -32,8 +32,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "LAUNCHES", "BuildResult", "build", "library",
-           "launch", "reset_launches", "stream_of"]
+__all__ = ["KERNELS", "LAUNCHES", "GEOMETRY_FIELDS", "BuildResult", "build",
+           "library", "launch", "geometry", "reset_launches", "stream_of"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -49,6 +49,11 @@ KERNELS = ("approx_bsn", "approx_bsn_temporal", "paged_attn_decode",
 LAUNCHES: dict[str, int] = dict.fromkeys(KERNELS, 0)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_G = ctypes.POINTER(ctypes.c_longlong)
+# what a ``*_geometry`` entry point writes (csrc/common.cuh's Geometry)
+GEOMETRY_FIELDS = ("kernel", "grid_x", "grid_y", "grid_z", "threads",
+                   "smem", "splits", "per_split", "block", "combine_grid",
+                   "combine_threads")
 _SIGNATURES = {
     # counts, out, rows, width, cycles, in_bsl, stages (group, clip,
     # stride)*n, n_stages, stream
@@ -72,6 +77,19 @@ _SIGNATURES = {
     # q, k, v, out, lse, B, S, Hq, Hkv, D, scale, causal, dtype, stream
     "flash_attention_launch": [_P] * 5 + [_I] * 5
                               + [ctypes.c_float, _I, _I, _P],
+    # the launches' geometry for the sizes of their launch's arguments:
+    # S, Hkv, G, D, page, maxp, q_dtype, kv_kind, out
+    "paged_attn_decode_geometry": [_I] * 8 + [_G],
+    # G, C, Hkv, Gq, D, page, width, start, block_q, q_dtype, kv_kind, out
+    "paged_attn_prefill_geometry": [_I] * 11 + [_G],
+    # batch, M, N, K, out_bsl (0: no SI epilogue), out
+    "ternary_matmul_geometry": [_I] * 5 + [_G],
+    # rows, width, cycles, in_bsl, stages, n_stages, out
+    "approx_bsn_geometry": [_I] * 4 + [ctypes.POINTER(_I), _I, _G],
+    # rows, L, dtype code, out
+    "bsn_sort_geometry": [_I] * 3 + [_G],
+    # B, S, Hq, Hkv, D, dtype code, out
+    "flash_attention_geometry": [_I] * 6 + [_G],
 }
 
 
@@ -186,6 +204,22 @@ def launch(kernel: str, entry: str, *args) -> None:
         msg = library().repro_kernels_error_string(rc).decode()
         raise RuntimeError(f"{kernel}: launch failed ({rc}: {msg})")
     LAUNCHES[kernel] += 1
+
+
+def geometry(entry: str, *args) -> dict[str, int]:
+    """What C entry point ``entry`` (a ``*_geometry``) reports for a
+    launch's sizes: its grid, block, shared memory and splits, one value a
+    name of :data:`GEOMETRY_FIELDS`.  Raises on the refusal the launch
+    would make; counts no launch."""
+    fn = _entries.get(entry)
+    if fn is None:
+        fn = _entries.setdefault(entry, getattr(library(), entry))
+    out = (ctypes.c_longlong * len(GEOMETRY_FIELDS))()
+    rc = fn(*args, out)
+    if rc != 0:
+        msg = library().repro_kernels_error_string(rc).decode()
+        raise RuntimeError(f"{entry}: refused ({rc}: {msg})")
+    return dict(zip(GEOMETRY_FIELDS, (int(v) for v in out)))
 
 
 def reset_launches() -> None:

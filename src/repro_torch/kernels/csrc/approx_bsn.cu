@@ -115,29 +115,29 @@ approx_bsn_kernel(const int* __restrict__ counts, int* __restrict__ out,
 }
 
 template <int THREADS>
-int run(const int* counts, int* out, int rows, int width, int cycles,
-        const Stages& st, size_t smem, cudaStream_t stream) {
+int run(const int* counts, int* out, const Geometry& g, int width,
+        int cycles, const Stages& st, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(approx_bsn_kernel<THREADS>, smem, "approx_bsn");
   if (rc) return rc;
-  approx_bsn_kernel<THREADS><<<rows, THREADS, smem, stream>>>(
-      counts, out, width, cycles, st);
+  approx_bsn_kernel<THREADS><<<static_cast<unsigned>(g.grid[0]), THREADS,
+                               smem, stream>>>(counts, out, width, cycles,
+                                               st);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// counts: (rows, cycles * width); stages: n_stages triples (group, clip,
-// stride), validated by the Python wrapper
-// (kernels/approx_bsn.validate_stages).  Returns a CUDA error code.
-extern "C" int approx_bsn_launch(const void* counts, void* out, int rows,
-                                 int width, int cycles, int in_bsl,
-                                 const int* stages, int n_stages,
-                                 void* stream) {
+// The launch's stage table and geometry, after the checks of the sizes:
+// grid (rows); a block of width / 8 threads, one warp to 256
+// (Geometry::kernel and threads: that block size); shared memory: the
+// two stage buffers.
+int approx_geometry(int rows, int width, int cycles, int in_bsl,
+                    const int* stages, int n_stages, Stages& st,
+                    Geometry& g) {
   if (n_stages < 1 || n_stages > MAX_STAGES || rows < 1 || width < 1 ||
       cycles < 1)
     return refuse("approx_bsn: takes 1..%d stages and positive rows, "
                   "width and cycles", MAX_STAGES);
-  Stages st{};
+  st = Stages{};
   st.n = n_stages;
   int bsl = in_bsl, n = width;
   int sizes[MAX_STAGES];
@@ -154,14 +154,52 @@ extern "C" int approx_bsn_launch(const void* counts, void* out, int rows,
   // largest it ever holds), buffer 1 stage 1's
   st.buf0 = sizes[0];
   st.buf1 = n_stages > 1 ? sizes[1] : 0;
-  const size_t smem = static_cast<size_t>(st.buf0 + st.buf1) * sizeof(int);
-  // a block of width / 8 threads, one warp to 256
+  g = Geometry{};
+  g.threads = width <= 32 * 8 ? 32 : width <= 64 * 8 ? 64
+              : width <= 128 * 8 ? 128 : 256;
+  g.kernel = g.threads;
+  g.grid[0] = rows;
+  g.grid[1] = 1;
+  g.grid[2] = 1;
+  g.smem = static_cast<long long>(st.buf0 + st.buf1) * sizeof(int);
+  return 0;
+}
+
+}  // namespace
+
+// The geometry approx_bsn_launch would launch with for these arguments
+// (GEOMETRY_FIELDS values into out), or the refusal it would make.
+extern "C" int approx_bsn_geometry(int rows, int width, int cycles,
+                                   int in_bsl, const int* stages,
+                                   int n_stages, long long* out) {
+  Stages st;
+  Geometry g;
+  if (int rc = approx_geometry(rows, width, cycles, in_bsl, stages,
+                               n_stages, st, g))
+    return rc;
+  write_geometry(g, out);
+  return 0;
+}
+
+// counts: (rows, cycles * width); stages: n_stages triples (group, clip,
+// stride), validated by the Python wrapper
+// (kernels/approx_bsn.validate_stages).  Returns a CUDA error code.
+extern "C" int approx_bsn_launch(const void* counts, void* out, int rows,
+                                 int width, int cycles, int in_bsl,
+                                 const int* stages, int n_stages,
+                                 void* stream) {
+  Stages st;
+  Geometry g;
+  if (int rc = approx_geometry(rows, width, cycles, in_bsl, stages,
+                               n_stages, st, g))
+    return rc;
   const auto* c = static_cast<const int*>(counts);
   auto* o = static_cast<int*>(out);
   auto s = static_cast<cudaStream_t>(stream);
-  if (width <= 32 * 8) return run<32>(c, o, rows, width, cycles, st, smem, s);
-  if (width <= 64 * 8) return run<64>(c, o, rows, width, cycles, st, smem, s);
-  if (width <= 128 * 8)
-    return run<128>(c, o, rows, width, cycles, st, smem, s);
-  return run<256>(c, o, rows, width, cycles, st, smem, s);
+  switch (g.threads) {
+    case 32: return run<32>(c, o, g, width, cycles, st, s);
+    case 64: return run<64>(c, o, g, width, cycles, st, s);
+    case 128: return run<128>(c, o, g, width, cycles, st, s);
+    default: return run<256>(c, o, g, width, cycles, st, s);
+  }
 }

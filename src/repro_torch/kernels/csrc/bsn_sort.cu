@@ -367,62 +367,101 @@ bsn_sort_reg_kernel(const T* __restrict__ in, T* __restrict__ out,
   if (n > 0) store_run<T, O, NW>(w, out + start, n, vec != 0);
 }
 
-template <typename T, int RUN>
-int launch_run(const void* in, void* out, int rows, int log_len,
-               int descending, cudaStream_t stream) {
-  const long long L = 1LL << log_len;
+// A thread's run of positions for a row of 2^log_len elements of
+// `bytes` each: 32 up to L = 32768 (1024 threads); longer int8 rows take
+// longer runs.  Any longer row needs more than a block's shared memory,
+// and the launch refuses it.
+int run_length(int bytes, int log_len) {
+  if (bytes == 1 && log_len == 16) return 64;
+  if (bytes == 1 && log_len >= 17) return 128;
+  return 32;
+}
+
+// The launch's geometry: grid (blocks of max(L, MIN_BLOCK_ELEMS)
+// elements), elements / RUN threads (Geometry::kernel: RUN); shared
+// memory only where a level crosses warps (L > 32 RUN).
+int sort_geometry(int rows, int L, int dtype, Geometry& g) {
+  if (rows < 0 || L < 1 || (L & (L - 1)))
+    return refuse("bsn_sort: takes rows >= 0 and a power-of-two row "
+                  "length, got rows=%d L=%d", rows, L);
+  if (dtype != S_INT8 && dtype != S_INT32 && dtype != S_F32)
+    return refuse("bsn_sort: dtype code %d is not int8 (0), int32 (1) "
+                  "or float32 (2)", dtype);
+  int log_len = 0;
+  while ((1 << log_len) < L) ++log_len;
+  g = Geometry{};
+  if (rows == 0) return 0;
+  const int bytes = dtype == S_INT8 ? 1 : 4;
+  const int run = run_length(bytes, log_len);
   const long long elems = L > MIN_BLOCK_ELEMS ? L : MIN_BLOCK_ELEMS;
-  // shared memory only where a level crosses warps (L > 32 RUN)
-  const size_t smem = L > 32LL * RUN ? elems * sizeof(T) : 0;
+  const long long total = static_cast<long long>(rows) * L;
+  g.kernel = run;
+  g.grid[0] = (total + elems - 1) / elems;
+  g.grid[1] = 1;
+  g.grid[2] = 1;
+  g.threads = elems / run;            // <= MAX_THREADS where smem fits
+  g.smem = L > 32LL * run ? elems * bytes : 0;
+  g.block = elems;
+  return 0;
+}
+
+template <typename T, int RUN>
+int launch_run(const void* in, void* out, const Geometry& g, int rows,
+               int log_len, int descending, cudaStream_t stream) {
+  const long long L = 1LL << log_len;
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(bsn_sort_reg_kernel<T, RUN>, smem, "bsn_sort");
   if (rc) return rc;
-  const long long threads = elems / RUN;   // <= MAX_THREADS (run<T>)
   const long long total = static_cast<long long>(rows) * L;
-  const long long blocks = (total + elems - 1) / elems;
   const int vec = (reinterpret_cast<uintptr_t>(in) |
                    reinterpret_cast<uintptr_t>(out)) % 16 == 0;
   bsn_sort_reg_kernel<T, RUN>
-      <<<static_cast<unsigned>(blocks), static_cast<int>(threads), smem,
-         stream>>>(static_cast<const T*>(in), static_cast<T*>(out), total,
-                   log_len, descending ? 0 : 1, vec);
+      <<<static_cast<unsigned>(g.grid[0]), static_cast<int>(g.threads),
+         smem, stream>>>(static_cast<const T*>(in), static_cast<T*>(out),
+                         total, log_len, descending ? 0 : 1, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int run(const void* in, void* out, int rows, int log_len, int descending,
-        cudaStream_t stream) {
-  // 32 positions a thread up to L = 32768 (1024 threads); longer int8
-  // rows take longer runs.  Any longer row needs more than a block's
-  // shared memory, and launch_run refuses it.
+int run(const void* in, void* out, const Geometry& g, int rows, int log_len,
+        int descending, cudaStream_t stream) {
   if constexpr (sizeof(T) == 1) {
-    if (log_len == 16)
-      return launch_run<T, 64>(in, out, rows, log_len, descending, stream);
-    if (log_len >= 17)
-      return launch_run<T, 128>(in, out, rows, log_len, descending, stream);
+    if (g.kernel == 64)
+      return launch_run<T, 64>(in, out, g, rows, log_len, descending,
+                               stream);
+    if (g.kernel == 128)
+      return launch_run<T, 128>(in, out, g, rows, log_len, descending,
+                                stream);
   }
-  return launch_run<T, 32>(in, out, rows, log_len, descending, stream);
+  return launch_run<T, 32>(in, out, g, rows, log_len, descending, stream);
 }
 
 }  // namespace
+
+// The geometry bsn_sort_launch would launch with for these sizes
+// (GEOMETRY_FIELDS values into out), or the refusal it would make.
+extern "C" int bsn_sort_geometry(int rows, int L, int dtype,
+                                 long long* out) {
+  Geometry g;
+  if (int rc = sort_geometry(rows, L, dtype, g)) return rc;
+  write_geometry(g, out);
+  return 0;
+}
 
 // in, out: (rows, L) contiguous on the card, L a power of two; dtype one
 // of SortDtype (checked by the Python wrapper, kernels/bsn_sort.py).
 // Returns a CUDA error code.
 extern "C" int bsn_sort_launch(const void* in, void* out, int rows, int L,
                                int dtype, int descending, void* stream) {
-  if (rows < 0 || L < 1 || (L & (L - 1)))
-    return refuse("bsn_sort: takes rows >= 0 and a power-of-two row "
-                  "length, got rows=%d L=%d", rows, L);
+  Geometry g;
+  if (int rc = sort_geometry(rows, L, dtype, g)) return rc;
+  if (rows == 0) return 0;
   int log_len = 0;
   while ((1 << log_len) < L) ++log_len;
-  if (rows == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case S_INT8: return run<int8_t>(in, out, rows, log_len, descending, s);
-    case S_INT32: return run<int>(in, out, rows, log_len, descending, s);
-    case S_F32: return run<float>(in, out, rows, log_len, descending, s);
-    default:
-      return refuse("bsn_sort: dtype code %d is not int8 (0), int32 (1) "
-                    "or float32 (2)", dtype);
+    case S_INT8: return run<int8_t>(in, out, g, rows, log_len, descending, s);
+    case S_INT32: return run<int>(in, out, g, rows, log_len, descending, s);
+    default: return run<float>(in, out, g, rows, log_len, descending, s);
   }
 }

@@ -59,6 +59,34 @@ int refuse(const char* fmt, ...) __attribute__((format(printf, 1, 2)));
 // Dynamic shared memory one H100 block can have.
 constexpr size_t SMEM_CAP = 227 * 1024;
 
+// A launch's geometry.  Each launcher computes it in one function that
+// its launch uses and that its `*_geometry` entry point reports, so the
+// Python plans (kernels/plan.py) can be held equal to what launches.
+// `kernel` names the kernel instance the launcher picked (each launcher
+// documents its codes); a grid of zeros means nothing is launched.
+struct Geometry {
+  long long kernel = 0;
+  long long grid[3] = {0, 0, 0};   // blocks (x, y, z)
+  long long threads = 0;           // threads a block
+  long long smem = 0;              // dynamic shared memory a block, bytes
+  long long splits = 1;            // splits of the work whose partials
+                                   // are merged (paged) or summed (K)
+  long long per_split = 0;         // K groups / slices a split covers
+  long long block = 0;             // rows a block, where that is a knob
+  long long combine_grid = 0;      // blocks of the merge launch, 0: none
+  long long combine_threads = 0;
+};
+constexpr int GEOMETRY_FIELDS = 11;
+
+// The fields in declaration order, as the `*_geometry` entry points
+// write them (kernels/plan.GEOMETRY_FIELDS).
+inline void write_geometry(const Geometry& g, long long* out) {
+  const long long v[GEOMETRY_FIELDS] = {
+      g.kernel, g.grid[0], g.grid[1], g.grid[2], g.threads, g.smem,
+      g.splits, g.per_split, g.block, g.combine_grid, g.combine_threads};
+  for (int i = 0; i < GEOMETRY_FIELDS; ++i) out[i] = v[i];
+}
+
 // Raise kernel `name`'s dynamic shared-memory cap when it needs more than
 // the default 48 KB, or refuse a layout above SMEM_CAP; returns the CUDA
 // error code (0 on success).

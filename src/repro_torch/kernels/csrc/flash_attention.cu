@@ -336,22 +336,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 }
 
 template <int D>
-int launch_mma(const void* q, const void* k, const void* v, void* out,
-               float* lse, int B, int S, int Hq, int Hkv, float scale,
-               int causal, cudaStream_t stream) {
+int launch_mma(const Geometry& g, const void* q, const void* k,
+               const void* v, void* out, float* lse, int S, int Hq, int Hkv,
+               float scale, int causal, cudaStream_t stream) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
       16)
     return refuse("flash_attention: bf16 q, k, v and out must be 16-byte "
                   "aligned");
-  if ((static_cast<long long>(S) + TC_BQ - 1) / TC_BQ > 65535)
-    return refuse("flash_attention: S = %d needs more than 65535 q tiles",
-                  S);
-  const size_t smem = TcLayout<D>::BYTES;
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(flash_fwd_mma_kernel<D>, smem, "flash_attention");
   if (rc) return rc;
-  const dim3 grid(B * Hq, (S + TC_BQ - 1) / TC_BQ);
-  flash_fwd_mma_kernel<D><<<grid, TC_THREADS, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(g.grid[0]),
+                  static_cast<unsigned>(g.grid[1]));
+  flash_fwd_mma_kernel<D><<<grid, static_cast<int>(g.threads), smem,
+                            stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
@@ -508,35 +507,82 @@ __global__ void __launch_bounds__(THREADS) flash_fwd_kernel(
 }
 
 template <int D>
-int launch_f32(const void* q, const void* k, const void* v, void* out,
-               float* lse, int B, int S, int Hq, int Hkv, float scale,
-               int causal, cudaStream_t stream) {
-  if ((static_cast<long long>(S) + BQ - 1) / BQ > 65535)
-    return refuse("flash_attention: S = %d needs more than 65535 q tiles",
-                  S);
-  const size_t smem = smem_bytes(D);
+int launch_f32(const Geometry& g, const void* q, const void* k,
+               const void* v, void* out, float* lse, int S, int Hq, int Hkv,
+               float scale, int causal, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(flash_fwd_kernel<D>, smem, "flash_attention");
   if (rc) return rc;
-  const dim3 grid(B * Hq, (S + BQ - 1) / BQ);
-  flash_fwd_kernel<D><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(g.grid[0]),
+                  static_cast<unsigned>(g.grid[1]));
+  flash_fwd_kernel<D><<<grid, static_cast<int>(g.threads), smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), lse, S, Hq,
       Hkv, scale, causal);
   return static_cast<int>(cudaGetLastError());
 }
 
+// Geometry::kernel of the flash launcher: the CUDA-core float32 kernel
+// or the tensor-core bf16 one
+enum FlashKernel { FL_F32 = 0, FL_MMA = 1 };
+
+// The launch's geometry, after the checks of its sizes: grid (B Hq,
+// q tiles), the bf16 kernel's TC_BQ rows or the float32 kernel's BQ a
+// block (Geometry::block).
+int flash_geometry(int B, int S, int Hq, int Hkv, int D, int dtype,
+                   Geometry& g) {
+  if (B < 1 || S < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv)
+    return refuse("flash_attention: B, S, Hq and Hkv must be positive and "
+                  "Hq a multiple of Hkv (got Hq %d, Hkv %d)", Hq, Hkv);
+  if (dtype != Q_F32 && dtype != Q_BF16)
+    return refuse("flash_attention: unknown dtype %d", dtype);
+  if (D != 16 && D != 32 && D != 64 && D != 128)
+    return refuse("flash_attention: head dim %d is not one of 16, 32, "
+                  "64, 128", D);
+  const bool mma = dtype == Q_BF16;
+  const int bq = mma ? TC_BQ : BQ;
+  if ((static_cast<long long>(S) + bq - 1) / bq > 65535)
+    return refuse("flash_attention: S = %d needs more than 65535 q tiles",
+                  S);
+  g = Geometry{};
+  g.kernel = mma ? FL_MMA : FL_F32;
+  g.grid[0] = B * Hq;
+  g.grid[1] = (S + bq - 1) / bq;
+  g.grid[2] = 1;
+  g.threads = mma ? TC_THREADS : THREADS;
+  switch (D) {
+    case 16: g.smem = mma ? TcLayout<16>::BYTES : smem_bytes(16); break;
+    case 32: g.smem = mma ? TcLayout<32>::BYTES : smem_bytes(32); break;
+    case 64: g.smem = mma ? TcLayout<64>::BYTES : smem_bytes(64); break;
+    default: g.smem = mma ? TcLayout<128>::BYTES : smem_bytes(128); break;
+  }
+  g.block = bq;
+  return 0;
+}
+
 template <int D>
-int launch_typed(int dtype, const void* q, const void* k, const void* v,
-                 void* out, float* lse, int B, int S, int Hq, int Hkv,
-                 float scale, int causal, cudaStream_t stream) {
-  return dtype == Q_BF16
-             ? launch_mma<D>(q, k, v, out, lse, B, S, Hq, Hkv, scale, causal,
+int launch_typed(const Geometry& g, const void* q, const void* k,
+                 const void* v, void* out, float* lse, int S, int Hq,
+                 int Hkv, float scale, int causal, cudaStream_t stream) {
+  return g.kernel == FL_MMA
+             ? launch_mma<D>(g, q, k, v, out, lse, S, Hq, Hkv, scale, causal,
                              stream)
-             : launch_f32<D>(q, k, v, out, lse, B, S, Hq, Hkv, scale, causal,
+             : launch_f32<D>(g, q, k, v, out, lse, S, Hq, Hkv, scale, causal,
                              stream);
 }
 
 }  // namespace
+
+// The geometry flash_attention_launch would launch with for these sizes
+// (GEOMETRY_FIELDS values into out; Geometry::kernel is a FlashKernel),
+// or the refusal it would make.
+extern "C" int flash_attention_geometry(int B, int S, int Hq, int Hkv, int D,
+                                        int dtype, long long* out) {
+  Geometry g;
+  if (int rc = flash_geometry(B, S, Hq, Hkv, D, dtype, g)) return rc;
+  write_geometry(g, out);
+  return 0;
+}
 
 // q (B, S, Hq, D), k / v (B, S, Hkv, D), out like q, lse (B, Hq, S)
 // float32; all contiguous.  dtype 0 = float32 (the CUDA-core kernel),
@@ -547,24 +593,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int B, int S, int Hq, int Hkv, int D,
                                       float scale, int causal, int dtype,
                                       void* stream) {
-  if (B < 1 || S < 1 || Hq < 1 || Hkv < 1 || Hq % Hkv)
-    return refuse("flash_attention: B, S, Hq and Hkv must be positive and "
-                  "Hq a multiple of Hkv (got Hq %d, Hkv %d)", Hq, Hkv);
-  if (dtype != Q_F32 && dtype != Q_BF16)
-    return refuse("flash_attention: unknown dtype %d", dtype);
+  Geometry g;
+  if (int rc = flash_geometry(B, S, Hq, Hkv, D, dtype, g)) return rc;
   auto st = static_cast<cudaStream_t>(stream);
   auto* l = static_cast<float*>(lse);
   switch (D) {
-    case 16: return launch_typed<16>(dtype, q, k, v, out, l, B, S, Hq, Hkv,
-                                     scale, causal, st);
-    case 32: return launch_typed<32>(dtype, q, k, v, out, l, B, S, Hq, Hkv,
-                                     scale, causal, st);
-    case 64: return launch_typed<64>(dtype, q, k, v, out, l, B, S, Hq, Hkv,
-                                     scale, causal, st);
-    case 128: return launch_typed<128>(dtype, q, k, v, out, l, B, S, Hq, Hkv,
-                                       scale, causal, st);
-    default:
-      return refuse("flash_attention: head dim %d is not one of 16, 32, "
-                    "64, 128", D);
+    case 16: return launch_typed<16>(g, q, k, v, out, l, S, Hq, Hkv, scale,
+                                     causal, st);
+    case 32: return launch_typed<32>(g, q, k, v, out, l, S, Hq, Hkv, scale,
+                                     causal, st);
+    case 64: return launch_typed<64>(g, q, k, v, out, l, S, Hq, Hkv, scale,
+                                     causal, st);
+    default: return launch_typed<128>(g, q, k, v, out, l, S, Hq, Hkv, scale,
+                                      causal, st);
   }
 }

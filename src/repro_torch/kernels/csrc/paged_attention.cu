@@ -974,22 +974,199 @@ __global__ void __launch_bounds__(256) paged_prefill_combine_kernel(
   out[e] = __float2bfloat16(A / fmaxf(L, 1e-30f));
 }
 
+
 // ---------------------------------------------------------------------------
-// launches
+// geometry and launches
 // ---------------------------------------------------------------------------
 
+// Geometry::kernel of the paged launchers: the CUDA-core kernel
+// (decode_kernel / prefill_kernel) or the tensor-core one
+// (paged_decode_split_kernel / paged_prefill_mma_kernel)
+enum PagedKernel { PG_F32 = 0, PG_MMA = 1 };
+
+template <int V>
+using Int = std::integral_constant<int, V>;
+
+// head dim, KV kind and row count as template arguments of f
+template <typename F>
+int with_d(int D, const char* name, F f) {
+  switch (D) {
+    case 16: return f(Int<16>{});
+    case 32: return f(Int<32>{});
+    case 64: return f(Int<64>{});
+    case 128: return f(Int<128>{});
+    default:
+      return refuse("%s: head dim %d is not one of 16, 32, 64, 128", name,
+                    D);
+  }
+}
+template <typename F>
+int with_kind(int kind, F f) {
+  switch (kind) {
+    case KV_BF16: return f(Int<KV_BF16>{});
+    case KV_INT8: return f(Int<KV_INT8>{});
+    default: return f(Int<KV_SC>{});
+  }
+}
+
+// log2(page), or -1 when page is not a power of two
+int page_shift(int page) {
+  int s = 0;
+  while ((1 << s) < page) ++s;
+  return (1 << s) == page ? s : -1;
+}
+
+bool misaligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<uintptr_t>(p) % 16) return true;
+  return false;
+}
+
+// The bf16 kernels take bf16 q and pools 16-byte aligned (their page size,
+// a power of two, is checked with the geometry).
+int bf16_route_check(const char* name, const void* q, const Pools& p,
+                     int kv_kind) {
+  if (misaligned16({q, p.arr[0], p.arr[1],
+                    kv_kind == KV_SC ? p.arr[2] : nullptr,
+                    kv_kind == KV_SC ? p.arr[3] : nullptr}))
+    return refuse("%s: bf16 q and the pools must be 16-byte aligned", name);
+  return 0;
+}
+
+// float32 q or float32 pools run the CUDA-core kernels
+bool f32_route(int q_dtype, int kv_kind) {
+  return q_dtype == Q_F32 || kv_kind == KV_F32;
+}
+
+// The decode launch's geometry, after the checks of its sizes and codes.
+int decode_geometry(int S, int Hkv, int G, int D, int page, int maxp,
+                    int q_dtype, int kv_kind, Geometry& g) {
+  if (S < 1 || Hkv < 1 || G < 1 || D < 1 || page < 1 || maxp < 1)
+    return refuse("paged_attn_decode: S, Hkv, G, D, page and maxp must be "
+                  "positive");
+  if ((q_dtype != Q_F32 && q_dtype != Q_BF16) || kv_kind < KV_F32 ||
+      kv_kind > KV_SC)
+    return refuse("paged_attn_decode: unknown q dtype %d or KV kind %d",
+                  q_dtype, kv_kind);
+  g = Geometry{};
+  if (f32_route(q_dtype, kv_kind)) {
+    // grid (S, Hkv): block (s, h) walks the slot's pages in one pass
+    g.kernel = PG_F32;
+    g.grid[0] = S;
+    g.grid[1] = Hkv;
+    g.grid[2] = 1;
+    g.threads = THREADS;
+    g.smem = static_cast<long long>(smem_bytes(G, page, D));
+    return 0;
+  }
+  const int pshift = page_shift(page);
+  if (pshift < 0)
+    return refuse("paged_attn_decode: bf16 q needs a power-of-two page "
+                  "size, got %d", page);
+  if (G > DEC_MAX_G)
+    return refuse("paged_attn_decode: bf16 q takes at most %d query rows a "
+                  "KV head, got %d", DEC_MAX_G, G);
+  int rc = with_d(D, "paged_attn_decode", [&](auto d) {
+    return with_kind(kv_kind, [&](auto k) {
+      g.smem = static_cast<long long>(
+          DecLayout<decltype(d)::value, decltype(k)::value>::bytes(G));
+      return 0;
+    });
+  });
+  if (rc) return rc;
+  // grid (S Hkv, NS): block (lane, KV head, split); splits past a lane's
+  // length return at once
+  const int NS = ((maxp << pshift) + SPLIT_TOKENS - 1) / SPLIT_TOKENS;
+  g.kernel = PG_MMA;
+  g.grid[0] = S * Hkv;
+  g.grid[1] = NS;
+  g.grid[2] = 1;
+  g.threads = DEC_THREADS;
+  g.splits = NS;
+  if (NS > 1) {
+    g.combine_grid = S * Hkv;
+    g.combine_threads = DEC_COMBINE_THREADS;
+  }
+  return 0;
+}
+
+// The prefill launch's geometry, after the checks of its sizes and codes.
+int prefill_geometry(int G, int C, int Hkv, int Gq, int D, int page,
+                     int width, int start, int block_q, int q_dtype,
+                     int kv_kind, Geometry& g) {
+  if (G < 1 || C < 1 || Hkv < 1 || Gq < 1 || D < 1 || page < 1 ||
+      block_q < 1 || C % page || start % page ||
+      (start + C) / page > width)
+    return refuse("paged_attn_prefill: sizes must be positive, C and start "
+                  "multiples of page, and width >= (start + C) / page");
+  if ((q_dtype != Q_F32 && q_dtype != Q_BF16) || kv_kind < KV_F32 ||
+      kv_kind > KV_SC)
+    return refuse("paged_attn_prefill: unknown q dtype %d or KV kind %d",
+                  q_dtype, kv_kind);
+  g = Geometry{};
+  if (f32_route(q_dtype, kv_kind)) {
+    // grid (G Hq, ceil(C / bq)): block (request and q head, q-block)
+    const int bq = block_q;
+    g.kernel = PG_F32;
+    g.grid[0] = G * Hkv * Gq;
+    g.grid[1] = (C + bq - 1) / bq;
+    g.grid[2] = 1;
+    g.threads = THREADS;
+    g.smem = static_cast<long long>(smem_bytes(bq, page, D));
+    g.block = bq;
+    return 0;
+  }
+  if (page_shift(page) < 0)
+    return refuse("paged_attn_prefill: bf16 q needs a power-of-two page "
+                  "size, got %d", page);
+  if (Gq > PF_MAX_ROWS)
+    return refuse("paged_attn_prefill: bf16 q takes at most %d query heads "
+                  "a KV head, got %d", PF_MAX_ROWS, Gq);
+  int bq = block_q;
+  if (bq > C) bq = C;
+  if (bq > PF_MAX_ROWS / Gq) bq = PF_MAX_ROWS / Gq;
+  const int warps = (bq * Gq + 15) / 16;
+  int rc = with_d(D, "paged_attn_prefill", [&](auto d) {
+    return with_kind(kv_kind, [&](auto k) {
+      g.smem = static_cast<long long>(
+          PfLayout<decltype(d)::value, decltype(k)::value>::bytes(16 *
+                                                                   warps));
+      return 0;
+    });
+  });
+  if (rc) return rc;
+  // grid (G Hkv, ceil(C / bq), NS): block (request and KV head, q-block,
+  // key split)
+  const int NS = (start + C + PF_SPLIT_KEYS - 1) / PF_SPLIT_KEYS;
+  g.kernel = PG_MMA;
+  g.grid[0] = G * Hkv;
+  g.grid[1] = (C + bq - 1) / bq;
+  g.grid[2] = NS;
+  g.threads = 32 * warps;
+  g.splits = NS;
+  g.block = bq;
+  if (NS > 1) {
+    const int rows = G * C * Hkv * Gq;
+    g.combine_grid = (rows * D + 255) / 256;
+    g.combine_threads = 256;
+  }
+  return 0;
+}
+
 template <typename QT, int KIND>
-int decode_f32(const void* q, const void* kp, const void* vp, const void* ks,
-               const void* vs, const void* kr, const void* vr,
-               const void* tables, const void* lengths, void* out, int S,
-               int Hkv, int G, int D, int page, int maxp,
-               cudaStream_t stream) {
-  const size_t smem = smem_bytes(G, page, D);
+int decode_f32(const Geometry& g, const void* q, const void* kp,
+               const void* vp, const void* ks, const void* vs,
+               const void* kr, const void* vr, const void* tables,
+               const void* lengths, void* out, int S, int Hkv, int G, int D,
+               int page, int maxp, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(decode_kernel<QT, KIND>, smem,
                         "paged_attn_decode");
   if (rc) return rc;
-  const dim3 grid(S, Hkv);
-  decode_kernel<QT, KIND><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(g.grid[0]),
+                  static_cast<unsigned>(g.grid[1]));
+  decode_kernel<QT, KIND><<<grid, static_cast<int>(g.threads), smem,
+                            stream>>>(
       static_cast<const QT*>(q), kp, vp, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int8_t*>(kr),
       static_cast<const int8_t*>(vr), static_cast<const int*>(tables),
@@ -999,17 +1176,19 @@ int decode_f32(const void* q, const void* kp, const void* vp, const void* ks,
 }
 
 template <typename QT, int KIND>
-int prefill_f32(const void* q, const void* kp, const void* vp,
-                const void* ks, const void* vs, const void* kr,
-                const void* vr, const void* tables, void* out, int G, int C,
-                int Hkv, int Gq, int D, int page, int width, int start,
-                int bq, cudaStream_t stream) {
-  const size_t smem = smem_bytes(bq, page, D);
+int prefill_f32(const Geometry& g, const void* q, const void* kp,
+                const void* vp, const void* ks, const void* vs,
+                const void* kr, const void* vr, const void* tables,
+                void* out, int G, int C, int Hkv, int Gq, int D, int page,
+                int width, int start, int bq, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(prefill_kernel<QT, KIND>, smem,
                         "paged_attn_prefill");
   if (rc) return rc;
-  const dim3 grid(G * Hkv * Gq, (C + bq - 1) / bq);
-  prefill_kernel<QT, KIND><<<grid, THREADS, smem, stream>>>(
+  const dim3 grid(static_cast<unsigned>(g.grid[0]),
+                  static_cast<unsigned>(g.grid[1]));
+  prefill_kernel<QT, KIND><<<grid, static_cast<int>(g.threads), smem,
+                             stream>>>(
       static_cast<const QT*>(q), kp, vp, static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int8_t*>(kr),
       static_cast<const int8_t*>(vr), static_cast<const int*>(tables),
@@ -1043,109 +1222,62 @@ struct PrefillF32 {
   static int run(A... a) { return prefill_f32<QT, KIND>(a...); }
 };
 
-template <int V>
-using Int = std::integral_constant<int, V>;
-
-// head dim, KV kind and row count as template arguments of f
-template <typename F>
-int with_d(int D, const char* name, F f) {
-  switch (D) {
-    case 16: return f(Int<16>{});
-    case 32: return f(Int<32>{});
-    case 64: return f(Int<64>{});
-    case 128: return f(Int<128>{});
-    default:
-      return refuse("%s: head dim %d is not one of 16, 32, 64, 128", name,
-                    D);
-  }
-}
-template <typename F>
-int with_kind(int kind, F f) {
-  switch (kind) {
-    case KV_BF16: return f(Int<KV_BF16>{});
-    case KV_INT8: return f(Int<KV_INT8>{});
-    default: return f(Int<KV_SC>{});
-  }
-}
 template <int D, int KIND>
-int decode_split(const void* q, const Pools& pools, const void* tables,
-                 const void* lengths, void* out, void* scratch, int S,
-                 int Hkv, int G, int pshift, int maxp, cudaStream_t stream) {
-  const size_t smem = DecLayout<D, KIND>::bytes(G);
+int decode_split(const Geometry& g, const void* q, const Pools& pools,
+                 const void* tables, const void* lengths, void* out,
+                 void* scratch, int S, int Hkv, int G, int pshift, int maxp,
+                 cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(paged_decode_split_kernel<D, KIND>, smem,
                         "paged_attn_decode");
   if (rc) return rc;
-  const int NS = ((maxp << pshift) + SPLIT_TOKENS - 1) / SPLIT_TOKENS;
+  const int NS = static_cast<int>(g.splits);
   auto* part = static_cast<float*>(scratch);
   auto* o = static_cast<__nv_bfloat16*>(out);
   const int* len = static_cast<const int*>(lengths);
   paged_decode_split_kernel<D, KIND>
-      <<<dim3(S * Hkv, NS), DEC_THREADS, smem, stream>>>(
+      <<<dim3(static_cast<unsigned>(g.grid[0]),
+              static_cast<unsigned>(g.grid[1])),
+         static_cast<int>(g.threads), smem, stream>>>(
           static_cast<const __nv_bfloat16*>(q), pools,
           static_cast<const int*>(tables), len, o, part, S, Hkv, G, pshift,
           maxp);
   rc = static_cast<int>(cudaGetLastError());
-  if (rc || NS == 1) return rc;
-  paged_decode_combine_kernel<<<S * Hkv, DEC_COMBINE_THREADS, 0, stream>>>(
-      part, len, o, S, Hkv, G, D, NS);
+  if (rc || g.combine_grid == 0) return rc;
+  paged_decode_combine_kernel<<<static_cast<unsigned>(g.combine_grid),
+                                static_cast<int>(g.combine_threads), 0,
+                                stream>>>(part, len, o, S, Hkv, G, D, NS);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int D, int KIND>
-int prefill_mma(const void* q, const Pools& pools, const void* tables,
-                void* out, void* scratch, int G, int C, int Hkv, int Gq,
-                int pshift, int width, int start, int bq,
+int prefill_mma(const Geometry& g, const void* q, const Pools& pools,
+                const void* tables, void* out, void* scratch, int G, int C,
+                int Hkv, int Gq, int pshift, int width, int start,
                 cudaStream_t stream) {
-  using Lay = PfLayout<D, KIND>;
-  if (bq > C) bq = C;
-  if (bq > PF_MAX_ROWS / Gq) bq = PF_MAX_ROWS / Gq;
-  const int warps = (bq * Gq + 15) / 16;
-  const size_t smem = Lay::bytes(16 * warps);
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(paged_prefill_mma_kernel<D, KIND>, smem,
                         "paged_attn_prefill");
   if (rc) return rc;
-  const int NS = (start + C + PF_SPLIT_KEYS - 1) / PF_SPLIT_KEYS;
+  const int NS = static_cast<int>(g.splits);
   auto* o = static_cast<__nv_bfloat16*>(out);
   auto* part = static_cast<float*>(scratch);
   paged_prefill_mma_kernel<D, KIND>
-      <<<dim3(G * Hkv, (C + bq - 1) / bq, NS), 32 * warps, smem, stream>>>(
+      <<<dim3(static_cast<unsigned>(g.grid[0]),
+              static_cast<unsigned>(g.grid[1]),
+              static_cast<unsigned>(g.grid[2])),
+         static_cast<int>(g.threads), smem, stream>>>(
           static_cast<const __nv_bfloat16*>(q), pools,
           static_cast<const int*>(tables), o, part, C, Hkv, Gq, pshift,
-          width, start, bq);
+          width, start, static_cast<int>(g.block));
   rc = static_cast<int>(cudaGetLastError());
-  if (rc || NS == 1) return rc;
+  if (rc || g.combine_grid == 0) return rc;
   const int rows = G * C * Hkv * Gq;
   paged_prefill_combine_kernel<D>
-      <<<(rows * D + 255) / 256, 256, 0, stream>>>(part, o, rows, C,
-                                                   Hkv * Gq, start, NS);
+      <<<static_cast<unsigned>(g.combine_grid),
+         static_cast<int>(g.combine_threads), 0, stream>>>(
+          part, o, rows, C, Hkv * Gq, start, NS);
   return static_cast<int>(cudaGetLastError());
-}
-
-// log2(page), or -1 when page is not a power of two
-int page_shift(int page) {
-  int s = 0;
-  while ((1 << s) < page) ++s;
-  return (1 << s) == page ? s : -1;
-}
-
-bool misaligned16(std::initializer_list<const void*> ptrs) {
-  for (const void* p : ptrs)
-    if (reinterpret_cast<uintptr_t>(p) % 16) return true;
-  return false;
-}
-
-// The bf16 kernels take bf16 q over bf16 / int8 / sc pools whose page
-// size is a power of two, 16-byte aligned.
-int bf16_route_check(const char* name, const void* q, const Pools& p,
-                     int kv_kind, int page) {
-  if (page_shift(page) < 0)
-    return refuse("%s: bf16 q needs a power-of-two page size, got %d", name,
-                  page);
-  if (misaligned16({q, p.arr[0], p.arr[1],
-                    kv_kind == KV_SC ? p.arr[2] : nullptr,
-                    kv_kind == KV_SC ? p.arr[3] : nullptr}))
-    return refuse("%s: bf16 q and the pools must be 16-byte aligned", name);
-  return 0;
 }
 
 }  // namespace
@@ -1154,6 +1286,34 @@ int bf16_route_check(const char* name, const void* q, const Pools& p,
 // wrappers size the scratch of the split partials with them).
 extern "C" int paged_attn_decode_split_tokens() { return SPLIT_TOKENS; }
 extern "C" int paged_attn_prefill_split_tokens() { return PF_SPLIT_KEYS; }
+
+// The geometry paged_attn_decode_launch would launch with for these sizes
+// (GEOMETRY_FIELDS values into out; Geometry::kernel is a PagedKernel),
+// or the refusal the launch would make of them.
+extern "C" int paged_attn_decode_geometry(int S, int Hkv, int G, int D,
+                                          int page, int maxp, int q_dtype,
+                                          int kv_kind, long long* out) {
+  Geometry g;
+  if (int rc = decode_geometry(S, Hkv, G, D, page, maxp, q_dtype, kv_kind,
+                               g))
+    return rc;
+  write_geometry(g, out);
+  return 0;
+}
+
+// The same for paged_attn_prefill_launch.
+extern "C" int paged_attn_prefill_geometry(int G, int C, int Hkv, int Gq,
+                                           int D, int page, int width,
+                                           int start, int block_q,
+                                           int q_dtype, int kv_kind,
+                                           long long* out) {
+  Geometry g;
+  if (int rc = prefill_geometry(G, C, Hkv, Gq, D, page, width, start,
+                                block_q, q_dtype, kv_kind, g))
+    return rc;
+  write_geometry(g, out);
+  return 0;
+}
 
 // Pointers the format does not use are null.  scratch: float32, at
 // least S Hkv NS G (D + 2) floats when a lane's positions span NS > 1
@@ -1165,33 +1325,27 @@ extern "C" int paged_attn_decode_launch(
     const void* v_resid, const void* tables, const void* lengths, void* out,
     void* scratch, int S, int Hkv, int G, int D, int page, int maxp,
     int q_dtype, int kv_kind, void* stream) {
-  if (S < 1 || Hkv < 1 || G < 1 || D < 1 || page < 1 || maxp < 1)
-    return refuse("paged_attn_decode: S, Hkv, G, D, page and maxp must be "
-                  "positive");
-  if ((q_dtype != Q_F32 && q_dtype != Q_BF16) || kv_kind < KV_F32 ||
-      kv_kind > KV_SC)
-    return refuse("paged_attn_decode: unknown q dtype %d or KV kind %d",
-                  q_dtype, kv_kind);
+  Geometry g;
+  if (int rc = decode_geometry(S, Hkv, G, D, page, maxp, q_dtype, kv_kind,
+                               g))
+    return rc;
   auto st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == Q_F32 || kv_kind == KV_F32)
-    return dispatch_f32<DecodeF32>(q_dtype, kv_kind, q, k_pages, v_pages,
+  if (g.kernel == PG_F32)
+    return dispatch_f32<DecodeF32>(q_dtype, kv_kind, g, q, k_pages, v_pages,
                                    k_scale, v_scale, k_resid, v_resid,
                                    tables, lengths, out, S, Hkv, G, D, page,
                                    maxp, st);
   const Pools pools{{k_pages, v_pages, k_resid, v_resid},
                     {static_cast<const float*>(k_scale),
                      static_cast<const float*>(v_scale)}};
-  if (int rc = bf16_route_check("paged_attn_decode", q, pools, kv_kind,
-                                page))
+  if (int rc = bf16_route_check("paged_attn_decode", q, pools, kv_kind))
     return rc;
-  if (G > DEC_MAX_G)
-    return refuse("paged_attn_decode: bf16 q takes at most %d query rows a "
-                  "KV head, got %d", DEC_MAX_G, G);
   const int ps = page_shift(page);
   return with_d(D, "paged_attn_decode", [&](auto d) {
     return with_kind(kv_kind, [&](auto k) {
       return decode_split<decltype(d)::value, decltype(k)::value>(
-          q, pools, tables, lengths, out, scratch, S, Hkv, G, ps, maxp, st);
+          g, q, pools, tables, lengths, out, scratch, S, Hkv, G, ps, maxp,
+          st);
     });
   });
 }
@@ -1205,36 +1359,27 @@ extern "C" int paged_attn_prefill_launch(
     const void* v_resid, const void* tables, void* out, void* scratch,
     int G, int C, int Hkv, int Gq, int D, int page, int width, int start,
     int block_q, int q_dtype, int kv_kind, void* stream) {
-  if (G < 1 || C < 1 || Hkv < 1 || Gq < 1 || D < 1 || page < 1 ||
-      block_q < 1 || C % page || start % page ||
-      (start + C) / page > width)
-    return refuse("paged_attn_prefill: sizes must be positive, C and start "
-                  "multiples of page, and width >= (start + C) / page");
-  if ((q_dtype != Q_F32 && q_dtype != Q_BF16) || kv_kind < KV_F32 ||
-      kv_kind > KV_SC)
-    return refuse("paged_attn_prefill: unknown q dtype %d or KV kind %d",
-                  q_dtype, kv_kind);
+  Geometry g;
+  if (int rc = prefill_geometry(G, C, Hkv, Gq, D, page, width, start,
+                                block_q, q_dtype, kv_kind, g))
+    return rc;
   auto st = static_cast<cudaStream_t>(stream);
-  if (q_dtype == Q_F32 || kv_kind == KV_F32)
-    return dispatch_f32<PrefillF32>(q_dtype, kv_kind, q, k_pages, v_pages,
+  if (g.kernel == PG_F32)
+    return dispatch_f32<PrefillF32>(q_dtype, kv_kind, g, q, k_pages, v_pages,
                                     k_scale, v_scale, k_resid, v_resid,
                                     tables, out, G, C, Hkv, Gq, D, page,
                                     width, start, block_q, st);
   const Pools pools{{k_pages, v_pages, k_resid, v_resid},
                     {static_cast<const float*>(k_scale),
                      static_cast<const float*>(v_scale)}};
-  if (int rc = bf16_route_check("paged_attn_prefill", q, pools, kv_kind,
-                                page))
+  if (int rc = bf16_route_check("paged_attn_prefill", q, pools, kv_kind))
     return rc;
-  if (Gq > PF_MAX_ROWS)
-    return refuse("paged_attn_prefill: bf16 q takes at most %d query heads "
-                  "a KV head, got %d", PF_MAX_ROWS, Gq);
   const int ps = page_shift(page);
   return with_d(D, "paged_attn_prefill", [&](auto d) {
     return with_kind(kv_kind, [&](auto k) {
       return prefill_mma<decltype(d)::value, decltype(k)::value>(
-          q, pools, tables, out, scratch, G, C, Hkv, Gq, ps, width, start,
-          block_q, st);
+          g, q, pools, tables, out, scratch, G, C, Hkv, Gq, ps, width, start,
+          st);
     });
   });
 }

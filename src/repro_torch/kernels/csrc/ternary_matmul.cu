@@ -213,17 +213,22 @@ int sm_count() {
   return cached[dev];
 }
 
-template <int MT, bool SI>
-int run(const int8_t* x, const int8_t* w, const int* thr, int* out,
-        int batch, int M, int N, int K, int out_bsl, cudaStream_t stream) {
+// Geometry::kernel of the ternary matmul: the dp4a kernel at 4 or 16
+// rows a block, or the tensor-core (wgmma) kernel
+enum TernaryKernel { TM_DP4A_4 = 0, TM_DP4A_16 = 1, TM_WGMMA = 2 };
+
+// The dp4a launch's geometry: grid (column tiles, row tiles of MT,
+// products x K splits); per_split: K row groups of 4 a split.
+int dp4a_geometry(int MT, bool si, int batch, int M, int N, int K,
+                  int out_bsl, Geometry& g) {
   const int G = K / 4;
   const int col_tiles = (N + TILE_N - 1) / TILE_N;
   const int row_tiles = (M + MT - 1) / MT;
   const size_t fixed = (static_cast<size_t>(MT) * TILE_N +
-                        (SI ? static_cast<size_t>(TILE_N) * out_bsl : 0)) *
+                        (si ? static_cast<size_t>(TILE_N) * out_bsl : 0)) *
                        sizeof(int);
   int gps = G;                          // row groups per K split
-  if (!SI && G > 0) {
+  if (!si && G > 0) {
     // split K until about two blocks per SM are in flight, and so that
     // the block's x rows fit in shared memory
     const long tiles = static_cast<long>(col_tiles) * row_tiles * batch;
@@ -238,20 +243,41 @@ int run(const int8_t* x, const int8_t* w, const int* thr, int* out,
   if (static_cast<long>(splits) * batch > 65535)
     return refuse("ternary_matmul: %d products x %d K splits (K=%d) are "
                   "above a grid's 65535", batch, splits, K);
-  const size_t smem = fixed + static_cast<size_t>(MT) * gps * sizeof(int);
+  g.kernel = MT == 4 ? TM_DP4A_4 : TM_DP4A_16;
+  g.grid[0] = col_tiles;
+  g.grid[1] = row_tiles;
+  g.grid[2] = batch * splits;
+  g.threads = THREADS;
+  g.smem = static_cast<long long>(fixed +
+                                  static_cast<size_t>(MT) * gps * sizeof(int));
+  g.splits = splits;
+  g.per_split = gps;
+  g.block = MT;
+  return 0;
+}
+
+template <int MT, bool SI>
+int run(const Geometry& g, const int8_t* x, const int8_t* w, const int* thr,
+        int* out, int batch, int M, int N, int K, int out_bsl,
+        cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(ternary_matmul_kernel<MT, SI>, smem,
                         "ternary_matmul");
   if (rc) return rc;
+  const int splits = static_cast<int>(g.splits);
   const size_t mn = static_cast<size_t>(M) * N;
   if (splits > 1) {
     rc = static_cast<int>(
         cudaMemsetAsync(out, 0, batch * mn * sizeof(int), stream));
     if (rc) return rc;
   }
-  const dim3 grid(col_tiles, row_tiles, batch * splits);
-  ternary_matmul_kernel<MT, SI><<<grid, THREADS, smem, stream>>>(
-      x, w, thr, out, M, N, K, gps, splits, static_cast<size_t>(M) * K,
-      static_cast<size_t>(K) * N, mn, out_bsl);
+  const dim3 grid(static_cast<unsigned>(g.grid[0]),
+                  static_cast<unsigned>(g.grid[1]),
+                  static_cast<unsigned>(g.grid[2]));
+  ternary_matmul_kernel<MT, SI><<<grid, static_cast<int>(g.threads), smem,
+                                  stream>>>(
+      x, w, thr, out, M, N, K, static_cast<int>(g.per_split), splits,
+      static_cast<size_t>(M) * K, static_cast<size_t>(K) * N, mn, out_bsl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -493,15 +519,15 @@ ternary_matmul_mma_kernel(const int8_t* __restrict__ x,
   }
 }
 
-template <bool SI>
-int run_mma(const int8_t* x, const int8_t* w, const int* thr, int* out,
-            int batch, int M, int N, int K, int out_bsl,
-            cudaStream_t stream) {
+// The tensor-core launch's geometry: grid (row tiles, column tiles,
+// products x K splits); per_split: K slices of TC_BK a split.
+int mma_geometry(bool si, int batch, int M, int N, int K, int out_bsl,
+                 Geometry& g) {
   const int row_tiles = (M + TC_BM - 1) / TC_BM;
   const int col_tiles = (N + TC_BN - 1) / TC_BN;
   const int kt = (K + TC_BK - 1) / TC_BK;
   int kps = kt;                          // K slices per split
-  if (!SI && kt > 0) {
+  if (!si && kt > 0) {
     // split K (a function of the shape alone) when the tiles of all the
     // products leave most of the card idle
     const long tiles = static_cast<long>(row_tiles) * col_tiles * batch;
@@ -515,26 +541,84 @@ int run_mma(const int8_t* x, const int8_t* w, const int* thr, int* out,
   if (static_cast<long>(splits) * batch > 65535)
     return refuse("ternary_matmul: %d products x %d K splits are above a "
                   "grid's 65535", batch, splits);
-  const size_t smem = 1024 + static_cast<size_t>(TC_STAGES + 1) * 2 * TC_TILE +
-                      (SI ? static_cast<size_t>(TC_BN) * out_bsl * sizeof(int)
-                          : 0);
+  g.kernel = TM_WGMMA;
+  g.grid[0] = row_tiles;
+  g.grid[1] = col_tiles;
+  g.grid[2] = batch * splits;
+  g.threads = THREADS;
+  g.smem = static_cast<long long>(
+      1024 + static_cast<size_t>(TC_STAGES + 1) * 2 * TC_TILE +
+      (si ? static_cast<size_t>(TC_BN) * out_bsl * sizeof(int) : 0));
+  g.splits = splits;
+  g.per_split = kps;
+  g.block = TC_BM;
+  return 0;
+}
+
+template <bool SI>
+int run_mma(const Geometry& g, const int8_t* x, const int8_t* w,
+            const int* thr, int* out, int batch, int M, int N, int K,
+            int out_bsl, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(g.smem);
   int rc = prepare_smem(ternary_matmul_mma_kernel<SI>, smem,
                         "ternary_matmul");
   if (rc) return rc;
+  const int splits = static_cast<int>(g.splits);
   const size_t mn = static_cast<size_t>(M) * N;
   if (splits > 1) {
     rc = static_cast<int>(
         cudaMemsetAsync(out, 0, batch * mn * sizeof(int), stream));
     if (rc) return rc;
   }
-  const dim3 grid(row_tiles, col_tiles, batch * splits);
-  ternary_matmul_mma_kernel<SI><<<grid, THREADS, smem, stream>>>(
-      x, w, thr, out, M, N, K, kps, splits, static_cast<size_t>(M) * K,
-      static_cast<size_t>(K) * N, mn, out_bsl);
+  const dim3 grid(static_cast<unsigned>(g.grid[0]),
+                  static_cast<unsigned>(g.grid[1]),
+                  static_cast<unsigned>(g.grid[2]));
+  ternary_matmul_mma_kernel<SI><<<grid, static_cast<int>(g.threads), smem,
+                                  stream>>>(
+      x, w, thr, out, M, N, K, static_cast<int>(g.per_split), splits,
+      static_cast<size_t>(M) * K, static_cast<size_t>(K) * N, mn, out_bsl);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The launch's geometry for these sizes (si: the SI epilogue, with
+// out_bsl threshold columns), after the checks of the sizes; a grid of
+// zeros when there is nothing to launch.
+int ternary_geometry(int batch, int M, int N, int K, bool si, int out_bsl,
+                     Geometry& g) {
+  if (batch < 0 || M < 0 || N < 0 || K < 0)
+    return refuse("ternary_matmul: negative shape batch=%d M=%d N=%d K=%d",
+                  batch, M, N, K);
+  if (si && batch > 1)
+    return refuse("ternary_matmul: the SI epilogue takes one product, got "
+                  "batch=%d", batch);
+  const bool mma = M > DP4A_MAX_ROWS;
+  const int mult = mma ? 16 : 4;
+  if (K % mult || N % mult)
+    return refuse("ternary_matmul: K and N must be multiples of %d at M=%d "
+                  "(the kernel reads %d-byte words), got K=%d N=%d", mult,
+                  M, mult, K, N);
+  if (si && (out_bsl < 1 || out_bsl > MAX_OUT_BSL))
+    return refuse("ternary_matmul: the SI epilogue takes 1..%d threshold "
+                  "columns, got out_bsl=%d", MAX_OUT_BSL, out_bsl);
+  g = Geometry{};
+  if (batch == 0 || M == 0 || N == 0) return 0;
+  if (mma) return mma_geometry(si, batch, M, N, K, out_bsl, g);
+  return dp4a_geometry(M <= 4 ? 4 : 16, si, batch, M, N, K, out_bsl, g);
+}
+
 }  // namespace
+
+// The geometry ternary_matmul_launch would launch with for these sizes
+// (out_bsl > 0: the SI epilogue; GEOMETRY_FIELDS values into out;
+// Geometry::kernel is a TernaryKernel), or the refusal it would make.
+extern "C" int ternary_matmul_geometry(int batch, int M, int N, int K,
+                                       int out_bsl, long long* out) {
+  Geometry g;
+  if (int rc = ternary_geometry(batch, M, N, K, out_bsl > 0, out_bsl, g))
+    return rc;
+  write_geometry(g, out);
+  return 0;
+}
 
 // x (batch, M, K) int8, w (batch, K, N) int8, thr (N, out_bsl) int32 or
 // null (one product only), out (batch, M, N) int32, all contiguous on the
@@ -546,40 +630,30 @@ extern "C" int ternary_matmul_launch(const void* x, const void* w,
                                      const void* thr, void* out, int batch,
                                      int M, int N, int K, int out_bsl,
                                      void* stream) {
-  if (batch < 0 || M < 0 || N < 0 || K < 0)
-    return refuse("ternary_matmul: negative shape batch=%d M=%d N=%d K=%d",
-                  batch, M, N, K);
-  if (thr && batch > 1)
-    return refuse("ternary_matmul: the SI epilogue takes one product, got "
-                  "batch=%d", batch);
-  const bool mma = M > DP4A_MAX_ROWS;
-  const int mult = mma ? 16 : 4;
-  if (K % mult || N % mult)
-    return refuse("ternary_matmul: K and N must be multiples of %d at M=%d "
-                  "(the kernel reads %d-byte words), got K=%d N=%d", mult,
-                  M, mult, K, N);
+  Geometry g;
+  if (int rc = ternary_geometry(batch, M, N, K, thr != nullptr, out_bsl, g))
+    return rc;
+  const int mult = g.kernel == TM_WGMMA ? 16 : 4;
   if (reinterpret_cast<uintptr_t>(x) % mult ||
       reinterpret_cast<uintptr_t>(w) % mult)
     return refuse("ternary_matmul: x and w must start on a %d-byte "
                   "boundary at M=%d", mult, M);
-  if (thr && (out_bsl < 1 || out_bsl > MAX_OUT_BSL))
-    return refuse("ternary_matmul: the SI epilogue takes 1..%d threshold "
-                  "columns, got out_bsl=%d", MAX_OUT_BSL, out_bsl);
-  if (batch == 0 || M == 0 || N == 0) return 0;
+  if (g.grid[0] == 0) return 0;
   const auto* xp = static_cast<const int8_t*>(x);
   const auto* wp = static_cast<const int8_t*>(w);
   const auto* tp = static_cast<const int*>(thr);
   auto* op = static_cast<int*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   const int B = batch;
-  if (M <= 4) {
-    return thr ? run<4, true>(xp, wp, tp, op, B, M, N, K, out_bsl, s)
-               : run<4, false>(xp, wp, tp, op, B, M, N, K, out_bsl, s);
+  switch (g.kernel) {
+    case TM_DP4A_4:
+      return thr ? run<4, true>(g, xp, wp, tp, op, B, M, N, K, out_bsl, s)
+                 : run<4, false>(g, xp, wp, tp, op, B, M, N, K, out_bsl, s);
+    case TM_DP4A_16:
+      return thr ? run<16, true>(g, xp, wp, tp, op, B, M, N, K, out_bsl, s)
+                 : run<16, false>(g, xp, wp, tp, op, B, M, N, K, out_bsl, s);
+    default:
+      return thr ? run_mma<true>(g, xp, wp, tp, op, B, M, N, K, out_bsl, s)
+                 : run_mma<false>(g, xp, wp, tp, op, B, M, N, K, out_bsl, s);
   }
-  if (!mma) {
-    return thr ? run<16, true>(xp, wp, tp, op, B, M, N, K, out_bsl, s)
-               : run<16, false>(xp, wp, tp, op, B, M, N, K, out_bsl, s);
-  }
-  return thr ? run_mma<true>(xp, wp, tp, op, B, M, N, K, out_bsl, s)
-             : run_mma<false>(xp, wp, tp, op, B, M, N, K, out_bsl, s);
 }

@@ -1450,3 +1450,43 @@ def test_mesh_gather_is_exact_on_cuda(cuda):
             np.testing.assert_array_equal(
                 res[name], np.concatenate(arrays, axis=dim))
     assert (parts["bf16"][0][0][0].view(np.uint16) == 0x8000).all()
+
+
+# ---------------------------------------------------------------------------
+# the analysis gates on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", sorted(build.KERNELS))
+def test_launch_plans_equal_the_c_geometry(cuda, name):
+    """Every registered case's plan (kernels/plan.py) launches what the
+    launcher's C++ computes (its ``*_geometry`` entry point)."""
+    from repro_torch.kernels.dispatch import KERNEL_REGISTRY
+    entry = KERNEL_REGISTRY[name]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for label, kw in entry.cases():
+        got = build.geometry(entry.geometry_entry, *entry.geometry_args(**kw))
+        assert got == entry.plan(sms=sms, **kw).geometry(), label
+
+
+def test_contracts_and_host_pass_on_a_tiny_engine(cuda):
+    """inplace, dtype and host on a tiny float32 granite engine's prefill
+    and decode step: every sync at an allowed site."""
+    from repro_torch.analysis.contracts import run_engine_contracts
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+    cfg = get_arch("granite-3-2b").scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=64, vocab_pad_multiple=32, dtype="float32")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    for dp, fmt in (("qat", "fp"), ("sc_int", "int8")):
+        eng = ServeEngine(params, cfg, max_slots=4, max_len=64,
+                          num_pages=1024, datapath=dp, kv_format=fmt,
+                          device=cuda)
+        results = run_engine_contracts(eng, f"{dp}/{fmt}",
+                                       [[1, 2, 3], [4, 5, 6, 7], [8, 9]],
+                                       on_card=True)
+        bad = [v.message for r in results for v in r.violations]
+        assert not bad, bad
+        host = next(r for r in results if r.passname == "host")
+        assert "serving/engine.py:_decode" in " ".join(host.notes)
