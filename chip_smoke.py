@@ -152,11 +152,33 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    and the autotune sweeps of the prefill's ``block_q`` and of
    ``DP4A_MAX_ROWS`` print their times (candidates the audit refuses are
    pruned, never launched).  Any violation fails the run.
+13. the vision and audio front ends at full width (bf16, sc_qat, seeded
+   random weights) and the circuit models: hubert-xlarge
+   (``--hubert-layers`` of its 48, all by default) encoded whole through
+   ``forward`` over 2 utterances of 1500 frames (30 s at 50 frames/s; the
+   launcher's 0.1 N(0, 1) frames of width 512): finite logits (2, 1500,
+   512), frame 0's logits move with the last frame (bidirectional), one
+   flash launch a layer at D 80, its ms, busy / idle share and peak
+   memory; at 2 layers in float32 without quantization its logits on the
+   card equal the CPU's within 1e-5 of the largest; llava-next-34b
+   (``--llava-layers`` of its 60, 4 by default) through the dense
+   ``prefill`` of 2 requests, each 2880 patch embeddings (1024 wide)
+   and 16 text tokens (flash at GQA 7), then 8 greedy ``decode_step``s on
+   the dense cache: each request's tokens in the batch equal its tokens
+   alone; prefill ms, decode ms a step, peak memory.  Then Table V's
+   figures from ``core/hwmodel.py`` (the baseline's calibration exact,
+   the approximate adders' MSE through the approx-BSN kernels),
+   ``core/fault.py`` at three bit error rates and ``core/fsm_baseline.py``
+   on 1024-bit streams, card == CPU bit for bit; and the examples
+   ``python -m repro_torch.examples.quickstart`` and ``design_space
+   --width 4608`` exit 0 on the card.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
-4096, 64 / 8 heads, D 128), at a ragged bidirectional GQA shape (all
-bf16: the tensor-core kernel), in float32 (the CUDA-core kernel), and its
+4096, 64 / 8 heads, D 128), at hubert's (B 2, S 1500, 16 heads of D 80,
+bidirectional) and llava's prefill (B 2, S 2896, 56 / 8 heads, D 128,
+causal), at a ragged bidirectional GQA shape (all bf16: the tensor-core
+kernel), in float32 (the CUDA-core kernel), and its
 gradient against autograd through the plain version at D 64 and D 128;
 and it measures what rounding P to one bf16 term, or to the kernel's
 two, does to O.  Phases 4, 7 and 8 hold the batched engine against the
@@ -166,9 +188,11 @@ reference's, and phase 9 holds that.
 
 Run from the repository root::
 
-    python3 chip_smoke.py                 # full run (20 / 4 / 32 / 5 / 2 layers)
+    python3 chip_smoke.py                 # full run (20 / 4 / 32 / 5 / 2 /
+                                          # 48 / 4 layers)
     python3 chip_smoke.py --layers 2 --moe-layers 1 --rwkv-layers 2 \
-        --jamba-layers 2 --rwkv-train-layers 1   # quick check
+        --jamba-layers 2 --rwkv-train-layers 1 --hubert-layers 2 \
+        --llava-layers 1                 # quick check
 
 Phase 4 also profiles one decode step per datapath (torch.profiler):
 device busy time, the device's idle share, and the PyTorch ops that take
@@ -308,7 +332,7 @@ def read_sass(so_path):
     if not flash128 or not all(f["hmma"] > 0 for f in flash128):
         raise AssertionError(f"flash_fwd_mma_kernel at D 128: tensor-core "
                              f"instructions missing: {flash128}")
-    for kernel, count in (("flash_fwd_mma_kernel", 4),
+    for kernel, count in (("flash_fwd_mma_kernel", 5),
                           ("paged_prefill_mma_kernel", 12)):
         inst = [f for f in found if f["kernel"] == kernel]
         if len(inst) != count or not all(f["hmma"] > 0 for f in inst):
@@ -325,6 +349,12 @@ def read_sass(so_path):
         if not d64 or any(f["ldl"] + f["stl"] for f in d64):
             raise AssertionError(f"{kernel} at D 64 uses local memory: "
                                  f"{d64}")
+    # hubert's head: the bf16 instance at D 80 spills nothing either
+    d80 = [f for f in found if f["kernel"] == "flash_fwd_mma_kernel"
+           and re.match(r"Li80(E|$)", f["template"])]
+    if len(d80) != 1 or d80[0]["ldl"] + d80[0]["stl"]:
+        raise AssertionError(f"flash_fwd_mma_kernel at D 80: missing or "
+                             f"uses local memory: {d80}")
     return found
 
 
@@ -925,6 +955,11 @@ def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
 FLASH_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=8, D=64)   # phase 6's attention
 # jamba-1.5-large's attention layers over a train_4k sequence
 JAMBA_FLASH_SHAPE = dict(B=1, S=4096, Hq=64, Hkv=8, D=128)
+# phase 13's: hubert-xlarge's encoder (2 utterances of 1500 frames, 16
+# heads of 80, bidirectional) and llava-next-34b's dense prefill (2
+# requests of 2880 patches + 16 tokens, 56 q heads over 8 KV heads)
+HUBERT_FLASH_SHAPE = dict(B=2, S=1500, Hq=16, Hkv=16, D=80)
+LLAVA_FLASH_SHAPE = dict(B=2, S=2896, Hq=56, Hkv=8, D=128)
 LSE_ATOL = 1e-4         # float32 log-sum-exp, sums in another order
 FLASH_F32_TOL = 1e-5    # the float32 kernel: O and LSE, float32 sums
 GRAD_TOL = 1e-4         # float32 gradients against autograd
@@ -985,7 +1020,11 @@ def check_flash(torch, dev, gen):
             ("ragged S1000 bidirectional GQA",
              dict(B=1, S=1000, Hq=8, Hkv=2, D=64), False, torch.bfloat16),
             ("float32 S1024 causal GQA",
-             dict(B=1, S=1024, Hq=8, Hkv=2, D=64), True, torch.float32)):
+             dict(B=1, S=1024, Hq=8, Hkv=2, D=64), True, torch.float32),
+            ("hubert B2 S1500 Hq16 D80 bidirectional", HUBERT_FLASH_SHAPE,
+             False, torch.bfloat16),
+            ("llava prefill B2 S2896 Hq56 Hkv8 D128 causal",
+             LLAVA_FLASH_SHAPE, True, torch.bfloat16)):
         q, k, v = _flash_inputs(torch, gen, dev, **shp, dtype=dtype)
         out, lse = flash_attention_cuda(q, k, v, causal=causal)
         want, want_lse = flash_attention_ref(q, k, v, causal,
@@ -3192,6 +3231,340 @@ def analysis_gates(torch, dev, layers, smi, ptxas_log):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the vision and audio front ends, the circuit models, examples
+# ---------------------------------------------------------------------------
+
+HUBERT_ARCH = "hubert-xlarge"
+LLAVA_ARCH = "llava-next-34b"
+HUBERT_UTTERANCES, HUBERT_FRAMES = 2, 1500   # 30 s each at 50 frames/s
+LLAVA_REQUESTS, LLAVA_TEXT = 2, 16           # text tokens after the image
+LLAVA_NEW_TOKENS = 8                         # greedy decode steps
+FRONTEND_F32_LAYERS = 2
+F32_LOGIT_RTOL = 1e-5    # float32 card against CPU, of the largest logit
+FAULT_BERS = (1e-3, 1e-2, 1e-1)
+FSM_STREAM = 1024        # bits a stochastic stream (Fig 1's length)
+HW_RTOL = 1e-12
+# Table V: the 3x3x512 conv (4608 2-bit products) through the baseline,
+# the spatial approximate BSN and the spatial-temporal one (512 wide, 9
+# cycles); the specs of the repository's Table V benchmark
+TABLE_V_WIDTH = 4608
+TABLE_V_SPATIAL = ((64, 48, 1), (72, 1024, 8))
+TABLE_V_TEMPORAL = (512, ((64, 48, 1), (8, 72, 8)), 9)
+
+
+def _frames(torch, dev, utterances, frames, step=0):
+    """The launcher's audio-stub batch (``launch/train.train_batch``):
+    0.1 N(0, 1) frame features from ``fold_in(key(8), step)``."""
+    from repro_torch import prng
+    return 0.1 * prng.normal(prng.fold_in(prng.key(8), step).to(dev),
+                             (utterances, frames, 512))
+
+
+def _profiled(torch, fn, label):
+    """``fn()`` once under torch.profiler: its wall ms (synchronised),
+    device busy ms and the device's idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ms = sum(_dev_us(e) for e in events if e.device_type == cuda) / 1e3
+    (OUT_DIR / f"profile_{label}.txt").write_text(events.table(
+        sort_by="self_cuda_time_total", row_limit=30))
+    return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
+                idle_share=1 - busy_ms / wall_ms)
+
+
+def hubert_encoder(torch, dev, layers):
+    """hubert-xlarge at full width, ``layers`` of its 48, bf16, sc_qat:
+    ``forward`` over 2 utterances of 1500 frames, one flash launch a
+    layer.  Gates: finite logits (2, 1500, 512), and frame 0's logits
+    move when the last frame does (bidirectional attention).  The last
+    gate runs the same weights with quantization off: at this init every
+    0.1 N(0, 1) frame feature rounds to activation level 0 (``alpha_a``
+    1.0 at act_bsl 8), so under sc_qat every frame's logits are the same
+    and no frame can move another's."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import forward, init_params
+    cfg = get_arch(HUBERT_ARCH)
+    if layers != cfg.n_layers:
+        cfg = cfg.scaled(n_layers=layers)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    frames = _frames(torch, dev, HUBERT_UTTERANCES, HUBERT_FRAMES)
+
+    def run(fr):
+        return forward(params, {"frames": fr}, cfg)[0]
+    with torch.inference_mode():
+        run(frames)                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        t0 = time.perf_counter()
+        logits = run(frames)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = dict(kbuild.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        prof = _profiled(torch, lambda: run(frames), "hubert_forward")
+        moved = frames.clone()
+        moved[:, -1] += 1.0
+        qat_dist = (run(moved)[:, 0] - logits[:, 0]).float().abs().max() \
+            .item()
+        off = cfg.scaled(quant=cfg.quant.with_mode("none"))
+        dist = (forward(params, {"frames": moved}, off)[0][:, 0]
+                - forward(params, {"frames": frames}, off)[0][:, 0]) \
+            .float().abs().max().item()
+    shape = (HUBERT_UTTERANCES, HUBERT_FRAMES, cfg.padded_vocab)
+    finite = bool(torch.isfinite(logits.float()).all())
+    if tuple(logits.shape) != shape or not finite:
+        raise AssertionError(f"hubert logits {tuple(logits.shape)} (want "
+                             f"{shape}), finite {finite}")
+    if not dist > 0:
+        raise AssertionError("hubert: frame 0's logits ignore the last "
+                             "frame (not bidirectional)")
+    if launches["flash_attention"] != layers:
+        raise AssertionError(f"hubert: {launches['flash_attention']} flash "
+                             f"launches, {layers} expected")
+    res = dict(layers=layers, ms=ms, peak_gib=peak, launches=launches,
+               frame0_moved_by=dist, frame0_moved_by_sc_qat=qat_dist, **prof)
+    log(f"hubert-xlarge {layers}/48 layers, {HUBERT_UTTERANCES} x "
+        f"{HUBERT_FRAMES} frames, bf16 sc_qat: forward ms={ms:.1f} "
+        f"busy_ms={prof['device_busy_ms']:.1f} idle_share="
+        f"{prof['idle_share']:.3f} peak_gib={peak:.2f} flash launches "
+        f"{launches['flash_attention']}; logits {shape} finite; frame 0 "
+        f"moves by {dist:.3g} when the last frame changes (quantization "
+        f"off; {qat_dist:.3g} under sc_qat)")
+    return res
+
+
+def hubert_f32_card_equals_cpu(torch, dev):
+    """hubert-xlarge at full width, FRONTEND_F32_LAYERS layers, float32,
+    quantization off, one utterance: ``forward``'s logits on the card
+    (the float32 flash kernel at D 80) equal the CPU's within
+    F32_LOGIT_RTOL of the largest."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import forward, init_params
+    cfg = get_arch(HUBERT_ARCH)
+    cfg = cfg.scaled(n_layers=FRONTEND_F32_LAYERS, dtype="float32",
+                     quant=cfg.quant.with_mode("none"))
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    frames = _frames(torch, "cpu", 1, HUBERT_FRAMES)
+    with torch.inference_mode():
+        want = forward(cpu, {"frames": frames}, cfg)[0]
+        got = forward(_to(cpu, dev), {"frames": frames.to(dev)},
+                      cfg)[0].cpu()
+    err = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"hubert-xlarge {FRONTEND_F32_LAYERS} layers float32, 1 x "
+        f"{HUBERT_FRAMES} frames: card logits == cpu within {err:.3g} of "
+        f"the largest (tol {F32_LOGIT_RTOL})")
+    if not err <= F32_LOGIT_RTOL:
+        raise AssertionError(f"hubert float32 card vs cpu: {err}")
+    return err
+
+
+def llava_serving(torch, dev, layers):
+    """llava-next-34b at full width, ``layers`` of its 60, bf16, sc_qat:
+    the dense ``prefill`` of LLAVA_REQUESTS requests, each IMG_TOKENS
+    patch embeddings and LLAVA_TEXT text tokens, then LLAVA_NEW_TOKENS
+    greedy ``decode_step``s on the dense cache.  Gate: each request's
+    tokens in the batch equal its tokens alone."""
+    from repro_torch import prng
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.llava_next_34b import IMG_TOKENS
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.models import decode_step, init_params, prefill
+    from repro_torch.serving.engine import _pad_prefill_cache
+    from repro_torch.serving.sampling import greedy_tokens
+    cfg = get_arch(LLAVA_ARCH)
+    if layers != cfg.n_layers:
+        cfg = cfg.scaled(n_layers=layers)
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    patches = 0.02 * prng.normal(prng.fold_in(prng.key(7), 0).to(dev),
+                                 (LLAVA_REQUESTS, IMG_TOKENS, 1024))
+    text = prng.randint(prng.key(SEED).to(dev), (LLAVA_REQUESTS, LLAVA_TEXT),
+                        0, cfg.vocab_size)
+    S = IMG_TOKENS + LLAVA_TEXT
+
+    def generate(rows):
+        batch = {"patch_embeds": patches[rows], "tokens": text[rows]}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, batch, cfg)
+        tok = greedy_tokens(logits[:, -1], cfg.vocab_size)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        cache = _pad_prefill_cache(cache, S + LLAVA_NEW_TOKENS)
+        toks, margins = [tok], []
+        for _ in range(LLAVA_NEW_TOKENS):
+            logits, cache = decode_step(params, cache, tok[:, None], cfg)
+            top2 = logits[:, 0, :cfg.vocab_size].float().topk(2).values
+            margins.append((top2[:, 0] - top2[:, 1]).min())
+            tok = greedy_tokens(logits[:, 0], cfg.vocab_size)
+            toks.append(tok)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return (torch.stack(toks, 1).tolist(), (t1 - t0) * 1e3,
+                (t2 - t1) * 1e3 / LLAVA_NEW_TOKENS,
+                float(torch.stack(margins).min()))
+
+    rows = list(range(LLAVA_REQUESTS))
+    with torch.inference_mode():
+        generate(rows[:1])                           # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        batched, prefill_ms, decode_ms, margin = generate(rows)
+        launches = dict(kbuild.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        alone = [generate([r])[0][0] for r in rows]
+    if batched != alone:
+        raise AssertionError(f"llava: batched tokens {batched} != alone "
+                             f"{alone}")
+    if launches["flash_attention"] != layers:
+        raise AssertionError(f"llava: {launches['flash_attention']} flash "
+                             f"launches in the prefill, {layers} expected")
+    res = dict(layers=layers, requests=LLAVA_REQUESTS, positions=S,
+               prefill_ms=prefill_ms, decode_ms_per_step=decode_ms,
+               peak_gib=peak, launches=launches, tokens=batched,
+               least_decode_margin=margin)
+    log(f"llava-next-34b {layers}/60 layers, {LLAVA_REQUESTS} requests of "
+        f"{IMG_TOKENS} patches + {LLAVA_TEXT} tokens, bf16 sc_qat: prefill "
+        f"ms={prefill_ms:.1f} decode ms/step={decode_ms:.1f} peak_gib="
+        f"{peak:.2f} flash launches {launches['flash_attention']}; batched "
+        f"tokens == alone {batched} (least top-2 margin {margin:.3g})")
+    return res
+
+
+def circuit_models(torch, dev):
+    """Table V's figures from ``core/hwmodel.py`` with their MSE through
+    the approximate-BSN kernels; ``core/fault.py`` at FAULT_BERS and
+    ``core/fsm_baseline.py`` on FSM_STREAM-bit streams, card == CPU bit
+    for bit under one key."""
+    from repro_torch import prng
+    from repro_torch.core import fault, fsm_baseline, hwmodel
+    from repro_torch.core.bsn import ApproxBSNSpec, StageSpec, SubSampleSpec
+    from repro_torch.examples.design_space import measure_mse
+
+    def spec(width, stages):
+        return ApproxBSNSpec(width, 2, tuple(
+            StageSpec(g, SubSampleSpec(c, s)) for g, c, s in stages))
+    base = hwmodel.bsn_cost(TABLE_V_WIDTH * 2)
+    if abs(base.area_um2 / 2.95e5 - 1) > HW_RTOL \
+            or abs(base.delay_ns / 4.33 - 1) > HW_RTOL:
+        raise AssertionError(f"hwmodel: Table V baseline {base}")
+    spatial = spec(TABLE_V_WIDTH, TABLE_V_SPATIAL)
+    sp = hwmodel.approx_bsn_cost(spatial)
+    w, stages, cycles = TABLE_V_TEMPORAL
+    temporal = spec(w, stages)
+    st = hwmodel.spatial_temporal_cost(temporal, cycles)
+    st_adp = st.area_um2 * cycles * st.delay_ns
+    table = dict(baseline=dict(area_um2=base.area_um2,
+                               delay_ns=base.delay_ns, adp=base.adp),
+                 spatial=dict(area_um2=sp.area_um2, delay_ns=sp.delay_ns,
+                              adp_reduction=base.adp / sp.adp,
+                              mse=measure_mse(spatial, 1, device=dev)),
+                 spatial_temporal=dict(
+                     area_um2=st.area_um2, delay_ns=st.delay_ns,
+                     adp_reduction=base.adp / st_adp,
+                     mse=measure_mse(temporal, cycles, device=dev)),
+                 tops_per_watt_065v=hwmodel.tops_per_watt(2, 0.65))
+    log(f"hwmodel Table V: baseline area {base.area_um2:.4g} um2 delay "
+        f"{base.delay_ns:.3f} ns adp {base.adp:.4g}; spatial adp "
+        f"reduction {table['spatial']['adp_reduction']:.2f}x mse "
+        f"{table['spatial']['mse']:.3g} (paper 2.8x, 3.79e-7); spatial-"
+        f"temporal {table['spatial_temporal']['adp_reduction']:.2f}x mse "
+        f"{table['spatial_temporal']['mse']:.3g} (paper 4.1x); "
+        f"{table['tops_per_watt_065v']:.1f} TOPS/W at 0.65 V (paper 198.9)")
+
+    gen = torch.Generator().manual_seed(SEED)
+    x_q = torch.randint(-4, 5, (4096, 256), generator=gen, dtype=torch.int32)
+    flips = {}
+    for ber in FAULT_BERS:
+        k = prng.fold_in(prng.key(SEED), int(ber * 1e6))
+        got = [(fault.thermometer_under_ber(x.to(d), 8, ber, k).cpu(),
+                fault.binary_under_ber(x.to(d), 4, ber, k).cpu())
+               for x, d in ((x_q, dev), (x_q, "cpu"))]
+        if not all(torch.equal(a, b) for a, b in zip(*got)):
+            raise AssertionError(f"fault at ber {ber}: card != cpu")
+        therm, binary = got[1]
+        flips[ber] = dict(
+            thermometer_mse=float(((therm - x_q).float() ** 2).mean()),
+            binary_mse=float(((binary - x_q).float() ** 2).mean()))
+    log("fault (card == cpu bit for bit): " + "; ".join(
+        f"ber {b}: thermometer mse {v['thermometer_mse']:.4g}, binary "
+        f"{v['binary_mse']:.4g}" for b, v in flips.items()))
+
+    x = torch.linspace(-0.9, 0.9, 64)
+    fsm = {}
+    streams = [fsm_baseline.stochastic_bitstream(x.to(d), FSM_STREAM,
+                                                 prng.key(SEED)).cpu()
+               for d in (dev, "cpu")]
+    if not torch.equal(*streams):
+        raise AssertionError("fsm: card stream != cpu stream")
+    for name, fn in (("stanh", fsm_baseline.fsm_stanh),
+                     ("relu", fsm_baseline.fsm_relu)):
+        t0 = time.perf_counter()
+        card = fn(streams[0].to(dev), 8).cpu()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        cpu = fn(streams[1], 8)
+        if not torch.equal(card, cpu):
+            raise AssertionError(f"fsm_{name}: card != cpu")
+        fsm[name] = dict(card_ms=card_ms)
+    log(f"fsm_stanh / fsm_relu on 64 streams of {FSM_STREAM} bits: card == "
+        f"cpu bit for bit ({fsm['stanh']['card_ms']:.0f} / "
+        f"{fsm['relu']['card_ms']:.0f} ms on the card, a loop over the "
+        "stream)")
+    return dict(table_v=table, fault=flips, fsm=fsm)
+
+
+def run_examples(torch):
+    """``python -m repro_torch.examples.quickstart`` and ``design_space
+    --width 4608`` on the card: each must exit 0."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = {}
+    for name, argv in (("quickstart", []),
+                       ("design_space", ["--width", "4608"])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+        s = time.perf_counter() - t0
+        (OUT_DIR / f"example_{name}.txt").write_text(proc.stdout
+                                                     + proc.stderr)
+        if proc.returncode:
+            raise AssertionError(f"example {name} exited {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        tail = proc.stdout.strip().splitlines()[-2:]
+        out[name] = dict(seconds=s, tail=tail)
+        log(f"example {name} {' '.join(argv)}: exit 0 in {s:.1f} s; "
+            + " | ".join(tail))
+    return out
+
+
+def frontends_and_circuits(torch, dev, hubert_layers, llava_layers, smi):
+    """Phase 13: hubert's encoder and llava's dense serving at full width,
+    hubert's float32 card == CPU check, the circuit models, the examples.
+    Returns (results, the main path's launches: hubert's forward and
+    llava's batched prefill and decode)."""
+    out = {"nvidia_smi": smi}
+    out["hubert"] = hubert_encoder(torch, dev, hubert_layers)
+    out["llava"] = llava_serving(torch, dev, llava_layers)
+    launches = {k: out["hubert"]["launches"][k] + out["llava"]["launches"][k]
+                for k in out["hubert"]["launches"]}
+    out["hubert_float32_card_vs_cpu"] = hubert_f32_card_equals_cpu(torch,
+                                                                    dev)
+    out["circuit_models"] = circuit_models(torch, dev)
+    out["examples"] = run_examples(torch)
+    return out, launches
+
+
 def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
@@ -3222,6 +3595,14 @@ def main() -> int:
     ap.add_argument("--rwkv-train-layers", type=int, default=2,
                     help="rwkv6-7b depth to train in phase 9 (of 32; full "
                          "width always)")
+    ap.add_argument("--hubert-layers", type=int, default=48,
+                    help="hubert-xlarge depth to encode in phase 13 (of 48; "
+                         "full width always)")
+    # a llava layer holds ~0.56 G parameters, its embedding and lm_head
+    # 0.46 G each; 4 keep phase 13 near its share of the time limit
+    ap.add_argument("--llava-layers", type=int, default=4,
+                    help="llava-next-34b depth to serve in phase 13 (of "
+                         "60; full width always)")
     args = ap.parse_args()
 
     import torch
@@ -3363,6 +3744,14 @@ def main() -> int:
     analysis = analysis_gates(torch, dev, args.layers, smi, res.log)
     mark(12)
 
+    # phase 13: the vision and audio front ends, the circuit models and
+    # the examples
+    frontends, fe_launches = frontends_and_circuits(
+        torch, dev, args.hubert_layers, args.llava_layers, smi)
+    for k, v in fe_launches.items():
+        launches[k] += v
+    mark(13)
+
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
         return {"name": name, "route": "cuda", "source": source,
@@ -3407,6 +3796,7 @@ def main() -> int:
          "recurrent_training": recurrent_training, "dense_serving": dense,
          "sampled_serving": sampled, "mesh_serving": mesh,
          "analysis": analysis, "roofline": analysis["roofline"],
+         "frontends": frontends,
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

@@ -319,8 +319,8 @@ def audit_dtype(label: str, ops: list[OpRecord], *, datapath: str,
 
 # site -> why its sync is expected.  The engine's host bookkeeping
 # (queue, slots, allocator, page tables) lives in numpy and Python by
-# design, as the reference's: a step's inputs go up and its tokens come
-# back each tick.
+# design, as the reference's: a step's tokens come back each tick, and its
+# inputs go up through pinned memory without a sync (engine._tensor).
 HOST_SYNC_ALLOW = {
     "serving/engine.py:_prefill_group":
         "the first tokens of the admitted requests come back to the host "
@@ -328,11 +328,6 @@ HOST_SYNC_ALLOW = {
     "serving/engine.py:_decode":
         "the step's tokens come back to the host bookkeeping (one "
         "read-back a decode step)",
-    "serving/engine.py:_tensor":
-        "the step's lane tensors (tokens, slot ids, page tables, lengths) "
-        "go up from the host bookkeeping's numpy arrays, a blocking copy "
-        "from pageable memory each (ROADMAP Queue 3: pinned, non-blocking "
-        "uploads)",
 }
 
 

@@ -1,10 +1,13 @@
-"""Architecture registry: importing this package registers the configs
-ported so far."""
+"""Architecture registry: importing this package registers every
+config."""
 
-from . import (dbrx_132b, granite_3_2b, jamba_1_5_large, nemotron_4_15b,
-               phi3_medium_14b, qwen3_moe_235b, rwkv6_7b, stablelm_1_6b)
+from . import (dbrx_132b, granite_3_2b, hubert_xlarge, jamba_1_5_large,
+               llava_next_34b, nemotron_4_15b, paper_tnn, phi3_medium_14b,
+               qwen3_moe_235b, rwkv6_7b, stablelm_1_6b)
 from .base import LayerSpec, ModelConfig, get_arch, register_arch
 
 __all__ = ["LayerSpec", "ModelConfig", "get_arch", "register_arch",
-           "dbrx_132b", "granite_3_2b", "jamba_1_5_large", "nemotron_4_15b",
-           "phi3_medium_14b", "qwen3_moe_235b", "rwkv6_7b", "stablelm_1_6b"]
+           "dbrx_132b", "granite_3_2b", "hubert_xlarge", "jamba_1_5_large",
+           "llava_next_34b", "nemotron_4_15b", "paper_tnn",
+           "phi3_medium_14b", "qwen3_moe_235b", "rwkv6_7b",
+           "stablelm_1_6b"]

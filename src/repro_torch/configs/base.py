@@ -60,6 +60,8 @@ class ModelConfig:
     rwkv_wkv_impl: str = "scan" # scan | chunked (training only; serving
                                 # prefill runs the token recurrence)
     rwkv_chunk: int = 32
+    # front-end stub (vlm / audio): inputs arrive as embeddings
+    frontend: str = "none"      # none | vision_stub | audio_stub
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
     quant: SCQuantConfig = SC_OFF

@@ -22,7 +22,9 @@
 // bf16 and reach shared memory through a ring of three 64-key tiles fed
 // by cp.async, so tiles t+1 and t+2 load while tile t is computed (one
 // barrier a tile); rows are padded to D + 8 elements so every ldmatrix
-// is free of bank conflicts.  Each warp reads its q rows as mma A
+// is free of bank conflicts (at D 80, hubert's head, a row is 11 units of
+// 16 bytes, and a pass of copies covers 25 rows of 10 chunks with 6
+// threads idle).  Each warp reads its q rows as mma A
 // fragments (ldmatrix, again each tile: holding them would push the
 // kernel past 128 registers) and forms S = q k^T with mma.sync m16n8k16
 // (bf16 in, float32 sums: the products of bf16 values are exact, only
@@ -195,7 +197,8 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
                      const __nv_bfloat16* __restrict__ v,
                      __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
                      int S, int Hq, int Hkv, float scale, int causal) {
-  static_assert(D % 16 == 0 && D <= 128, "D must be 16, 32, 64 or 128");
+  static_assert(D % 16 == 0 && D <= 128,
+                "D must be 16, 32, 64, 80 or 128");
   using Lay = TcLayout<D>;
   constexpr int ST = Lay::STRIDE;
   constexpr int CH = D / 8;                // 16-byte chunks of a row
@@ -219,15 +222,18 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* kb = k + (static_cast<size_t>(b) * S * Hkv + h) * D;
   const __nv_bfloat16* vb = v + (static_cast<size_t>(b) * S * Hkv + h) * D;
 
-  // this thread's copies: 16-byte chunk cc of rows cr, cr + RSTEP, ...
+  // this thread's copies: 16-byte chunk cc of rows cr, cr + RSTEP, ...;
+  // where CH does not divide the block (D 80) the spare threads copy
+  // nothing, so that no chunk has two owners
   const int cr = tid / CH, cc = (tid % CH) * 8;
+  const bool copier = TC_THREADS % CH == 0 || cr < RSTEP;
   const uint32_t q_dst = smem_u32(q_s + cr * ST + cc);
   const uint32_t kv_dst = smem_u32(kv_s + cr * ST + cc);
 #pragma unroll
   for (int i = 0; i < (TC_BQ + RSTEP - 1) / RSTEP; ++i) {
     const int r = cr + i * RSTEP;
     const bool in = row0 + r < S;
-    if (r < TC_BQ)
+    if (copier && r < TC_BQ)
       cp_async16(q_dst + i * RSTEP * ST * 2,
                  in ? qb + (row0 + r) * q_stride + cc : qb, in);
   }
@@ -240,7 +246,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
       const bool in = t * TC_BK + r < S;
       const size_t e = in ? off + static_cast<size_t>(i) * RSTEP * kv_stride
                           : 0;
-      if (r < TC_BK) {
+      if (copier && r < TC_BK) {
         cp_async16(dst + i * RSTEP * ST * 2, kb + e, in);
         cp_async16(dst + (Lay::KV_ELEMS + i * RSTEP * ST) * 2, vb + e, in);
       }
@@ -272,7 +278,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int i = 0; i < (TC_BQ + RSTEP - 1) / RSTEP; ++i) {
       const int r = cr + i * RSTEP;
-      if (r < TC_BQ) {
+      if (copier && r < TC_BQ) {
         uint4* c4 = reinterpret_cast<uint4*>(q_s + r * ST + cc);
         const uint4 x = *c4;
         *c4 = make_uint4(x.x ^ 0x80008000u, x.y ^ 0x80008000u,
@@ -536,9 +542,9 @@ int flash_geometry(int B, int S, int Hq, int Hkv, int D, int dtype,
                   "Hq a multiple of Hkv (got Hq %d, Hkv %d)", Hq, Hkv);
   if (dtype != Q_F32 && dtype != Q_BF16)
     return refuse("flash_attention: unknown dtype %d", dtype);
-  if (D != 16 && D != 32 && D != 64 && D != 128)
+  if (D != 16 && D != 32 && D != 64 && D != 80 && D != 128)
     return refuse("flash_attention: head dim %d is not one of 16, 32, "
-                  "64, 128", D);
+                  "64, 80, 128", D);
   const bool mma = dtype == Q_BF16;
   const int bq = mma ? TC_BQ : BQ;
   if ((static_cast<long long>(S) + bq - 1) / bq > 65535)
@@ -554,6 +560,7 @@ int flash_geometry(int B, int S, int Hq, int Hkv, int D, int dtype,
     case 16: g.smem = mma ? TcLayout<16>::BYTES : smem_bytes(16); break;
     case 32: g.smem = mma ? TcLayout<32>::BYTES : smem_bytes(32); break;
     case 64: g.smem = mma ? TcLayout<64>::BYTES : smem_bytes(64); break;
+    case 80: g.smem = mma ? TcLayout<80>::BYTES : smem_bytes(80); break;
     default: g.smem = mma ? TcLayout<128>::BYTES : smem_bytes(128); break;
   }
   g.block = bq;
@@ -603,6 +610,8 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: return launch_typed<32>(g, q, k, v, out, l, S, Hq, Hkv, scale,
                                      causal, st);
     case 64: return launch_typed<64>(g, q, k, v, out, l, S, Hq, Hkv, scale,
+                                     causal, st);
+    case 80: return launch_typed<80>(g, q, k, v, out, l, S, Hq, Hkv, scale,
                                      causal, st);
     default: return launch_typed<128>(g, q, k, v, out, l, S, Hq, Hkv, scale,
                                       causal, st);

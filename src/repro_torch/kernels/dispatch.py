@@ -293,10 +293,19 @@ def _approx_args(rows, width, cycles, stages, temporal=False) -> tuple:
 
 def _flash_cases() -> list:
     """Phase 3's flash shapes: the training step's (B 2, S 4096, Hq 32,
-    Hkv 8, D 64) and jamba's (D 128), bf16; a ragged bidirectional one;
-    the float32 kernel's, and its gradient check's at D 128."""
+    Hkv 8, D 64) and jamba's (D 128), bf16; hubert-xlarge's encoder (D
+    80, bidirectional) and llava-next-34b's dense prefill (GQA 7, D 128);
+    a ragged bidirectional one; the float32 kernel's, its gradient
+    check's at D 128 and the tiny float32 hubert's head at D 80."""
     return [("train B2 S4096", dict(B=2, S=4096, Hq=32, Hkv=8, D=64)),
             ("jamba B1 S4096 D128", dict(B=1, S=4096, Hq=64, Hkv=8, D=128)),
+            ("hubert B2 S1500 D80 bidirectional",
+             dict(B=2, S=1500, Hq=16, Hkv=16, D=80, causal=False)),
+            ("llava prefill B2 S2896 GQA7",
+             dict(B=2, S=2896, Hq=56, Hkv=8, D=128)),
+            ("float32 D80 bidirectional",
+             dict(B=2, S=1500, Hq=16, Hkv=16, D=80, bf16=False,
+                  causal=False)),
             ("ragged S1000 bidirectional",
              dict(B=1, S=1000, Hq=8, Hkv=2, D=64, causal=False)),
             ("float32 S1024", dict(B=1, S=1024, Hq=8, Hkv=2, D=64,

@@ -60,7 +60,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     q (B, S, Hq, D); k, v (B, S, Hkv, D) with Hq a multiple of Hkv; all
     contiguous CUDA tensors of one dtype, float32 or bfloat16; D one of
-    16, 32, 64, 128; any S.  ``scale`` multiplies q in float32 (default
+    16, 32, 64, 80 (hubert's head), 128; any S.  ``scale`` multiplies q in float32 (default
     ``1/sqrt(D)``).  Returns (out (B, S, Hq, D) in q's dtype, lse
     (B, Hq, S) float32).
     """

@@ -854,7 +854,7 @@ def flash_attention_plan(*, B: int, S: int, Hq: int, Hkv: int, D: int,
         _, _, _, r0, r1 = rows(p)
         return [(p[0] * S + r0, p[0] * S + r1)]
     name = "flash_fwd_mma_kernel" if bf16 else "flash_fwd_kernel"
-    line = 192 if bf16 else 379
+    line = 194 if bf16 else 385
     return LaunchPlan(
         "flash_attention", kernel_instance(name, _li(D)),
         _CSRC + f"flash_attention.cu:{line}", int(bf16), (B * Hq, gy, 1),

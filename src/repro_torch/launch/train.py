@@ -10,7 +10,9 @@ kernel in every attention layer and the recurrent archs' training scans
 (``--arch rwkv6-7b`` / ``jamba-1.5-large-398b``), AdamW in the arch's
 state dtype, asynchronous checkpoints, SIGTERM-safe preemption and
 stateless data resume; ``--grad-compress`` adds the int8
-error-feedback gradient compression.
+error-feedback gradient compression.  A front-end arch (``--arch
+llava-next-34b`` / ``hubert-xlarge``) trains on the reference's stub
+batches (:func:`train_batch`).
 """
 
 from __future__ import annotations
@@ -19,16 +21,17 @@ import argparse
 
 import torch
 
+from .. import prng
 from ..configs import get_arch
 from ..configs.base import ModelConfig, list_archs
 from ..data import SyntheticLM
 from ..device import resolve_device
-from ..models import init_params
+from ..models import init_params, make_dummy_batch
 from ..optim import warmup_cosine
 from ..train import build_train_step, init_train_state, run_training
 from ..tree import tree_leaves
 
-__all__ = ["reduced_config", "main"]
+__all__ = ["reduced_config", "train_batch", "main"]
 
 
 def reduced_config(cfg: ModelConfig, factor: int, seq: int) -> ModelConfig:
@@ -54,6 +57,32 @@ def reduced_config(cfg: ModelConfig, factor: int, seq: int) -> ModelConfig:
         vocab_pad_multiple=64, dtype="float32",
         attn_q_chunk=min(cfg.attn_q_chunk, max(seq // 2, 16)),
         moe_group_size=64, d_head=64)
+
+
+def train_batch(cfg: ModelConfig, ds: SyntheticLM, step: int, batch: int,
+                seq: int) -> dict:
+    """Step ``step``'s batch (on the CPU), the reference launcher's: the
+    synthetic language's tokens and targets; a vision stub's first
+    ``max(seq // 4, 1)`` positions are patch embeddings ``0.02 *
+    normal(fold_in(key(7), step))`` followed by the text, with the loss
+    on the text only; an audio stub's frames are ``0.1 *
+    normal(fold_in(key(8), step))`` against the same targets."""
+    b = ds.batch(step, batch)
+    if cfg.frontend == "none":
+        return b
+    d = make_dummy_batch(cfg, batch, seq, "train", device="cpu")
+    d["targets"] = b["targets"]
+    if cfg.frontend == "vision_stub":
+        n_img = d["patch_embeds"].shape[1]
+        d["patch_embeds"] = 0.02 * prng.normal(
+            prng.fold_in(prng.key(7), step), tuple(d["patch_embeds"].shape))
+        d["tokens"] = b["tokens"][:, :seq - n_img]
+        d["loss_mask"] = torch.cat([torch.zeros((batch, n_img)),
+                                    torch.ones((batch, seq - n_img))], 1)
+    else:
+        d["frames"] = 0.1 * prng.normal(prng.fold_in(prng.key(8), step),
+                                        tuple(d["frames"].shape))
+    return d
 
 
 def main(argv: list[str] | None = None):
@@ -95,7 +124,9 @@ def main(argv: list[str] | None = None):
         cfg, lambda s: warmup_cosine(s, args.lr, 10, args.steps),
         grad_accum=args.grad_accum, grad_compress=args.grad_compress)
     state, history = run_training(
-        step_fn, state, lambda step: ds.batch(step, args.batch), args.steps,
+        step_fn, state,
+        lambda step: train_batch(cfg, ds, step, args.batch, args.seq),
+        args.steps,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         log_every=max(args.steps // 20, 1))
     if history:

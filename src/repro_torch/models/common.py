@@ -43,7 +43,7 @@ from ..distributed.sharding import MODEL, cols
 
 __all__ = ["dense_init", "dense_apply", "dense_spec", "matmul_rows",
            "sum_fixed", "norm_init", "norm_apply", "norm_spec", "rope_freqs",
-           "apply_rope", "ACT_FNS", "big_neg"]
+           "apply_rope", "ACT_FNS", "big_neg", "softcap"]
 
 
 def big_neg(dtype: torch.dtype) -> float:
@@ -200,6 +200,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, head_dim: int,
     y2 = x2 * cos + x1 * sin
     yr = torch.stack([y1, y2], dim=-1).reshape(xr.shape)
     return torch.cat([yr.to(x.dtype), xp], dim=-1)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """``tanh(x / cap) * cap``, or x for ``cap`` 0 (the reference's helper
+    for ``logit_softcap``, which none of its models calls)."""
+    return torch.tanh(x / cap) * cap if cap else x
 
 
 # jax.nn.gelu defaults to the tanh approximation

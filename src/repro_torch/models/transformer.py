@@ -69,7 +69,8 @@ __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill", "init_paged_cache", "paged_decode_step",
            "paged_prefill", "paged_verify_step", "gather_state_rows",
            "scatter_state_rows", "select_state_snapshot", "param_specs",
-           "paged_cache_specs"]
+           "paged_cache_specs", "supports_paged_prefill", "batch_specs",
+           "make_dummy_batch"]
 
 _MIXER_INIT = {"attn": attention.attn_init, "mamba": mamba.mamba_init,
                "rwkv6": rwkv6.rwkv_tmix_init}
@@ -90,19 +91,39 @@ _TRAIN = {"mamba": mamba.mamba_train, "rwkv6": rwkv6.rwkv_tmix_train}
 # leaf is a per-slot state row
 _POOL_KEYS = ("k_pages", "v_pages", "k_scale", "v_scale", "k_resid",
               "v_resid")
+# a front-end stub's input width: precomputed patch embeddings (vision) or
+# conv-stem frame features (audio), projected into d_model
+_FRONTEND_IN = {"vision_stub": 1024, "audio_stub": 512}
 
 
 def _check_ported(cfg: ModelConfig) -> None:
+    """Refuse what the port does not run.  ``logit_softcap`` and
+    ``tie_embeddings`` pass: the reference's models read neither."""
     for spec in cfg.period:
         if spec.mixer not in _MIXER_INIT or spec.ffn not in _FFN_INIT:
             raise NotImplementedError(
                 f"{cfg.name}: layer {spec} is not ported yet")
-    if cfg.is_encoder or cfg.logit_softcap or cfg.tie_embeddings:
-        raise NotImplementedError(f"{cfg.name}: not ported yet")
+    if cfg.frontend != "none" and cfg.frontend not in _FRONTEND_IN:
+        raise NotImplementedError(f"{cfg.name}: front end "
+                                  f"{cfg.frontend!r} not ported")
     if cfg.norm not in ("rmsnorm", "layernorm") \
             or cfg.ffn_act not in ACT_FNS:
         raise NotImplementedError(f"{cfg.name}: norm {cfg.norm!r} / "
                                   f"activation {cfg.ffn_act!r} not ported")
+
+
+def _check_decoder(cfg: ModelConfig) -> None:
+    """An encoder (bidirectional) arch has no decode step and no cache."""
+    _check_ported(cfg)
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name}: encoder archs have no decode step; "
+                         "run them through forward")
+
+
+def supports_paged_prefill(cfg: ModelConfig) -> bool:
+    """Chunked paged prefill covers every decoder layer kind; only the
+    front-end archs are left out: their inputs are not token prompts."""
+    return cfg.frontend == "none"
 
 
 def _spec(cfg: ModelConfig, i: int) -> LayerSpec:
@@ -131,11 +152,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             lp["alpha_r1"] = torch.tensor(0.05, device=dev)
             lp["alpha_r2"] = torch.tensor(0.05, device=dev)
         layers.append(lp)
-    return {"embed": {"table": table.to(dt)},
-            "layers": layers,
-            "final_norm": norm_init(cfg.d_model, cfg.norm, dev),
-            "lm_head": dense_init(cfg.d_model, cfg.padded_vocab, cfg.quant,
-                                  dtype=dt, **kw)}
+    params = {"embed": {"table": table.to(dt)},
+              "layers": layers,
+              "final_norm": norm_init(cfg.d_model, cfg.norm, dev),
+              "lm_head": dense_init(cfg.d_model, cfg.padded_vocab, cfg.quant,
+                                    dtype=dt, **kw)}
+    if cfg.frontend != "none":
+        # the stub's projections: patch embeddings through w1, gelu and
+        # w2 (vision), frame features through w1 (audio)
+        fe = {"w1": dense_init(_FRONTEND_IN[cfg.frontend], cfg.d_model,
+                               cfg.quant, dtype=dt, **kw)}
+        if cfg.frontend == "vision_stub":
+            fe["w2"] = dense_init(cfg.d_model, cfg.d_model, cfg.quant,
+                                  dtype=dt, **kw)
+        params["frontend"] = fe
+    return params
 
 
 def param_specs(cfg: ModelConfig) -> dict:
@@ -155,10 +186,16 @@ def param_specs(cfg: ModelConfig) -> dict:
             s["alpha_r1"] = ()
             s["alpha_r2"] = ()
         return s
-    return {"embed": {"table": (MODEL, DATA)},
-            "layers": [layer(_spec(cfg, i)) for i in range(cfg.n_layers)],
-            "final_norm": norm_spec(cfg.norm),
-            "lm_head": dense_spec(None, MODEL, cfg.quant)}
+    specs = {"embed": {"table": (MODEL, DATA)},
+             "layers": [layer(_spec(cfg, i)) for i in range(cfg.n_layers)],
+             "final_norm": norm_spec(cfg.norm),
+             "lm_head": dense_spec(None, MODEL, cfg.quant)}
+    if cfg.frontend != "none":
+        # the front end's projections stay whole on every rank
+        specs["frontend"] = {k: dense_spec(None, None, cfg.quant)
+                             for k in ("w1", "w2")
+                             if k == "w1" or cfg.frontend == "vision_stub"}
+    return specs
 
 
 def _state_specs(spec: LayerSpec) -> dict:
@@ -259,7 +296,7 @@ def init_paged_cache(cfg: ModelConfig, max_slots: int, num_pages: int,
     format.  Recurrent layers get zeroed state rows, ``max_slots + 1`` of
     them (the last is the scratch row of padded lanes)."""
     check_kv_format(kv_format)
-    _check_ported(cfg)
+    _check_decoder(cfg)
     dev = resolve_device(device)
     shape = (num_pages, page_size, cfg.n_kv_heads, cfg.head_dim)
     kv_dt = getattr(torch, cfg.dtype) if kv_format == "fp" else torch.int8
@@ -363,9 +400,45 @@ def _train_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
         cmix=lambda h: rwkv6.rwkv_cmix_train(lp["ffn"], h, cfg)[0])
 
 
+def _embed_inputs(params: dict, batch: dict, cfg: ModelConfig,
+                  batch_invariant: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The model's input rows (B, S, D) and their positions ``arange(S)``.
+    Without a front end, the embedding of ``batch["tokens"]``.  A vision
+    stub maps ``batch["patch_embeds"]`` (B, S_img, 1024) through ``w1``,
+    gelu and ``w2``, and its rows go first, then the text tokens' (S =
+    S_img + S_txt); an audio stub maps ``batch["frames"]`` (B, T, 512)
+    through ``w1``.  Embeddings are cast to the table's dtype first, as
+    the reference's."""
+    table = params["embed"]["table"]
+    kw = dict(batch_invariant=batch_invariant)
+
+    def tokens():
+        return _embed(table, batch["tokens"].to(device=table.device,
+                                                dtype=torch.long))
+
+    def stub_input(name):
+        return batch[name].to(device=table.device, dtype=table.dtype)
+    if cfg.frontend == "vision_stub":
+        fe = params["frontend"]
+        img = ACT_FNS["gelu"](dense_apply(fe["w1"], stub_input(
+            "patch_embeds"), cfg.quant, **kw))
+        img = dense_apply(fe["w2"], img, cfg.quant, **kw)
+        x = torch.cat([img, tokens()], dim=1)
+    elif cfg.frontend == "audio_stub":
+        x = dense_apply(params["frontend"]["w1"], stub_input("frames"),
+                        cfg.quant, **kw)
+    else:
+        x = tokens()
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32,
+                             device=x.device).expand(B, S)
+    return x, positions
+
+
 def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
             return_hidden: bool = False):
-    """Full-sequence forward over ``batch["tokens"]`` (B, S).
+    """Full-sequence forward over the batch's inputs: ``batch["tokens"]``
+    (B, S), or a front-end arch's embeddings (:func:`_embed_inputs`).
 
     ``mode="train"`` returns (logits (B, S, V), aux), or with
     ``return_hidden`` the final normed hidden state (B, S, D) in place of
@@ -386,12 +459,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
         raise ValueError(f"forward mode must be 'train' or 'prefill', "
                          f"got {mode!r}")
     _check_ported(cfg)
-    table = params["embed"]["table"]
-    tokens = batch["tokens"].to(device=table.device, dtype=torch.long)
-    B, S = tokens.shape
-    x = _embed(table, tokens)
-    positions = torch.arange(S, dtype=torch.int32,
-                             device=x.device).expand(B, S)
+    x, positions = _embed_inputs(params, batch, cfg,
+                                 batch_invariant=mode == "prefill")
     if mode == "prefill":
         return _prefill_forward(params, x, positions, cfg, return_hidden)
 
@@ -578,7 +647,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: str | torch.device | None = None) -> dict:
     """The dense (unpaged) decode cache: ``pos`` (a 0-d int32 tensor, the
     next token's position) and one zero entry a layer."""
-    _check_ported(cfg)
+    _check_decoder(cfg)
     dev = resolve_device(device)
     return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
             "layers": [_cache_entry_shapes(cfg, _spec(cfg, i), batch,
@@ -593,6 +662,7 @@ def decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     place and attend over the cache (``attention.attn_decode``);
     recurrent layers take one step of their recurrence.  Returns (logits
     (B, 1, V), the cache with ``pos`` advanced and the new states)."""
+    _check_decoder(cfg)
     pos = cache["pos"]
     x = _embed(params["embed"]["table"], tokens)               # (B, 1, D)
     layers = []
@@ -627,6 +697,7 @@ def paged_decode_step(params: dict, cache: dict, tokens: torch.Tensor,
     layers gather their state rows by ``slot_ids`` and write the new rows
     back.  The cache updates in place.  Returns (logits (S, V), cache).
     """
+    _check_decoder(cfg)
     idx = slot_ids.long()
     with split_lanes(tokens.shape[0]) as lanes:
         x = _embed(params["embed"]["table"], tokens)[lanes][:, None, :]
@@ -665,6 +736,7 @@ def paged_verify_step(params: dict, cache: dict, tokens: torch.Tensor,
     a lane with :func:`select_state_snapshot` and
     :func:`scatter_state_rows`.
     """
+    _check_decoder(cfg)
     idx = slot_ids.long()
     snaps = []
     with split_lanes(tokens.shape[0]) as lanes:
@@ -710,6 +782,9 @@ def paged_prefill(params: dict, cache: dict, tokens: torch.Tensor,
     At the end each lane's carry goes to its slot's state rows.  Returns
     (logits of each request's last prompt token (G, V), cache).
     """
+    if not supports_paged_prefill(cfg):
+        raise ValueError(f"{cfg.name}: a {cfg.frontend} arch's inputs are "
+                         "not token prompts; it has no paged prefill")
     G, L = tokens.shape
     if L % chunk:
         raise ValueError(f"prompt bucket {L} is not a multiple of the "
@@ -751,3 +826,48 @@ def paged_prefill(params: dict, cache: dict, tokens: torch.Tensor,
                                slot_ids)
         return gather_lanes(_logits(params, h_last[:, None, :], cfg)[:, 0]), \
             cache
+
+
+def batch_specs(cfg: ModelConfig, kind: str) -> dict:
+    """Logical axes of each field of a batch (``make_dummy_batch``'s
+    structure): the front end's inputs (or the tokens), and for
+    ``kind="train"`` the targets and the loss mask."""
+    if cfg.frontend == "vision_stub":
+        d = {"patch_embeds": ("batch", None, None), "tokens": ("batch", None)}
+    elif cfg.frontend == "audio_stub":
+        d = {"frames": ("batch", None, None)}
+    else:
+        d = {"tokens": ("batch", None)}
+    if kind == "train":
+        d["targets"] = ("batch", None)
+        d["loss_mask"] = ("batch", None)
+    return d
+
+
+def make_dummy_batch(cfg: ModelConfig, batch: int, seq: int, kind: str,
+                     img_tokens: int = 0,
+                     device: str | torch.device | None = None) -> dict:
+    """A zero batch of ``seq`` positions in :func:`batch_specs`'
+    structure: a vision stub's ``img_tokens`` (default ``max(seq // 4,
+    1)``) bf16 patch embeddings and the rest text tokens, an audio stub's
+    ``seq`` bf16 frames, otherwise ``seq`` tokens; ``kind="train"`` adds
+    zero targets and a loss mask of ones."""
+    dev = resolve_device(device)
+    out = {}
+    if cfg.frontend == "vision_stub":
+        img = img_tokens or max(seq // 4, 1)
+        out["patch_embeds"] = torch.zeros((batch, img, 1024),
+                                          dtype=torch.bfloat16, device=dev)
+        out["tokens"] = torch.zeros((batch, seq - img), dtype=torch.int32,
+                                    device=dev)
+    elif cfg.frontend == "audio_stub":
+        out["frames"] = torch.zeros((batch, seq, 512), dtype=torch.bfloat16,
+                                    device=dev)
+    else:
+        out["tokens"] = torch.zeros((batch, seq), dtype=torch.int32,
+                                    device=dev)
+    if kind == "train":
+        out["targets"] = torch.zeros((batch, seq), dtype=torch.int32,
+                                     device=dev)
+        out["loss_mask"] = torch.ones((batch, seq), device=dev)
+    return out

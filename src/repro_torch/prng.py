@@ -9,7 +9,7 @@ fold-like ``split`` and the counter layout of ``random_bits`` are those of
 that mode.  The names are the counterparts' in ``jax/_src/prng.py``
 (``threefry_seed``, ``iota_2x32_shape``, ``threefry2x32``) and
 ``jax/_src/random.py`` (``key``, ``fold_in``, ``split``, ``randint``,
-``uniform``).  ``lane_keys`` is the serving sampler's key schedule,
+``uniform``, ``bernoulli``, ``choice``, ``normal``).  ``lane_keys`` is the serving sampler's key schedule,
 ``fold_in(PRNGKey(seed), position)`` for a tensor of lanes at once.
 
 A key is a ``(2,)`` int64 tensor holding the two uint32 words of jax's
@@ -24,7 +24,7 @@ import torch
 
 __all__ = ["threefry2x32", "threefry_seed", "key", "fold_in", "split",
            "iota_2x32_shape", "random_bits", "randint", "lane_keys",
-           "uniform"]
+           "uniform", "bernoulli", "choice", "normal"]
 
 MASK = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -134,16 +134,93 @@ def lane_keys(seeds: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return torch.stack([y1, y2], dim=-1)
 
 
-def uniform(keys: torch.Tensor, n: int) -> torch.Tensor:
-    """``jax.random.uniform(k, (n,), float32)`` (``minval=0, maxval=1``)
-    for each of the ``(S, 2)`` keys: ``(S, n)`` float32 in [0, 1).
+def uniform(k: torch.Tensor, shape: int | tuple[int, ...],
+            minval: float = 0.0, maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(k, shape, float32, minval, maxval)``.  ``k`` is
+    one ``(2,)`` key, or a batch of keys ``(..., 2)``, each drawing its own
+    ``shape``: the result is ``(..., *shape)`` float32.
 
     32 bits per element from :func:`random_bits`' counter layout; the top
     23 become the mantissa of a float in [1, 2) (``bits >> 9 |
     0x3F800000``), less 1; then ``* (maxval - minval) + minval`` and
-    ``max(minval, .)``, which leave every value as it is."""
-    hi, lo = iota_2x32_shape((n,), keys.device)
-    y1, y2 = threefry2x32(keys[:, :1], keys[:, 1:], hi[None], lo[None])
+    ``max(minval, .)``.  XLA fuses the multiply and the add (one
+    rounding); the float64 product of two float32 values is exact, so
+    the sum taken in float64 and rounded once to float32 is that fused
+    result."""
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    hi, lo = iota_2x32_shape(shape, k.device)
+    lead = k.shape[:-1] + (1,) * len(shape)
+    y1, y2 = threefry2x32(k[..., 0].reshape(lead), k[..., 1].reshape(lead),
+                          hi, lo)
     bits = (y1 ^ y2) >> 9 | 0x3F800000
     f = bits.to(torch.int32).view(torch.float32) - 1.0
-    return torch.clamp_min(f * 1.0 + 0.0, 0.0)
+    lo_v = torch.tensor(minval, dtype=torch.float32, device=k.device)
+    hi_v = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    span = (hi_v - lo_v).to(torch.float64)
+    y = (f.to(torch.float64) * span + lo_v.to(torch.float64)) \
+        .to(torch.float32)
+    return torch.maximum(lo_v, y)
+
+
+def bernoulli(k: torch.Tensor, p: float,
+              shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)``: ``uniform < p`` with ``p``
+    in float32, a bool tensor."""
+    return uniform(k, shape) < torch.tensor(p, dtype=torch.float32,
+                                            device=k.device)
+
+
+def choice(k: torch.Tensor, a: torch.Tensor, shape: tuple[int, ...],
+           p: torch.Tensor) -> torch.Tensor:
+    """``jax.random.choice(k, a, shape, p=p)`` (with replacement) for a
+    1-d ``a``: the float32 cumulative ``p`` (summed left to right), ``r =
+    total * (1 - uniform)``, and the first index whose cumulative sum
+    reaches ``r`` (``searchsorted``, left)."""
+    pf = p.to(device=k.device, dtype=torch.float32)
+    acc = [pf[0]]
+    for v in pf[1:]:
+        acc.append(acc[-1] + v)
+    cum = torch.stack(acc)
+    r = cum[-1] * (1 - uniform(k, shape))
+    idx = torch.searchsorted(cum, r.reshape(-1)).reshape(r.shape)
+    return a.to(k.device)[idx]
+
+
+# Giles' single-precision erfinv polynomials (XLA's ``ErfInv32``), for
+# w = -log1p(-x^2) below 5 and from 5 up
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """The inverse error function as XLA approximates it in float32
+    (Giles' polynomials in ``w = -log1p(-x^2)``; +-inf at +-1), so that
+    :func:`normal` follows ``jax.random.normal`` to an ulp or so (the
+    log1p and the multiply-adds may round differently)."""
+    w = -torch.log1p(-x * x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return torch.where(x.abs() == 1, x * torch.finfo(torch.float32).max,
+                       p * x)
+
+
+def normal(k: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
+    """``jax.random.normal(k, shape)`` in float32: ``sqrt(2) * erf_inv(u)``
+    with u uniform on ``[nextafter(-1, 0), 1)``.  The draws u are jax's
+    bit for bit, and :func:`_erf_inv` is XLA's polynomial, so the values
+    agree within an ulp or so, not bit for bit."""
+    lo = torch.nextafter(torch.tensor(-1.0), torch.tensor(0.0)).item()
+    u = uniform(k, shape, lo, 1.0)
+    return torch.tensor(math.sqrt(2), dtype=torch.float32,
+                        device=k.device) * _erf_inv(u)

@@ -91,6 +91,21 @@ def _cfg_for_datapath(cfg: ModelConfig, datapath: str) -> ModelConfig:
     return cfg.scaled(quant=q)
 
 
+def _check_servable(cfg: ModelConfig) -> None:
+    """The engine serves token prompts through a decode step.  An encoder
+    has no decode step (the reference asserts as much) and a front-end
+    arch's inputs are embeddings, which the reference's engine never
+    passes; both are served through ``models.forward`` (and a causal
+    front-end arch through ``prefill`` / ``decode_step``)."""
+    if cfg.is_encoder:
+        raise ValueError(f"{cfg.name}: an encoder has no decode step; "
+                         "serve it through models.forward")
+    if cfg.frontend != "none":
+        raise ValueError(f"{cfg.name}: its {cfg.frontend} inputs are not "
+                         "token prompts; serve it through models.prefill "
+                         "and decode_step")
+
+
 def _check_params_device(params: dict, device: torch.device) -> None:
     table = params["embed"]["table"]
     if table.device.type != device.type:
@@ -178,6 +193,7 @@ class ServeEngine:
                 prefill_mode=prefill_mode, spec_decode=spec_decode,
                 draft_len=draft_len, mesh=mesh)
         config.validate()
+        _check_servable(cfg)
         self.device = resolve_device(device)
         _check_params_device(params, self.device)
         self.config = config
@@ -215,7 +231,13 @@ class ServeEngine:
         self._chunk = pad_pow2(max(config.prefill_chunk, config.page_size))
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(a, device=self.device)
+        """A step's lane array on the engine's device.  To the card it goes
+        through pinned host memory without blocking the host: the caching
+        host allocator keeps the pinned block until the copy has run."""
+        if self.device.type != "cuda":
+            return torch.as_tensor(a, device=self.device)
+        return torch.from_numpy(np.ascontiguousarray(a)).pin_memory().to(
+            self.device, non_blocking=True)
 
     @contextlib.contextmanager
     def _run(self):

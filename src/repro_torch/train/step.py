@@ -91,7 +91,10 @@ def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
             for p in leaves:
                 p.requires_grad_(True)
             loss, metrics = loss_fn(params, batch, cfg)
-            grads = torch.autograd.grad(loss, leaves)
+            # a leaf the loss never reads (an audio stub's token table)
+            # gets a zero gradient, as jax.grad gives it
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         return ({k: v.detach() for k, v in metrics.items()}, grads)
 
     def train_step(state: TrainState, batch: dict):

@@ -83,10 +83,13 @@ def _params(params_np: dict, cfg: ModelConfig, dev: torch.device) -> dict:
 
     def conv(a):
         return to_torch(a, dev)
-    return {"embed": tree_map(conv, params_np["embed"]),
-            "layers": layers,
-            "final_norm": tree_map(conv, params_np["final_norm"]),
-            "lm_head": tree_map(conv, params_np["lm_head"])}
+    out = {"embed": tree_map(conv, params_np["embed"]),
+           "layers": layers,
+           "final_norm": tree_map(conv, params_np["final_norm"]),
+           "lm_head": tree_map(conv, params_np["lm_head"])}
+    if "frontend" in params_np:         # a vision / audio stub's projections
+        out["frontend"] = tree_map(conv, params_np["frontend"])
+    return out
 
 
 def from_jax(tree_np, cfg: ModelConfig,

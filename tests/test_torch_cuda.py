@@ -864,6 +864,50 @@ def test_flash_bf16_kernel_takes_a_negative_scale(cuda):
     torch.testing.assert_close(lse, want_lse, **TOL)
 
 
+@pytest.mark.parametrize("B,S,Hq,Hkv", [
+    (2, 1500, 16, 16),      # hubert's encoder: 30 s of 50 frames/s
+    (1, 65, 4, 2),          # ragged: one key past a tile, GQA 2
+    (1, 1, 2, 1),           # a single row
+])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_head_dim_80(cuda, B, S, Hq, Hkv, causal, dtype):
+    """D 80 (hubert-xlarge's 1280 / 16): 5 k steps of 16 in q k^T, 10 n
+    tiles of 8 in P V, rows of 11 16-byte units in shared memory; the
+    tensor-core kernel's 256 threads copy 25 rows a pass, 6 idle."""
+    q, k, v = _flash_case(cuda, B, S, Hq, Hkv, 80, dtype, seed=S)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
+    tol = TOL if dtype == torch.float32 else dict(rtol=0, atol=1e-2)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+def test_flash_bf16_kernel_negative_scale_at_head_dim_80(cuda):
+    """The negated q at D 80: every 16-byte chunk is flipped exactly once
+    (a chunk with two copying threads would be flipped back)."""
+    q, k, v = _flash_case(cuda, 1, 300, 4, 2, 80, torch.bfloat16, seed=80)
+    out, lse = flash_attention_cuda(q, k, v, scale=-0.3)
+    want, want_lse = flash_attention_ref(q, k, v, True, scale=-0.3,
+                                         return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("S", [63, 300])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_at_gqa_7(cuda, S, causal, dtype):
+    """llava-next-34b's heads: 56 q heads over 8 KV heads, a group of 7
+    (q head h reads KV head h // 7), D 128."""
+    q, k, v = _flash_case(cuda, 2, S, 56, 8, 128, dtype, seed=7 * S)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
+    tol = TOL if dtype == torch.float32 else dict(rtol=0, atol=1e-2)
+    torch.testing.assert_close(out.float(), want.float(), **tol)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
 def test_flash_dtype_picks_the_tensor_core_or_cuda_core_kernel(cuda):
     """By the profiler's kernel names: a bf16 call runs the tensor-core
     kernel (mma.sync), a float32 call the CUDA-core one; one launch each."""
@@ -1453,6 +1497,66 @@ def test_mesh_gather_is_exact_on_cuda(cuda):
 
 
 # ---------------------------------------------------------------------------
+# the vision and audio front ends
+# ---------------------------------------------------------------------------
+
+# tiny float32 front-end configs at the kernel's head shapes: hubert's D 80
+# (bidirectional, LayerNorm, ungated gelu, no RoPE) and llava's GQA 7
+_TINY_FRONTEND = {
+    "hubert-xlarge": dict(n_layers=2, d_model=160, n_heads=2, n_kv_heads=2,
+                          d_ff=256, vocab_size=67),
+    "llava-next-34b": dict(n_layers=2, d_model=224, n_heads=14, n_kv_heads=2,
+                           d_ff=256, vocab_size=131),
+}
+
+
+def _frontend_batch(cfg, gen):
+    if cfg.frontend == "audio_stub":
+        return {"frames": 0.1 * torch.randn((2, 150, 512), generator=gen)}
+    return {"patch_embeds": 0.02 * torch.randn((2, 40, 1024), generator=gen),
+            "tokens": torch.randint(0, cfg.vocab_size, (2, 24),
+                                    generator=gen)}
+
+
+@pytest.mark.parametrize("arch", sorted(_TINY_FRONTEND))
+def test_frontend_forward_on_the_card_equals_the_cpu(cuda, arch):
+    """A tiny float32 front-end model without quantization: ``forward``'s
+    logits on the card (the float32 flash kernel, one launch a layer) and
+    llava's dense prefill + two decode steps within ``atol=rtol=1e-4`` of
+    the CPU's, as the dense path's card test."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import decode_step, forward, init_params, prefill
+    from repro_torch.serving.engine import _pad_prefill_cache
+    from repro_torch.tree import tree_map
+    cfg = get_arch(arch).scaled(dtype="float32", vocab_pad_multiple=32,
+                                **_TINY_FRONTEND[arch])
+    cfg = cfg.scaled(quant=cfg.quant.with_mode("none"))
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu = tree_map(lambda t: t.to(cuda), cpu)
+    batch = _frontend_batch(cfg, torch.Generator().manual_seed(1))
+    out = []
+    for params, dev in ((cpu, "cpu"), (gpu, cuda)):
+        b = {k: v.to(dev) for k, v in batch.items()}
+        build.reset_launches()
+        with torch.inference_mode():
+            logits = [forward(params, b, cfg)[0]]
+            if cfg.frontend == "vision_stub":
+                lg, cache = prefill(params, b, cfg)
+                cache = _pad_prefill_cache(cache, 66)
+                logits.append(lg)
+                for t in (3, 5):
+                    lg, cache = decode_step(params, cache, torch.full(
+                        (2, 1), t, device=dev), cfg)
+                    logits.append(lg)
+        out.append([t.cpu() for t in logits])
+        if dev is cuda:
+            assert build.LAUNCHES["flash_attention"] == cfg.n_layers * (
+                1 + (cfg.frontend == "vision_stub"))
+    for got, want in zip(out[1], out[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
 # the analysis gates on the card
 # ---------------------------------------------------------------------------
 
@@ -1490,3 +1594,32 @@ def test_contracts_and_host_pass_on_a_tiny_engine(cuda):
         assert not bad, bad
         host = next(r for r in results if r.passname == "host")
         assert "serving/engine.py:_decode" in " ".join(host.notes)
+
+
+def test_served_steps_sync_only_at_the_token_read_backs(cuda):
+    """A prefill and a decode step of a tiny engine, watched by
+    ``set_sync_debug_mode``: the lane tensors go up through pinned host
+    memory without a sync (ROADMAP Queue 3 item 13), so the only syncs
+    are the two token read-backs, one each."""
+    from repro_torch.analysis.contracts import provenance, sync_sites
+    from repro_torch.configs import get_arch
+    from repro_torch.models import init_params
+    from repro_torch.serving import ServeEngine
+    cfg = get_arch("granite-3-2b").scaled(
+        n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128,
+        vocab_size=64, vocab_pad_multiple=32, dtype="float32")
+    params = init_params(cfg, torch.Generator(cuda).manual_seed(0), cuda)
+    for dp, fmt in (("qat", "fp"), ("sc_int", "int8")):
+        eng = ServeEngine(params, cfg, max_slots=4, max_len=64,
+                          datapath=dp, kv_format=fmt, device=cuda)
+        for p in ([1, 2, 3], [4, 5, 6, 7], [8, 9]):
+            eng.submit(p, max_new_tokens=4)
+        torch.cuda.synchronize()
+        sites = []
+        with sync_sites(sites):
+            eng._admit()
+            eng.step()
+        torch.cuda.synchronize()
+        assert sorted(provenance(f) for _, f in sites) == [
+            "serving/engine.py:_decode",
+            "serving/engine.py:_prefill_group"], (dp, sites)
