@@ -68,7 +68,7 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    same tokens on the card as on the CPU;
 8. serve the recurrent mixers at full width (bf16, seeded random
    weights) on the same three pairs and traffic (8 new tokens):
-   rwkv6-7b whole (``--rwkv-layers``, default its 32 layers; d 4096, 64
+   rwkv6-7b at ``--rwkv-layers`` (default 16 of its 32 layers; d 4096, 64
    wkv heads of 64, d_ff 14336, vocab 65536) and jamba-1.5-large-398b at
    ``--jamba-layers`` (default 5 of its 72: mamba + dense, mamba + MoE,
    mamba + dense, mamba + MoE, attention + dense; d 8192, d_inner 16384,
@@ -172,6 +172,28 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    on 1024-bit streams, card == CPU bit for bit; and the examples
    ``python -m repro_torch.examples.quickstart`` and ``design_space
    --width 4608`` exit 0 on the card.
+14. the training mesh: 2 ranks on the one card over gloo train
+   full-width granite-3-2b at phase 6's depth, batch, dtype and
+   quantization on a (1, 2) mesh (tensor-parallel) and a (2, 1) mesh
+   (FSDP over "data"), 2 steps each from phase 6's seed and batches: each
+   step's loss equals phase 6's unsharded step within ``MESH_TRAIN_RTOL``
+   (its grad norm printed beside it, with the kinds of leaf that move it
+   most: under sc_qat the LSQ scales' gradients are sums that cancel,
+   Queue 3 item 7; so are the same (1, 2) step in float32 against the
+   unsharded one in float32, and the unsharded bf16 step against the
+   float32 one and against itself with layer 0's ``wo`` an ulp up); one
+   step with
+   quantization off equals the unsharded one in loss and grad norm
+   within the same tolerance, and the unsharded step on half the batch
+   (a planted fault) must not; every watched leaf (gathered) moves at
+   step 2,
+   each rank launches the flash kernel once a layer's forward and
+   recompute (on its 16 local query heads under (1, 2)); s / step, the
+   collectives' ms and each rank's peak memory are printed beside the
+   dry-run's predicted peak (``launch.dryrun.predict_train_peak``, traced
+   on the host meanwhile), labelled: two ranks share one H100.  Then a
+   tiny float32 step without quantization on both meshes on the card
+   equals the CPU's unsharded step at ``TINY_TRAIN_TOL``.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
@@ -188,7 +210,7 @@ reference's, and phase 9 holds that.
 
 Run from the repository root::
 
-    python3 chip_smoke.py                 # full run (20 / 4 / 32 / 5 / 2 /
+    python3 chip_smoke.py                 # full run (20 / 4 / 8 / 5 / 2 /
                                           # 48 / 4 layers)
     python3 chip_smoke.py --layers 2 --moe-layers 1 --rwkv-layers 2 \
         --jamba-layers 2 --rwkv-train-layers 1 --hubert-layers 2 \
@@ -953,6 +975,9 @@ def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
 
 
 FLASH_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=8, D=64)   # phase 6's attention
+# phase 14's: a rank of the (1, 2) training mesh attends with its half of
+# the query heads and the KV heads they read
+FLASH_LOCAL_SHAPE = dict(B=2, S=4096, Hq=16, Hkv=4, D=64)
 # jamba-1.5-large's attention layers over a train_4k sequence
 JAMBA_FLASH_SHAPE = dict(B=1, S=4096, Hq=64, Hkv=8, D=128)
 # phase 13's: hubert-xlarge's encoder (2 utterances of 1500 frames, 16
@@ -1012,9 +1037,14 @@ def check_flash(torch, dev, gen):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
     cases = []
+    # phase 14's shape draws its inputs from a stream of its own, so that
+    # the other cases keep the inputs they had before it came
+    local_gen = torch.Generator(dev).manual_seed(SEED + 14)
     # bf16 runs the tensor-core kernel, float32 the CUDA-core one
     for label, shp, causal, dtype in (
             ("train B2 S4096 causal", FLASH_SHAPE, True, torch.bfloat16),
+            ("train (1, 2) local heads B2 S4096 Hq16 Hkv4 causal",
+             FLASH_LOCAL_SHAPE, True, torch.bfloat16),
             ("jamba B1 S4096 Hq64 Hkv8 D128 causal", JAMBA_FLASH_SHAPE,
              True, torch.bfloat16),
             ("ragged S1000 bidirectional GQA",
@@ -1025,7 +1055,9 @@ def check_flash(torch, dev, gen):
              False, torch.bfloat16),
             ("llava prefill B2 S2896 Hq56 Hkv8 D128 causal",
              LLAVA_FLASH_SHAPE, True, torch.bfloat16)):
-        q, k, v = _flash_inputs(torch, gen, dev, **shp, dtype=dtype)
+        q, k, v = _flash_inputs(
+            torch, local_gen if shp is FLASH_LOCAL_SHAPE else gen, dev,
+            **shp, dtype=dtype)
         out, lse = flash_attention_cuda(q, k, v, causal=causal)
         want, want_lse = flash_attention_ref(q, k, v, causal,
                                              return_lse=True)
@@ -1090,7 +1122,8 @@ def check_flash(torch, dev, gen):
         f"{grad_errs[64]:.3g}, D128 {grad_errs[128]:.3g} (tol {GRAD_TOL}); "
         f"backward at the train shape (PyTorch ops) {bwd_ms:.2f} ms")
     cases[0].update(grad_max_abs_err=grad_errs[64], backward_ms=bwd_ms)
-    cases[1].update(grad_max_abs_err=grad_errs[128])
+    next(c for c in cases if c["label"].startswith("jamba")).update(
+        grad_max_abs_err=grad_errs[128])
     return cases
 
 
@@ -1798,6 +1831,8 @@ def train_arch(torch, dev, arch, layers, batch):
         steps.append(dict({k: float(v) for k, v in m.items()}, sec=sec))
         changed.append({k: (v != initial[k]).float().mean().item()
                         for k, v in _watch(state.params, arch).items()})
+        if i == 0:
+            by_kind = _grad_norms_by_kind(state, steps[-1]["grad_norm"])
         if i == 1:
             rounded = _rounded_away(torch, state, steps[-1]["lr"], arch)
         log(f"train {arch} step {i + 1}: loss={steps[-1]['loss']:.4f} "
@@ -1836,6 +1871,7 @@ def train_arch(torch, dev, arch, layers, batch):
                wkv_impl=cfg.rwkv_wkv_impl, lr=TRAIN_LR, setup_s=setup_s,
                state_gib=state_gib, steps=steps, changed=changed,
                update_over_half_ulp=rounded, sec_per_step=sec_per_step,
+               step1_grad_norm_by_kind=by_kind,
                tokens_per_s=batch * TRAIN_SEQ / sec_per_step,
                launches=launches)
     if arch == RWKV_ARCH:
@@ -2899,8 +2935,14 @@ def mesh_rank(rank, port, layers, queue):
 
 
 def _spawn_ranks(layers, timeout=900):
-    """Start the ranks of phase 11 and wait for them; every rank must
-    report and exit 0, and none outlives this call."""
+    """Start the ranks of phase 11 and wait for them."""
+    return _spawn(mesh_rank, (layers,), "phase 11", timeout)
+
+
+def _spawn(target, args, what, timeout=900):
+    """Start ``MESH_RANKS`` ranks of ``target(rank, port, *args, queue)``
+    and wait for them; every rank must report and exit 0, and none
+    outlives this call."""
     import socket
     import torch.multiprocessing as mp
     s = socket.socket()
@@ -2909,7 +2951,7 @@ def _spawn_ranks(layers, timeout=900):
     s.close()
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
-    procs = [ctx.Process(target=mesh_rank, args=(r, port, layers, queue),
+    procs = [ctx.Process(target=target, args=(r, port, *args, queue),
                          daemon=True) for r in range(MESH_RANKS)]
     for p in procs:
         p.start()
@@ -2929,7 +2971,7 @@ def _spawn_ranks(layers, timeout=900):
                 p.join()
     codes = [p.exitcode for p in procs]
     if errors or any(c != 0 for c in codes):
-        raise AssertionError(f"phase 11: mesh ranks failed (exit codes "
+        raise AssertionError(f"{what}: mesh ranks failed (exit codes "
                              f"{codes})\n" + "\n".join(errors))
     return [results[r] for r in range(MESH_RANKS)]
 
@@ -3525,26 +3567,33 @@ def circuit_models(torch, dev):
 
 def run_examples(torch):
     """``python -m repro_torch.examples.quickstart`` and ``design_space
-    --width 4608`` on the card: each must exit 0."""
+    --width 4608`` on the card, both at once: each must exit 0."""
     import os
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    out = {}
+    procs = {}
     for name, argv in (("quickstart", []),
                        ("design_space", ["--width", "4608"])):
-        t0 = time.perf_counter()
-        proc = subprocess.run(
+        procs[name] = (argv, time.perf_counter(), subprocess.Popen(
             [sys.executable, "-m", f"repro_torch.examples.{name}", *argv],
-            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
-        s = time.perf_counter() - t0
-        (OUT_DIR / f"example_{name}.txt").write_text(proc.stdout
-                                                     + proc.stderr)
-        if proc.returncode:
-            raise AssertionError(f"example {name} exited {proc.returncode}: "
-                                 f"{proc.stderr[-2000:]}")
-        tail = proc.stdout.strip().splitlines()[-2:]
-        out[name] = dict(seconds=s, tail=tail)
-        log(f"example {name} {' '.join(argv)}: exit 0 in {s:.1f} s; "
-            + " | ".join(tail))
+            cwd=ROOT, env=env, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = {}
+    try:
+        for name, (argv, t0, proc) in procs.items():
+            stdout, stderr = proc.communicate(timeout=300)
+            s = time.perf_counter() - t0
+            (OUT_DIR / f"example_{name}.txt").write_text(stdout + stderr)
+            if proc.returncode:
+                raise AssertionError(f"example {name} exited "
+                                     f"{proc.returncode}: {stderr[-2000:]}")
+            tail = stdout.strip().splitlines()[-2:]
+            out[name] = dict(seconds=s, tail=tail)
+            log(f"example {name} {' '.join(argv)}: exit 0 in {s:.1f} s; "
+                + " | ".join(tail))
+    finally:
+        for _, _, proc in procs.values():
+            proc.kill()
+            proc.wait()
     return out
 
 
@@ -3562,6 +3611,472 @@ def frontends_and_circuits(torch, dev, hubert_layers, llava_layers, smi):
                                                                     dev)
     out["circuit_models"] = circuit_models(torch, dev)
     out["examples"] = run_examples(torch)
+    return out, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the training mesh, 2 ranks of a (1, 2) and a (2, 1) mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_MESHES = ((1, 2), (2, 1))
+MESH_TRAIN_STEPS = 2
+# a sharded step against the unsharded one, set from phase 14's readings
+# (PERF.md, PR 24): losses within 5.7e-4 of phase 6's, quantization off
+# within 2.8e-4 (bf16 products whose partial sums add in another order);
+# 3e-3 sits 5x above them, and the fault the phase plants (one rank's
+# half of the batch taken as the whole, read unsharded) must read above
+# it.  Under sc_qat the grad norm is read, not held: its LSQ scales'
+# gradients are sums that cancel (ROADMAP Queue 3 item 7; the CPU tests
+# hold them leaf by leaf in float64), so it is read in bf16 and float32,
+# and by kind of leaf
+MESH_TRAIN_RTOL = 3e-3
+
+
+def _grad_norms_by_kind(state, grad_norm):
+    """Step 1's gradient norm over each kind of leaf (its path without the
+    layer index), from AdamW's first moment after one step from zero:
+    ``m = 0.1 g`` clipped to norm 1.  Under a mesh every rank takes part
+    and each leaf's blocks count once."""
+    import re
+
+    from repro_torch.distributed.sharding import fsdp_active, spec_of
+    from repro_torch.optim import global_norm
+    from repro_torch.tree import tree_paths
+    kinds: dict[str, list] = {}
+    for path, leaf in tree_paths(state.opt["m"]):
+        kinds.setdefault(re.sub(r"^layers/\d+/", "", path), []).append(leaf)
+    mesh = fsdp_active()
+    return {k: 10 * max(grad_norm, 1.0) * float(global_norm(
+        v, [spec_of(t) for t in v] if mesh else None))
+        for k, v in sorted(kinds.items())}
+
+
+def _norm_shift(got, want):
+    """The three kinds of leaf that move the squared grad norm most
+    between two steps (:func:`_grad_norms_by_kind`), each with its share
+    of the whole squared norm's change and its own relative gap."""
+    d = {k: got[k] ** 2 - want[k] ** 2 for k in want}
+    total = sum(abs(v) for v in d.values()) or 1.0
+    top = sorted(d, key=lambda k: -abs(d[k]))[:3]
+    return {k: dict(share=abs(d[k]) / total,
+                    gap=abs(got[k] - want[k]) / max(want[k], 1e-30))
+            for k in top}
+
+
+def _gathered_watch(torch, params):
+    """The watched leaves, whole (every rank takes part)."""
+    from repro_torch.distributed.sharding import unshard_tree
+    return {k: v.clone() for k, v in unshard_tree(_watch(params)).items()}
+
+
+def _timed_collectives(torch):
+    """Wrap the mesh's collectives (gather, all-reduce, reduce-scatter) with
+    host timers around a synchronize; returns (restore, the ms list)."""
+    from repro_torch.distributed import sharding
+    spent, saved = [], {}
+
+    def wrap(inner):
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            torch.cuda.synchronize()
+            spent.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+    for name in ("_all_gather", "_all_reduce", "_reduce_scatter"):
+        saved[name] = getattr(sharding, name)
+        setattr(sharding, name, wrap(saved[name]))
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(sharding, name, fn)
+    return restore, spent
+
+
+def _tiny_mesh_case(torch):
+    """Phase 6's tiny granite, float32, quantization off: its config, the
+    CPU's initial params and batch."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    qat = _tiny_cfg("granite-3-2b")
+    cfg = qat.scaled(quant=qat.quant.with_mode("none"))
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=100,
+                        seed=SEED).batch(0, 4)
+    return cfg, params, batch
+
+
+def _tiny_step(torch, cfg, params, batch, rules=None):
+    """One step of the tiny case (``tiny_train_card_equals_cpu``'s
+    schedule) under ``rules``: metrics and the whole params / m / v, on
+    the host."""
+    from repro_torch.distributed.sharding import (mesh_rules, shard_tree,
+                                                  unshard_tree)
+    from repro_torch.models import param_specs
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_paths
+    with mesh_rules(rules):
+        if rules is not None:
+            params = shard_tree(params, param_specs(cfg, serving=False),
+                                rules)
+        step = build_train_step(cfg, lambda s: warmup_cosine(
+            s + 1, 1e-3, 2, 10))
+        state, m = step(init_train_state(params, cfg), batch)
+        whole = unshard_tree(state)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            **{name: {k: v.cpu() for k, v in tree_paths(tree)}
+               for name, tree in (("params", whole.params),
+                                  ("m", whole.opt["m"]),
+                                  ("v", whole.opt["v"]))}}
+
+
+def _granite_step(torch, dev, layers, mode="none", float32=False,
+                  rows=TRAIN_BATCH, rules=None, nudge=False):
+    """One step (lr 0) of phase 6's granite at ``layers`` under
+    quantization ``mode``, from phase 6's seed and the first ``rows`` of
+    its first batch, in bf16 or (``float32``) on the bf16 weights upcast,
+    with ``nudge`` layer 0's ``wo`` scaled by 1 + 2^-7 (each entry about
+    one bf16 ulp up), under ``rules`` or unsharded: its loss and grad
+    norm (under sc_qat also :func:`_grad_norms_by_kind`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import shard_tree
+    from repro_torch.models import init_params, param_specs
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_map
+    base = get_arch("granite-3-2b").scaled(n_layers=layers)
+    cfg = base.scaled(quant=base.quant.with_mode(mode))
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    if nudge:
+        params["layers"][0]["mixer"]["wo"]["w"].mul_(1 + 2 ** -7)
+    if float32:
+        cfg = cfg.scaled(dtype="float32")
+        params = tree_map(lambda t: t.float() if t.dtype == torch.bfloat16
+                          else t, params)
+    if rules is not None:
+        params = shard_tree(params, param_specs(cfg, serving=False), rules)
+    step_fn = build_train_step(cfg, lambda s: warmup_cosine(
+        s, TRAIN_LR, 1, TRAIN_STEPS))
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                        seed=SEED).batch(0, TRAIN_BATCH)
+    batch = {k: v[:rows] for k, v in batch.items()}
+    state, m = step_fn(init_train_state(params, cfg), batch)
+    out = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    if mode == "sc_qat":
+        out["by_kind"] = _grad_norms_by_kind(state, out["grad_norm"])
+    del params, state
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank_work(torch, layers, dev):
+    """One rank of phase 14 (both ranks run it): full-width granite-3-2b at
+    ``layers`` trained on each mesh of ``TRAIN_MESHES`` for
+    ``MESH_TRAIN_STEPS`` steps from phase 6's seed, schedule and batches
+    (the launch counts set to 0 just before, the collectives timed at
+    the last step, the peak memory of the steps); then the tiny float32
+    step on the card under each mesh."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.distributed.sharding import mesh_rules, shard_tree
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.launch.mesh import _grid, training_rules
+    from repro_torch.models import param_specs
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    out = {}
+    for shape in TRAIN_MESHES:
+        name = "x".join(map(str, shape))
+        rules = training_rules(_grid(shape, ("data", "model"), "gloo"))
+        cfg, params = _granite(torch, dev, layers)
+        ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                         seed=SEED)
+        with mesh_rules(rules):
+            params = shard_tree(params, param_specs(cfg, serving=False),
+                                rules)
+            torch.cuda.empty_cache()
+            state = init_train_state(params, cfg)
+            step_fn = build_train_step(cfg, lambda s: warmup_cosine(
+                s, TRAIN_LR, 1, TRAIN_STEPS))
+            before = _gathered_watch(torch, state.params)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            kbuild.reset_launches()
+            steps, collective_ms = [], None
+            for i in range(MESH_TRAIN_STEPS):
+                batch = ds.batch(i, TRAIN_BATCH)
+                last = i == MESH_TRAIN_STEPS - 1
+                restore, spent = _timed_collectives(torch) if last \
+                    else (lambda: None, None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    state, m = step_fn(state, batch)
+                    torch.cuda.synchronize()
+                finally:
+                    restore()
+                steps.append(dict({k: float(v) for k, v in m.items()},
+                                  sec=time.perf_counter() - t0))
+                if i == 0:
+                    by_kind = _grad_norms_by_kind(state,
+                                                  steps[-1]["grad_norm"])
+                if last:
+                    collective_ms = dict(ms=sum(spent), calls=len(spent))
+            launches = dict(kbuild.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            after = _gathered_watch(torch, state.params)
+        changed = {k: (after[k] != v).float().mean().item()
+                   for k, v in before.items()}
+        del state, params, before, after
+        torch.cuda.empty_cache()
+        with mesh_rules(rules):
+            off = _granite_step(torch, dev, layers, rules=rules)
+            qat32 = _granite_step(torch, dev, layers, "sc_qat", True,
+                                  rules=rules) if shape[1] > 1 else None
+        out[name] = dict(
+            steps=steps, launches=launches, peak_bytes=peak,
+            collectives_last_step=collective_ms, changed=changed,
+            quant_off=off, sc_qat_float32=qat32,
+            step1_grad_norm_by_kind=by_kind)
+        torch.cuda.empty_cache()
+    cfg, cpu, batch = _tiny_mesh_case(torch)
+    out["tiny"] = {}
+    for shape in TRAIN_MESHES:
+        rules = training_rules(_grid(shape, ("data", "model"), "gloo"))
+        res = _tiny_step(torch, cfg, _to(cpu, dev), batch, rules)
+        # numpy through the queue: a tensor would need this process alive
+        out["tiny"]["x".join(map(str, shape))] = {
+            k: v if k == "metrics" else {n: t.numpy() for n, t in v.items()}
+            for k, v in res.items()}
+    return out
+
+
+def train_mesh_rank(rank, port, layers, queue):
+    """The entry point of a spawned rank of phase 14: the gloo group over
+    localhost, the kernels the parent built (loaded, not rebuilt), then
+    :func:`train_mesh_rank_work`."""
+    import datetime
+    import traceback
+
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    try:
+        import torch.distributed as dist
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group(
+            "gloo", init_method=f"tcp://localhost:{port}",
+            world_size=MESH_RANKS, rank=rank,
+            timeout=datetime.timedelta(seconds=600))
+        from repro_torch.kernels import build as kbuild
+        kbuild.library()
+        out = train_mesh_rank_work(torch, layers, torch.device("cuda"))
+        dist.barrier()
+        dist.destroy_process_group()
+        queue.put((rank, out, None))
+    except BaseException:
+        queue.put((rank, None, traceback.format_exc()))
+        raise
+
+
+def _predicted_peaks(layers):
+    """The dry-run's peak a rank for phase 14's configurations, traced on
+    the host (meta tensors, a fake process group) in a process of its own
+    while the ranks train: returns the reader of its result."""
+    code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
+            "from repro_torch.launch.dryrun import predict_train_peak; "
+            "print(json.dumps({'x'.join(map(str, m)): predict_train_peak("
+            f"'granite-3-2b', {layers}, {TRAIN_BATCH}, {TRAIN_SEQ}, m) "
+            f"for m in {TRAIN_MESHES!r}}}))")
+    proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT / "src")],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+    def read():
+        try:
+            stdout, stderr = proc.communicate(timeout=600)
+        finally:
+            proc.kill()
+        if proc.returncode:
+            raise AssertionError(f"phase 14: the dry-run's prediction "
+                                 f"failed:\n{stderr[-3000:]}")
+        return json.loads(stdout.strip().splitlines()[-1])
+    return read
+
+
+def _tiny_errors(torch, got, want):
+    """A tiny step against the CPU's at ``TINY_TRAIN_TOL``'s measures,
+    with phase 6's small-gradient rule: where the first-step gradient is
+    below 1e-6 the step ``lr g / (|g| + eps)`` is its rounding's, and
+    those parameter entries are held within 2 lr."""
+    errs = {k: abs(got["metrics"][k] - want["metrics"][k])
+            / abs(want["metrics"][k]) for k in ("loss", "grad_norm")}
+    slack = 2 * want["metrics"]["lr"]
+    errs["params"] = max(
+        ((a - b).abs() - torch.where(m.abs() < (1 - 0.9) * 1e-6, slack,
+                                     0.0)).max().item()
+        for a, b, m in zip(got["params"].values(), want["params"].values(),
+                           want["m"].values()))
+    for k in ("m", "v"):
+        errs[k] = max(((a - b).abs().max()
+                       / b.abs().max().clamp(min=1e-30)).item()
+                      for a, b in zip(got[k].values(), want[k].values()))
+    return errs
+
+
+def training_mesh(torch, dev, layers, training, smi):
+    """Phase 14 (see the module docstring): the ranks' runs against phase
+    6's unsharded steps (``training``), the tiny card steps against the
+    CPU's unsharded step, the peaks beside the dry-run's.  Returns
+    (results, the main path's launches, both ranks')."""
+    torch.cuda.empty_cache()
+    predicted = _predicted_peaks(layers)
+    off_ref = _granite_step(torch, dev, layers)
+    # the planted fault: a rank that trains on its half of the batch
+    half = _granite_step(torch, dev, layers, rows=TRAIN_BATCH // 2)
+    fault = {k: abs(half[k] - off_ref[k]) / abs(off_ref[k]) for k in half}
+    if not fault["grad_norm"] > MESH_TRAIN_RTOL:
+        raise AssertionError(f"phase 14: half the batch reads {fault}, "
+                             f"inside the tolerance {MESH_TRAIN_RTOL}")
+    qat32_ref = _granite_step(torch, dev, layers, "sc_qat", True)
+    nudged = _granite_step(torch, dev, layers, "sc_qat", nudge=True)
+    t0 = time.perf_counter()
+    ranks = _spawn(train_mesh_rank, (layers,), "phase 14")
+    wall_s = time.perf_counter() - t0
+    tcfg, tcpu, tbatch = _tiny_mesh_case(torch)
+    want_tiny = _tiny_step(torch, tcfg, tcpu, tbatch)
+    peaks = predicted()
+    ref = training["steps"]
+    out = {"nvidia_smi": smi, "label": MESH_LABEL, "ranks_wall_s": wall_s,
+           "tolerance": MESH_TRAIN_RTOL, "meshes": {},
+           "half_batch_fault": dict(fault, values=half, whole=off_ref),
+           "sc_qat_float32_unsharded": qat32_ref,
+           "sc_qat_nudged_unsharded": nudged,
+           "sc_qat_nudged_gap": abs(nudged["grad_norm"]
+                                    - training["steps"][0]["grad_norm"])
+           / training["steps"][0]["grad_norm"],
+           "sc_qat_bf16_vs_float32_unsharded": abs(
+               ref[0]["grad_norm"] - qat32_ref["grad_norm"])
+           / qat32_ref["grad_norm"],
+           "tiny_card_vs_cpu": {}}
+    out["sc_qat_precision_shift"] = _norm_shift(
+        qat32_ref["by_kind"], training["step1_grad_norm_by_kind"])
+    out["sc_qat_nudge_shift"] = _norm_shift(
+        nudged["by_kind"], training["step1_grad_norm_by_kind"])
+    log(f"train mesh: the planted fault (half the batch, unsharded) reads "
+        f"loss {fault['loss']:.3g}, grad norm {fault['grad_norm']:.3g} off "
+        f"the whole batch's (tol {MESH_TRAIN_RTOL}); sc_qat step 1 "
+        f"unsharded grad norm bf16 {ref[0]['grad_norm']:.1f}, float32 "
+        f"{qat32_ref['grad_norm']:.1f} (relative gap "
+        f"{out['sc_qat_bf16_vs_float32_unsharded']:.3g}; moved most by "
+        + ", ".join(f"{k} {v['share']:.2f} {v['gap']:.3g}" for k, v in
+                    out["sc_qat_precision_shift"].items())
+        + f"); layer 0's wo an ulp up: grad norm {nudged['grad_norm']:.1f} "
+        f"(relative gap {out['sc_qat_nudged_gap']:.3g}; moved most by "
+        + ", ".join(f"{k} {v['share']:.2f} {v['gap']:.3g}" for k, v in
+                    out["sc_qat_nudge_shift"].items())
+        + f") [{smi}]")
+    launches = {}
+    for shape in TRAIN_MESHES:
+        name = "x".join(map(str, shape))
+        per = [r[name] for r in ranks]
+        gaps = {}
+        for label, got_of, want in (
+                [(f"sc_qat step {i + 1} {k}",
+                  lambda p, i=i, k=k: p["steps"][i][k], ref[i][k])
+                 for i in range(MESH_TRAIN_STEPS)
+                 for k in ("loss", "grad_norm")]
+                + [(f"quant-off {k}", lambda p, k=k: p["quant_off"][k],
+                    off_ref[k]) for k in ("loss", "grad_norm")]
+                + ([("sc_qat float32 grad_norm",
+                     lambda p: p["sc_qat_float32"]["grad_norm"],
+                     qat32_ref["grad_norm"])] if shape[1] > 1 else [])):
+            got = [got_of(p) for p in per]
+            if len(set(got)) != 1 or not math.isfinite(got[0]):
+                raise AssertionError(f"phase 14 {name} {label}: the ranks' "
+                                     f"values {got}")
+            gaps[label] = abs(got[0] - want) / abs(want)
+        held = {k: v for k, v in gaps.items() if "grad_norm" not in k
+                or k.startswith("quant-off")}
+        errs = list(held.values())
+        if not max(errs) <= MESH_TRAIN_RTOL:
+            raise AssertionError(
+                f"phase 14 {name}: off the unsharded steps by {held} (tol "
+                f"{MESH_TRAIN_RTOL}): {[p['steps'] for p in per]} against "
+                f"{ref[:2]}; quantization off "
+                f"{[p['quant_off'] for p in per]} against {off_ref}")
+        want = layers * 2 * MESH_TRAIN_STEPS      # forward + recompute
+        for p in per:
+            if not all(c > 0 for c in p["changed"].values()):
+                raise AssertionError(f"phase 14 {name}: step 2 left a "
+                                     f"watched leaf unchanged: "
+                                     f"{p['changed']}")
+            if p["launches"]["flash_attention"] != want:
+                raise AssertionError(
+                    f"phase 14 {name}: a rank launched the flash kernel "
+                    f"{p['launches']['flash_attention']} times, expected "
+                    f"{want}")
+            for k, v in p["launches"].items():
+                launches[k] = launches.get(k, 0) + v
+        pred = peaks[name]["peak"]
+        shift = {"sc_qat bf16": _norm_shift(
+            per[0]["step1_grad_norm_by_kind"],
+            training["step1_grad_norm_by_kind"])}
+        if per[0]["sc_qat_float32"] is not None:
+            shift["sc_qat float32"] = _norm_shift(
+                per[0]["sc_qat_float32"]["by_kind"], qat32_ref["by_kind"])
+        log(f"train mesh {name}: step 1's squared grad norm against the "
+            f"unsharded step's, moved most by (share of the change, the "
+            f"kind's own gap) " + "; ".join(
+                f"{lab}: " + ", ".join(f"{k} {v['share']:.2f} "
+                                       f"{v['gap']:.3g}"
+                                       for k, v in sh.items())
+                for lab, sh in shift.items()))
+        out["meshes"][name] = dict(
+            per_rank=per, gaps=gaps, quant_off_unsharded=off_ref,
+            grad_norm_shift=shift,
+            predicted_peak_bytes=pred, prediction_trace_s=peaks[name][
+                "trace_s"],
+            peak_over_predicted=[p["peak_bytes"] / pred for p in per])
+        for r, p in enumerate(per):
+            c = p["collectives_last_step"]
+            log(f"train mesh {name} rank {r}: losses "
+                f"{[round(s['loss'], 4) for s in p['steps']]} grad norms "
+                f"{[round(s['grad_norm'], 1) for s in p['steps']]} (phase "
+                f"6: {[round(s['loss'], 4) for s in ref[:2]]}, "
+                f"{[round(s['grad_norm'], 1) for s in ref[:2]]}; quant-off "
+                f"step {p['quant_off']} against {off_ref}; relative gaps "
+                + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+                + f"; held: {', '.join(held)}, tol {MESH_TRAIN_RTOL}); "
+                f"s/step {[round(s['sec'], 2) for s in p['steps']]}, the "
+                f"last step's collectives {c['ms']:.1f} ms over "
+                f"{c['calls']} calls (a sync around each); peak "
+                f"{p['peak_bytes'] / 2**30:.2f} GiB, the dry-run's "
+                f"prediction {pred / 2**30:.2f} GiB (measured / predicted "
+                f"{p['peak_bytes'] / pred:.3f}); flash launches "
+                f"{p['launches']['flash_attention']} [{MESH_LABEL}; {smi}]")
+    for shape in TRAIN_MESHES:
+        name = "x".join(map(str, shape))
+        for r, rk in enumerate(ranks):
+            got = {k: v if k == "metrics" else {
+                n: torch.from_numpy(a) for n, a in v.items()}
+                for k, v in rk["tiny"][name].items()}
+            errs = _tiny_errors(torch, got, want_tiny)
+            bad = {k: e for k, e in errs.items()
+                   if e > TINY_TRAIN_TOL["metric" if k in ("loss",
+                                                           "grad_norm")
+                                         else k]}
+            if bad:
+                raise AssertionError(f"phase 14 tiny {name} rank {r}: the "
+                                     f"card's mesh step != the CPU's {bad}")
+            out["tiny_card_vs_cpu"][f"{name} rank {r}"] = errs
+            log(f"tiny train mesh {name} rank {r}: card == the CPU's "
+                "unsharded step ("
+                + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+                + f"; tolerances {TINY_TRAIN_TOL})")
     return out, launches
 
 
@@ -3583,7 +4098,10 @@ def main() -> int:
     ap.add_argument("--moe-layers", type=int, default=4,
                     help="qwen3-moe-235b-a22b depth to serve in phase 7 "
                          "(of 94; full width always)")
-    ap.add_argument("--rwkv-layers", type=int, default=32,
+    # 16 of 32 since phase 14 came: the whole run stays inside its 1200 s
+    # limit (the sc_int_approx prefill is phase 8's largest cost; at 32
+    # layers the run took 1110 s of phases, at 16 1053 s)
+    ap.add_argument("--rwkv-layers", type=int, default=16,
                     help="rwkv6-7b depth to serve in phase 8 (of 32; full "
                          "width always)")
     ap.add_argument("--jamba-layers", type=int, default=5,
@@ -3752,6 +4270,13 @@ def main() -> int:
         launches[k] += v
     mark(13)
 
+    # phase 14: the training mesh, 2 ranks of (1, 2) and (2, 1) meshes
+    train_mesh, tm_launches = training_mesh(torch, dev, args.layers,
+                                            training, smi)
+    for k, v in tm_launches.items():
+        launches[k] += v
+    mark(14)
+
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
         return {"name": name, "route": "cuda", "source": source,
@@ -3796,7 +4321,7 @@ def main() -> int:
          "recurrent_training": recurrent_training, "dense_serving": dense,
          "sampled_serving": sampled, "mesh_serving": mesh,
          "analysis": analysis, "roofline": analysis["roofline"],
-         "frontends": frontends,
+         "frontends": frontends, "training_mesh": train_mesh,
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

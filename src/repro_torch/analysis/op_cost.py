@@ -16,8 +16,9 @@ counterpart here.  The port runs the step and counts it:
   ``chip_smoke.py`` bounds the kernels with.  The aten ops issued inside
   a front door (its plain version on the CPU, the wrapper's scratch on
   the card) are not counted again;
-* each gather of a mesh (``torch.distributed.all_gather``): the bytes it
-  brings a rank.
+* each collective of a mesh (``distributed.sharding``'s gathers,
+  all-reduces and reduce-scatters, ``sharding.wire_log``): the bytes it
+  brings a rank, by mesh axes.
 
 Precision classes: ``bf16`` (bf16 / fp16), ``int8``, ``fp64`` and
 ``fp32`` (float32 and the integer work of the CUDA cores), each at its
@@ -167,8 +168,10 @@ def _op_flops(name: str, func, args, kwargs, out) -> int:
 
 
 def _ptr(t: torch.Tensor) -> int:
+    """The identity of ``t``'s storage (meta tensors have no data
+    pointer; the storage object identifies them all the same)."""
     try:
-        return t.untyped_storage().data_ptr()
+        return t.untyped_storage()._cdata
     except (RuntimeError, NotImplementedError):
         return id(t)
 
@@ -184,6 +187,7 @@ class StepCost:
     flops: dict = field(default_factory=dict)       # precision -> ops
     hbm_bytes: float = 0.0
     wire_bytes: float = 0.0
+    wire_by_axes: dict = field(default_factory=dict)  # "data,model" -> B
     launches: dict = field(default_factory=dict)    # kernel -> calls
     by_site: dict = field(default_factory=dict)     # site -> [ops, bytes]
 
@@ -320,10 +324,10 @@ def _front_doors(inside: list, pending: list):
 
 def step_cost(run) -> StepCost:
     """Run ``run()`` (one step) and count it."""
-    from .contracts import count_gathers
+    from ..distributed.sharding import wire_log
     cost = StepCost()
-    inside, pending, gathers = [False], [], []
-    with _front_doors(inside, pending), count_gathers(gathers), \
+    inside, pending = [False], []
+    with _front_doors(inside, pending), wire_log() as wire, \
             _Counter(cost, inside):
         run()
     for kernel, formula, a, kw in pending:
@@ -335,5 +339,8 @@ def step_cost(run) -> StepCost:
         elif kernel == "approx_bsn" and kw.get("cycles", 1) > 1:
             name = "approx_bsn_temporal"
         cost.launches[name] = cost.launches.get(name, 0) + 1
-    cost.wire_bytes = float(sum(nb * (n - 1) for nb, n, _ in gathers))
+    for _, names, nbytes in wire:
+        key = ",".join(names)
+        cost.wire_by_axes[key] = cost.wire_by_axes.get(key, 0.0) + nbytes
+    cost.wire_bytes = float(sum(cost.wire_by_axes.values()))
     return cost

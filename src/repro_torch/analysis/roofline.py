@@ -27,6 +27,8 @@ from __future__ import annotations
 import json
 from dataclasses import asdict, dataclass
 
+from ..configs.base import ShapeConfig
+
 __all__ = ["HwSpec", "H100_SXM", "HBM_BPS", "BF16_OPS", "INT8_OPS",
            "FP32_OPS", "FP64_OPS", "StepShape", "RooflineReport", "bound",
            "count_params", "model_flops", "roofline_from_step"]
@@ -80,18 +82,10 @@ def bound(nbytes: float, ops: float, ops_rate: float,
 # analytic parameter / FLOP counts (as the reference's)
 # ---------------------------------------------------------------------------
 
-@dataclass(frozen=True)
-class StepShape:
-    """The reference's ``ShapeConfig``: a step's sequence length, its
-    batch, and its kind (train | prefill | decode)."""
-    name: str
-    seq_len: int
-    global_batch: int
-    kind: str
-
-    @property
-    def tokens(self) -> int:
-        return self.seq_len * self.global_batch
+# the reference's ``ShapeConfig`` (a step's sequence length, global batch
+# and kind), under the name this module's callers used before the configs
+# held it
+StepShape = ShapeConfig
 
 
 def count_params(cfg, active_only: bool = False) -> float:

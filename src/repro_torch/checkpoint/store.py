@@ -13,6 +13,15 @@ Port of ``repro.checkpoint.store`` with the same on-disk layout:
 numpy has no bfloat16, so a bf16 leaf is written as its uint16 bits with
 ``"bfloat16"`` in the manifest; a reference checkpoint's bf16 leaves
 (ml_dtypes' raw 2-byte records) read back the same way.
+
+* **a mesh**: a tree of blocks (``sharding.shard_tree``) is saved whole:
+  every rank takes part in gathering each leaf, and rank 0 writes the
+  files, in the same layout;
+* **elastic**: :func:`restore_checkpoint` with ``rules`` and ``specs``
+  returns this rank's block of each leaf under the current mesh (the
+  reference's ``shardings=``), whatever mesh saved it.  A checkpoint the
+  reference wrote, its layers stacked over a leading period axis under
+  ``periods/p<i>/``, restores into the port's per-layer tree.
 """
 
 from __future__ import annotations
@@ -26,7 +35,8 @@ import threading
 import numpy as np
 import torch
 
-from ..tree import tree_map, tree_paths
+from ..distributed.sharding import current_rules, shard_tree, unshard_tree
+from ..tree import tree_leaves, tree_map, tree_paths
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
            "wait_for_saves"]
@@ -46,7 +56,14 @@ def _to_host(t: torch.Tensor) -> tuple[np.ndarray, str]:
 
 def save_checkpoint(ckpt_dir: str, step: int, tree, async_: bool = True):
     """Save a tree at ``ckpt_dir/step_{step}``; with ``async_`` it returns
-    once the leaves are on the host."""
+    once the leaves are on the host.  A tree of mesh blocks is gathered
+    whole first (every rank must call it) and only rank 0 writes."""
+    if current_rules() is not None and any(
+            hasattr(v, "mesh_spec") for v in tree_leaves(tree)):
+        tree = unshard_tree(tree)
+        import torch.distributed as dist
+        if dist.is_initialized() and dist.get_rank() != 0:
+            return
     host = {k: _to_host(v) for k, v in tree_paths(tree)}
 
     def _write():
@@ -96,24 +113,70 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int, target_tree):
+def _stacked_key(k: str, manifest: dict) -> tuple[str, int] | None:
+    """A reference checkpoint's (key, row) of the port's ``layers/<i>/...``
+    leaf: the reference stacks layer ``i`` at row ``i // P`` of
+    ``periods/p<i % P>/...``, P the period's length."""
+    parts = k.split("/")
+    if parts[0] != "layers":
+        return None
+    period = {key.split("/")[1] for key in manifest["leaves"]
+              if key.startswith("periods/")}
+    if not period:
+        return None
+    i, n = int(parts[1]), len(period)
+    return "/".join(["periods", f"p{i % n}", *parts[2:]]), i // n
+
+
+def _spec_paths(specs, prefix: str = "") -> list[tuple[str, tuple]]:
+    """``(path, spec)`` pairs of a spec tree, whose leaves are spec tuples
+    (a named tuple is a node, as in ``tree_paths``)."""
+    if specs is None:
+        return []
+    if isinstance(specs, tuple) and not hasattr(specs, "_fields"):
+        return [(prefix[:-1], specs)]
+    if hasattr(specs, "_fields"):
+        specs = specs._asdict()
+    items = specs.items() if isinstance(specs, dict) else enumerate(specs)
+    return [pair for k, v in items
+            for pair in _spec_paths(v, f"{prefix}{k}/")]
+
+
+def _load_leaf(base: str, meta: dict) -> torch.Tensor:
+    arr = np.load(os.path.join(base, meta["file"]))
+    if meta["dtype"] == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, target_tree, *,
+                       rules=None, specs=None):
     """Restore into the structure of ``target_tree``: each leaf comes back
-    with the target leaf's dtype and device."""
+    with the target leaf's dtype and device.  With ``rules`` (the current
+    mesh) and ``specs`` (physical spec tuples mirroring the tree, None for
+    a leaf kept whole) each leaf is this rank's block, tagged as
+    ``shard_tree`` tags it; the target's leaves may be whole or blocks."""
     base = os.path.join(ckpt_dir, f"step_{step}")
     with open(os.path.join(base, "manifest.json")) as f:
         manifest = json.load(f)
     paths = iter(k for k, _ in tree_paths(target_tree))
+    leaf_spec = dict(_spec_paths(specs))
 
     def load(tgt: torch.Tensor) -> torch.Tensor:
         k = next(paths)
-        meta = manifest["leaves"][k]
-        arr = np.load(os.path.join(base, meta["file"]))
-        if tuple(arr.shape) != tuple(tgt.shape):
-            raise ValueError(f"checkpoint leaf {k}: shape {arr.shape} != "
-                             f"target {tuple(tgt.shape)}")
-        if meta["dtype"] == "bfloat16":
-            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        if k in manifest["leaves"]:
+            t = _load_leaf(base, manifest["leaves"][k])
         else:
-            t = torch.from_numpy(arr)
-        return t.to(dtype=tgt.dtype, device=tgt.device)
+            ref = _stacked_key(k, manifest)
+            if ref is None or ref[0] not in manifest["leaves"]:
+                raise KeyError(f"checkpoint has no leaf {k}")
+            t = _load_leaf(base, manifest["leaves"][ref[0]])[ref[1]]
+        whole = tuple(t.shape)
+        t = t.to(dtype=tgt.dtype, device=tgt.device)
+        if rules is not None:
+            t = shard_tree(t, tuple(leaf_spec.get(k) or ()), rules)
+        if tuple(tgt.shape) not in (whole, tuple(t.shape)):
+            raise ValueError(f"checkpoint leaf {k}: shape {whole} != "
+                             f"target {tuple(tgt.shape)}")
+        return t
     return tree_map(load, target_tree)

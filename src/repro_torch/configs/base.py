@@ -13,8 +13,8 @@ from dataclasses import dataclass, replace
 
 from ..core.sc_layers import SC_OFF, SCQuantConfig
 
-__all__ = ["LayerSpec", "ModelConfig", "register_arch", "get_arch",
-           "list_archs"]
+__all__ = ["LayerSpec", "ModelConfig", "ShapeConfig", "SHAPES",
+           "shape_by_name", "register_arch", "get_arch", "list_archs"]
 
 
 @dataclass(frozen=True)
@@ -110,6 +110,12 @@ class ModelConfig:
     def has_ffn(self, kind: str) -> bool:
         return any(spec.ffn == kind for spec in self.period)
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can the arch run 500k contexts?  True when a recurrent mixer
+        (mamba or rwkv6) carries the context, as the reference's rule."""
+        return self.has_mixer("mamba") or self.has_mixer("rwkv6")
+
     def with_quant(self, mode: str, **kw) -> "ModelConfig":
         return replace(self, quant=dataclasses.replace(
             self.quant if self.quant.enabled else SCQuantConfig(),
@@ -118,6 +124,32 @@ class ModelConfig:
     def scaled(self, **kw) -> "ModelConfig":
         """Reduced copy for smoke tests."""
         return replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One step's input shape: a sequence length, the global batch, and
+    its kind (train | prefill | decode)."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
+
+
+def shape_by_name(name: str) -> ShapeConfig:
+    return SHAPES[name]
 
 
 _ARCH_REGISTRY: dict[str, ModelConfig] = {}

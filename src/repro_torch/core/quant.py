@@ -40,7 +40,7 @@ class _LSQ(torch.autograd.Function):
     """
 
     @staticmethod
-    def forward(ctx, x, alpha, qn: int, qp: int):
+    def forward(ctx, x, alpha, qn: int, qp: int, numel: int | None):
         a = alpha.to(x.dtype)
         xs = x / a
         q = torch.clamp(torch.round(xs), qn, qp)
@@ -48,7 +48,8 @@ class _LSQ(torch.autograd.Function):
         ctx.qn, ctx.qp = qn, qp
         ctx.alpha_shape = tuple(alpha.shape)
         # a Python float: x.numel() can pass 2**31
-        ctx.gscale = 1.0 / float(x.numel() * max(qp, 1)) ** 0.5
+        n = x.numel() if numel is None else numel
+        ctx.gscale = 1.0 / float(n * max(qp, 1)) ** 0.5
         return q * a
 
     @staticmethod
@@ -60,31 +61,35 @@ class _LSQ(torch.autograd.Function):
         dalpha = torch.where(xs <= qn, float(qn),
                              torch.where(xs >= qp, float(qp), q - xs))
         galpha = g.to(torch.float32) * dalpha.to(torch.float32) * ctx.gscale
-        return gx, _reduce_to_shape(galpha, ctx.alpha_shape), None, None
+        return gx, _reduce_to_shape(galpha, ctx.alpha_shape), None, None, \
+            None
 
 
 def lsq_fake_quant(x: torch.Tensor, alpha: torch.Tensor, qn: int,
-                   qp: int) -> torch.Tensor:
+                   qp: int, numel: int | None = None) -> torch.Tensor:
     """``alpha * clip(round(x / alpha), qn, qp)`` with the LSQ gradient.
 
     The value path runs in ``x.dtype``: alpha is cast to it first, so a
     bf16 model stays bf16 and the rounding boundary is computed against
     the cast alpha, as in the reference; alpha's gradient accumulates in
-    float32.
+    float32.  ``numel`` (default ``x.numel()``) sizes the gradient's
+    scale: a rank's block of a sharded tensor passes the whole tensor's.
     """
-    return _LSQ.apply(x, alpha, qn, qp)
+    return _LSQ.apply(x, alpha, qn, qp, numel)
 
 
-def ternary_weight_quant(w: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+def ternary_weight_quant(w: torch.Tensor, alpha: torch.Tensor,
+                         numel: int | None = None) -> torch.Tensor:
     """2-bit-BSL (ternary) weight fake-quant: levels {-1, 0, +1}."""
-    return lsq_fake_quant(w, alpha, -1, 1)
+    return lsq_fake_quant(w, alpha, -1, 1, numel)
 
 
 def thermometer_act_quant(x: torch.Tensor, alpha: torch.Tensor,
-                          bsl: int) -> torch.Tensor:
+                          bsl: int, numel: int | None = None
+                          ) -> torch.Tensor:
     """L-bit-BSL activation fake-quant: levels [-L/2, L/2]."""
     half = bsl // 2
-    return lsq_fake_quant(x, alpha, -half, half)
+    return lsq_fake_quant(x, alpha, -half, half, numel)
 
 
 def init_alpha(x: torch.Tensor, qp: int) -> torch.Tensor:

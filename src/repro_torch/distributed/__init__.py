@@ -1,11 +1,13 @@
-"""Distributed serving and training: the (data, model) mesh's sharding
-rules and collectives (``sharding.py``) and int8 gradient compression
-(``compression.py``)."""
+"""Distributed serving and training: the mesh's sharding rules and
+collectives (``sharding.py``; the serving and the training mappings) and
+int8 gradient compression (``compression.py``)."""
 
 from .compression import compress_decompress, compressed_psum, init_error_state
 from .sharding import (MeshRules, ProcessMesh, current_rules, fit_spec,
-                       mesh_rules, serving_mapping, shard_tree)
+                       mesh_rules, multipod_mapping, serving_mapping,
+                       shard_tree, unshard_tree)
 
 __all__ = ["MeshRules", "ProcessMesh", "current_rules", "fit_spec",
-           "mesh_rules", "serving_mapping", "shard_tree",
-           "compress_decompress", "compressed_psum", "init_error_state"]
+           "mesh_rules", "multipod_mapping", "serving_mapping", "shard_tree",
+           "unshard_tree", "compress_decompress", "compressed_psum",
+           "init_error_state"]

@@ -58,12 +58,15 @@ def _quant_int8(g: torch.Tensor, scale: torch.Tensor | None = None):
     return q, scale
 
 
-def compress_decompress(grads, error_state, shared=None):
+def compress_decompress(grads, error_state, shared=None, specs=None):
     """The error-feedback int8 round trip.  ``grads`` and ``error_state``
     have one structure (a None error leaves its gradient as it is);
     ``shared``, of the same structure, gives each leaf a key, and the
-    leaves of one key share one scale (default: a scale a leaf).
-    Returns (grads', error_state')."""
+    leaves of one key share one scale (default: a scale a leaf).  Under
+    a training mesh the leaves are blocks: ``specs`` (a spec a leaf, in
+    ``tree_leaves`` order) names the axes each is cut over, and a scale
+    is the maximum over every rank's block.  Returns (grads',
+    error_state')."""
     gs = tree_leaves(grads)
     es = [e for _, e in _aligned(grads, error_state)]
     keys = list(range(len(gs))) if shared is None \
@@ -75,6 +78,11 @@ def compress_decompress(grads, error_state, shared=None):
         if f is not None:
             m = torch.max(torch.abs(f))
             amax[k] = m if k not in amax else torch.maximum(amax[k], m)
+    if specs is not None:
+        from .sharding import _names, pmax
+        cut = {k: tuple(a for ax in s for a in _names(ax))
+               for k, s in zip(keys, specs)}
+        amax = {k: pmax(m, cut[k]) for k, m in amax.items()}
     out_g, out_e = [], []
     for g, e, f, k in zip(gs, es, gf, keys):
         if f is None:

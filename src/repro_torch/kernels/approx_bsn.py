@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from .build import launch, stream_of
+from .build import kernel_op, launch, on_card, stream_of
 
 __all__ = ["MAX_STAGES", "validate_stages", "approx_bsn_plain",
            "approx_bsn_temporal_plain", "approx_bsn_cuda",
@@ -82,7 +82,7 @@ def approx_bsn_temporal_plain(counts: torch.Tensor, *, in_bsl: int,
 
 def _launch(kernel: str, counts: torch.Tensor, in_bsl: int, stages: Stages,
             cycles: int) -> torch.Tensor:
-    if not counts.is_cuda:
+    if not on_card(counts):
         raise ValueError(f"{kernel}_cuda needs a CUDA tensor")
     if counts.dtype != torch.int32 or counts.ndim != 2:
         raise ValueError(f"counts must be (R, cycles * width) int32, got "
@@ -100,13 +100,27 @@ def _launch(kernel: str, counts: torch.Tensor, in_bsl: int, stages: Stages,
     validate_stages(width, in_bsl, stages)
     if rows >= 2 ** 31:
         raise ValueError(f"{rows} rows exceed one launch's grid")
-    out = torch.empty((rows,), dtype=torch.int32, device=counts.device)
+    return _approx_op(counts, in_bsl, [v for st in stages for v in st],
+                      cycles, kernel == "approx_bsn_temporal")
+
+
+def _approx_out(counts, *_):
+    return torch.empty((counts.shape[0],), dtype=torch.int32,
+                       device=counts.device)
+
+
+@kernel_op("approx_bsn", _approx_out)
+def _approx_op(counts: torch.Tensor, in_bsl: int, flat: list[int],
+               cycles: int, temporal: bool) -> torch.Tensor:
+    rows, total = counts.shape
+    out = _approx_out(counts)
     if rows == 0:
         return out
-    flat = [v for st in stages for v in st]
     arr = (ctypes.c_int * len(flat))(*flat)
-    launch(kernel, "approx_bsn_launch", counts.data_ptr(), out.data_ptr(),
-           rows, width, cycles, in_bsl, arr, len(stages), stream_of(counts))
+    launch("approx_bsn_temporal" if temporal else "approx_bsn",
+           "approx_bsn_launch", counts.data_ptr(), out.data_ptr(), rows,
+           total // cycles, cycles, in_bsl, arr, len(flat) // 3,
+           stream_of(counts))
     return out
 
 

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import launch, stream_of
+from .build import kernel_op, launch, on_card, stream_of
 
 __all__ = ["SORT_DTYPES", "bsn_sort_plain", "bsn_sort_cuda"]
 
@@ -57,7 +57,7 @@ def bsn_sort_cuda(x: torch.Tensor, *, descending: bool = True
     """Launch ``csrc/bsn_sort.cu`` on ``(R, L)`` rows on the card.  Raises
     on anything the kernel does not take (a row above a block's shared
     memory is refused at launch with the byte count)."""
-    if not x.is_cuda:
+    if not on_card(x):
         raise ValueError("bsn_sort_cuda needs a CUDA tensor")
     if x.dtype not in SORT_DTYPES:
         raise ValueError(f"bsn_sort takes int8, int32 or float32, got "
@@ -69,6 +69,16 @@ def bsn_sort_cuda(x: torch.Tensor, *, descending: bool = True
     _check_length(length)
     if rows >= 2 ** 31 or length >= 2 ** 31:
         raise ValueError(f"{tuple(x.shape)} exceeds one launch")
+    return _sort_op(x, bool(descending))
+
+
+def _sort_out(x, descending):
+    return torch.empty_like(x)
+
+
+@kernel_op("bsn_sort", _sort_out)
+def _sort_op(x: torch.Tensor, descending: bool) -> torch.Tensor:
+    rows, length = x.shape
     out = torch.empty_like(x)
     launch("bsn_sort", "bsn_sort_launch", x.data_ptr(), out.data_ptr(),
            rows, length, SORT_DTYPES[x.dtype], int(descending), stream_of(x))

@@ -15,11 +15,20 @@ point (which returns ``cudaGetLastError()`` after its launch, or refuses
 arguments its kernel cannot take, such as a shared-memory layout above
 what a block has), raises on a non-zero code with the entry point's
 message, and adds one to that kernel's count in :data:`LAUNCHES`.
+
+Each wrapper's launch is also a ``torch.library`` custom op
+(:func:`kernel_op`) with a shape function beside it: a call on plain
+CUDA tensors runs the launch directly, past the op's dispatcher and its
+host time, and a call on meta tensors (the dry-run's full-size trace,
+which holds no data; :func:`on_card`) or fake tensors goes through the
+op and gets its outputs' shapes without building or launching anything,
+so the trace follows the kernel route, not the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -33,7 +42,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["KERNELS", "LAUNCHES", "GEOMETRY_FIELDS", "BuildResult", "build",
-           "library", "launch", "geometry", "reset_launches", "stream_of"]
+           "library", "launch", "geometry", "reset_launches", "stream_of",
+           "kernel_op", "on_card"]
 
 CSRC = Path(__file__).with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
@@ -220,6 +230,34 @@ def geometry(entry: str, *args) -> dict[str, int]:
         msg = library().repro_kernels_error_string(rc).decode()
         raise RuntimeError(f"{entry}: refused ({rc}: {msg})")
     return dict(zip(GEOMETRY_FIELDS, (int(v) for v in out)))
+
+
+def on_card(t: torch.Tensor) -> bool:
+    """Does ``t`` take a kernel's route: a CUDA tensor, or a meta tensor
+    standing for one in the dry-run's trace (PyTorch's CPU build runs no
+    autograd on fake CUDA tensors, so the trace runs on meta)?"""
+    return t.is_cuda or t.is_meta
+
+
+def kernel_op(name: str, fake):
+    """Register the decorated function (a wrapper's allocation and launch,
+    its arguments annotated) as the custom op ``repro_torch::<name>``,
+    with ``fake`` (same arguments) giving its outputs on fake tensors.
+    The decorated name calls the function itself when every tensor
+    argument is a plain tensor with storage, the op otherwise."""
+    def wrap(fn):
+        op = torch.library.custom_op(f"repro_torch::{name}", fn,
+                                     mutates_args=())
+        op.register_fake(fake)
+
+        @functools.wraps(fn)
+        def call(*args):
+            if all(type(a) is torch.Tensor and not a.is_meta
+                   for a in args if isinstance(a, torch.Tensor)):
+                return fn(*args)
+            return op(*args)
+        return call
+    return wrap
 
 
 def reset_launches() -> None:

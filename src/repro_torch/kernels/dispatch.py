@@ -4,7 +4,9 @@ Port of ``repro.kernels.dispatch`` with one rule in place of backend
 knobs: a CUDA tensor goes to the hand-written CUDA kernel (which launches
 or raises), a CPU tensor goes to the kernel's plain PyTorch version.
 There is no scope, no environment variable and no row threshold that
-would send a CUDA tensor to the plain version.
+would send a CUDA tensor to the plain version.  A meta tensor (the
+dry-run's trace, ``launch/dryrun.py``) takes the kernel's route too, where
+the kernel's custom op gives the outputs' shapes (``build.on_card``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..core.bsn import ApproxBSNSpec, spec_stages
 from . import ref
+from .build import on_card
 from .approx_bsn import (approx_bsn_cuda, approx_bsn_plain,
                          approx_bsn_temporal_cuda, approx_bsn_temporal_plain)
 from .flash_attention import FlashAttention, flash_attention_cuda
@@ -48,11 +51,11 @@ def approx_bsn(counts: torch.Tensor, spec: ApproxBSNSpec, *,
     kw = dict(in_bsl=spec.in_bsl, stages=spec_stages(spec))
     if cycles > 1:
         kw["cycles"] = cycles
-        run = (approx_bsn_temporal_cuda if counts.is_cuda
+        run = (approx_bsn_temporal_cuda if on_card(counts)
                else approx_bsn_temporal_plain)
     else:
-        run = approx_bsn_cuda if counts.is_cuda else approx_bsn_plain
-    if counts.is_cuda:
+        run = approx_bsn_cuda if on_card(counts) else approx_bsn_plain
+    if on_card(counts):
         x2 = x2.contiguous()
     return run(x2, **kw).reshape(batch)
 
@@ -65,7 +68,7 @@ def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
     compressed pools pass ``k_scale``/``v_scale`` (+ sc ``k_resid``/
     ``v_resid``) in ``kv_aux``."""
     aux = kv_aux or {}
-    if q.is_cuda:
+    if on_card(q):
         return paged_attn_decode_cuda(q, k_pages, v_pages, page_tables,
                                       lengths, kv_format=kv_format, **aux)
     return ref.paged_attn_decode_ref(q, k_pages, v_pages, page_tables,
@@ -96,7 +99,7 @@ def paged_attn_prefill(q: torch.Tensor, k_pages: torch.Tensor,
     """One chunk of paged prefill, (G, C, Hkv, Gq, D) at positions
     ``[start, start + C)`` against every page written so far, causal."""
     aux = kv_aux or {}
-    if q.is_cuda:
+    if on_card(q):
         return paged_attn_prefill_cuda(q, k_pages, v_pages, page_tables,
                                        start=start, kv_format=kv_format,
                                        **aux)
@@ -113,7 +116,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``1/sqrt(D)``) in float32.  The forward is the flash kernel on CUDA
     tensors and the plain version on CPU ones; the gradient is
     ``kernels/flash_attention.flash_attention_backward`` on both."""
-    run = flash_attention_cuda if q.is_cuda else _flash_plain
+    run = flash_attention_cuda if on_card(q) else _flash_plain
     return FlashAttention.apply(q, k, v, causal, scale, run)
 
 
@@ -293,11 +296,14 @@ def _approx_args(rows, width, cycles, stages, temporal=False) -> tuple:
 
 def _flash_cases() -> list:
     """Phase 3's flash shapes: the training step's (B 2, S 4096, Hq 32,
-    Hkv 8, D 64) and jamba's (D 128), bf16; hubert-xlarge's encoder (D
+    Hkv 8, D 64), a (1, 2) training mesh rank's half of its heads (Hq 16,
+    Hkv 4) and jamba's (D 128), bf16; hubert-xlarge's encoder (D
     80, bidirectional) and llava-next-34b's dense prefill (GQA 7, D 128);
     a ragged bidirectional one; the float32 kernel's, its gradient
     check's at D 128 and the tiny float32 hubert's head at D 80."""
     return [("train B2 S4096", dict(B=2, S=4096, Hq=32, Hkv=8, D=64)),
+            ("train (1, 2) local heads", dict(B=2, S=4096, Hq=16, Hkv=4,
+                                              D=64)),
             ("jamba B1 S4096 D128", dict(B=1, S=4096, Hq=64, Hkv=8, D=128)),
             ("hubert B2 S1500 D80 bidirectional",
              dict(B=2, S=1500, Hq=16, Hkv=16, D=80, causal=False)),

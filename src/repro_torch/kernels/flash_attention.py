@@ -31,7 +31,7 @@ from typing import Callable
 
 import torch
 
-from .build import launch, stream_of
+from .build import kernel_op, launch, on_card, stream_of
 
 __all__ = ["flash_attention_cuda", "flash_attention_backward",
            "FlashAttention"]
@@ -64,7 +64,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``1/sqrt(D)``).  Returns (out (B, S, Hq, D) in q's dtype, lse
     (B, Hq, S) float32).
     """
-    if not q.is_cuda:
+    if not on_card(q):
         raise ValueError("the flash-attention kernel needs CUDA tensors")
     if q.dtype not in _DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -80,13 +80,26 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check("v", v, q, (B, S, Hkv, D))
     if scale is None:
         scale = 1.0 / math.sqrt(D)
-    out = torch.empty_like(q)
-    lse = torch.empty((B, Hq, S), dtype=torch.float32, device=q.device)
+    return _flash_op(q, k, v, bool(causal), float(scale))
+
+
+def _flash_outputs(q, k, v, causal, scale):
+    B, S, Hq, _ = q.shape
+    return (torch.empty_like(q),
+            torch.empty((B, Hq, S), dtype=torch.float32, device=q.device))
+
+
+@kernel_op("flash_attention", _flash_outputs)
+def _flash_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              causal: bool, scale: float
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    B, S, Hq, D = q.shape
+    out, lse = _flash_outputs(q, k, v, causal, scale)
     if q.numel() == 0:
         return out, lse
     launch("flash_attention", "flash_attention_launch", q.data_ptr(),
            k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), B, S,
-           Hq, Hkv, D, float(scale), int(causal), _DTYPES[q.dtype],
+           Hq, k.shape[2], D, scale, int(causal), _DTYPES[q.dtype],
            stream_of(q))
     return out, lse
 

@@ -15,6 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from . import ref
+from .build import on_card
 from .bsn_sort import bsn_sort_cuda, bsn_sort_plain
 from .ternary_matmul import operand_multiple, ternary_matmul_cuda
 
@@ -69,7 +70,7 @@ def ternary_matmul(x_q: torch.Tensor, w_int: torch.Tensor,
     m = math.prod(batch)
     x2 = x_q.reshape(m, k)
     t2 = None if thresholds_q is None else thresholds_q.to(torch.int32)
-    if not x_q.is_cuda:
+    if not on_card(x_q):
         out = ref.ternary_matmul_ref(x2, w_int, t2)
     else:
         x2, w2, t2 = pad_operands(x2, w_int, t2, operand_multiple(m))
@@ -90,7 +91,7 @@ def _batched(x_q: torch.Tensor, w_int: torch.Tensor,
             or x_q.shape[2] != w_int.shape[1]):
         raise ValueError(f"expected x_q (E, M, K) and w_int (E, K, N), got "
                          f"{tuple(x_q.shape)} and {tuple(w_int.shape)}")
-    if not x_q.is_cuda:
+    if not on_card(x_q):
         return ref.ternary_matmul_ref(x_q, w_int)
     n = w_int.shape[2]
     x2, w2, _ = pad_operands(x_q, w_int, None, operand_multiple(x_q.shape[1]))
@@ -101,7 +102,7 @@ def _batched(x_q: torch.Tensor, w_int: torch.Tensor,
 def sort_rows(x: torch.Tensor, *, descending: bool = True) -> torch.Tensor:
     """The bitonic network on ``(R, L)`` rows, L a power of two: the
     ``bsn_sort`` kernel on a CUDA tensor, its plain version on the CPU."""
-    if x.is_cuda:
+    if on_card(x):
         return bsn_sort_cuda(x, descending=descending)
     return bsn_sort_plain(x, descending=descending)
 

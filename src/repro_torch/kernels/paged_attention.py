@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 
 from ..core.kv_quant import check_kv_format
-from .build import launch, library, stream_of
+from .build import kernel_op, launch, library, on_card, stream_of
 
 __all__ = ["paged_attn_decode_cuda", "paged_attn_prefill_cuda"]
 
@@ -48,7 +48,7 @@ def _pools(q, kv_format, k_pages, v_pages, k_scale, v_scale, k_resid,
            v_resid):
     """Validate the pool operands; returns the kernel's KV kind code."""
     check_kv_format(kv_format)
-    if not q.is_cuda:
+    if not on_card(q):
         raise ValueError("the paged-attention kernels need CUDA tensors")
     if q.dtype not in _Q_DTYPES:
         raise ValueError(f"q must be float32 or bfloat16, got {q.dtype}")
@@ -106,6 +106,22 @@ def paged_attn_decode_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     maxp = page_tables.shape[1]
     _check("page_tables", page_tables, torch.int32, (S, maxp), q.device)
     _check("lengths", lengths, torch.int32, (S,), q.device)
+    return _decode_op(q, k_pages, v_pages, page_tables, lengths, k_scale,
+                      v_scale, k_resid, v_resid, kind)
+
+
+def _empty_like_q(q, *_):
+    return torch.empty_like(q)
+
+
+@kernel_op("paged_attn_decode", _empty_like_q)
+def _decode_op(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+               page_tables: torch.Tensor, lengths: torch.Tensor,
+               k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
+               k_resid: torch.Tensor | None, v_resid: torch.Tensor | None,
+               kind: int) -> torch.Tensor:
+    S, Hkv, G, D = q.shape
+    page, maxp = k_pages.shape[1], page_tables.shape[1]
     out = torch.empty_like(q)
     if S == 0 or maxp == 0:
         return out.zero_()
@@ -161,7 +177,19 @@ def paged_attn_prefill_cuda(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError(f"page_tables width {width} < the "
                          f"{(start + C) // page} pages seen so far")
     _check("page_tables", page_tables, torch.int32, (G, width), q.device)
-    bq = max(1, min(block_q, C))
+    return _prefill_op(q, k_pages, v_pages, page_tables, k_scale, v_scale,
+                       k_resid, v_resid, start, max(1, min(block_q, C)),
+                       kind)
+
+
+@kernel_op("paged_attn_prefill", _empty_like_q)
+def _prefill_op(q: torch.Tensor, k_pages: torch.Tensor,
+                v_pages: torch.Tensor, page_tables: torch.Tensor,
+                k_scale: torch.Tensor | None, v_scale: torch.Tensor | None,
+                k_resid: torch.Tensor | None, v_resid: torch.Tensor | None,
+                start: int, bq: int, kind: int) -> torch.Tensor:
+    G, C, Hkv, Gq, D = q.shape
+    page, width = k_pages.shape[1], page_tables.shape[1]
     out = torch.empty_like(q)
     if G == 0 or C == 0:
         return out

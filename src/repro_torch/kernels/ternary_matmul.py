@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from .build import launch, stream_of
+from .build import kernel_op, launch, on_card, stream_of
 
 __all__ = ["DP4A_MAX_ROWS", "operand_multiple", "ternary_matmul_cuda"]
 
@@ -40,8 +40,8 @@ def ternary_matmul_cuda(x_q: torch.Tensor, w_int: torch.Tensor,
     Raises on anything the kernel does not take (the C entry point checks
     the multiples and alignment)."""
     si = thresholds_q is not None
-    if not (x_q.is_cuda and w_int.is_cuda
-            and (not si or thresholds_q.is_cuda)):
+    if not (on_card(x_q) and on_card(w_int)
+            and (not si or on_card(thresholds_q))):
         raise ValueError("ternary_matmul_cuda needs CUDA tensors")
     if x_q.dtype != torch.int8 or w_int.dtype != torch.int8:
         raise ValueError(f"x_q and w_int must be int8, got {x_q.dtype} and "
@@ -73,8 +73,23 @@ def ternary_matmul_cuda(x_q: torch.Tensor, w_int: torch.Tensor,
     if max(e, m, n, k) >= 2 ** 31:
         raise ValueError(f"shape {tuple(x_q.shape)} x {tuple(w_int.shape)} "
                          f"exceeds int32 indexing")
-    out = torch.empty((*x_q.shape[:-1], n), dtype=torch.int32,
-                      device=x_q.device)
+    return _ternary_op(x_q, w_int, thresholds_q)
+
+
+def _ternary_out(x_q, w_int, thresholds_q):
+    return torch.empty((*x_q.shape[:-1], w_int.shape[-1]),
+                       dtype=torch.int32, device=x_q.device)
+
+
+@kernel_op("ternary_matmul", _ternary_out)
+def _ternary_op(x_q: torch.Tensor, w_int: torch.Tensor,
+                thresholds_q: torch.Tensor | None) -> torch.Tensor:
+    si, batched = thresholds_q is not None, x_q.ndim == 3
+    e = x_q.shape[0] if batched else 1
+    m, k = x_q.shape[-2:]
+    n = w_int.shape[-1]
+    out_bsl = thresholds_q.shape[1] if si else 0
+    out = _ternary_out(x_q, w_int, thresholds_q)
     if out.numel() == 0:
         return out
     launch("ternary_matmul_batched" if batched else "ternary_matmul",

@@ -31,6 +31,17 @@ never split.  Otherwise every rank runs every head.  When a step's lanes
 are split over "data", the new K / V rows of all lanes are gathered
 before the scatter (the pools are whole on every data rank) and each
 rank attends for its own lanes.
+
+Under a training mesh (:func:`attn_spec` ``serving=False``, FSDP over
+"data") q / k / v are column-parallel and ``wo`` row-parallel, as the
+reference's Megatron layout: a rank attends with its own query heads
+(all of them when "model" does not split the heads) against the whole
+K / V heads they read (gathered over "model"; the gather's gradient
+sums every rank's share back), and ``wo`` sums the ranks' partial
+products (``common.dense_apply``).  The dense cache's decode takes a
+cache whose time axis is cut over "model" (``cache_specs(kv_head_shard=
+False)``): each rank attends over its block of positions and the blocks
+merge by their log-sum-exp.
 """
 
 from __future__ import annotations
@@ -41,9 +52,12 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..core.kv_quant import kv_format_of, kv_quant
-from ..distributed.sharding import (MODEL, axis_size, gather, gather_lanes,
-                                    lane_slice, splits)
+from ..distributed.sharding import (DATA, MODEL, axis_index, axis_size,
+                                    fsdp_active, gather, gather_lanes,
+                                    is_sharded, lane_slice, splits,
+                                    sum_grads)
 from ..kernels import dispatch
+from ..tree import tree_map
 from .common import (apply_rope, dense_apply, dense_init, dense_spec,
                      norm_apply, norm_init, norm_spec)
 
@@ -69,12 +83,19 @@ def attn_init(cfg: ModelConfig, *, generator: torch.Generator,
     return p
 
 
-def attn_spec(cfg: ModelConfig) -> dict:
-    """The serving layout: every projection column-parallel (output
-    channels over "model", the contraction whole on each rank), as the
-    reference's ``attn_spec(serving=True)``."""
-    s = {k: dense_spec(None, MODEL, cfg.quant)
-         for k in ("wq", "wk", "wv", "wo")}
+def attn_spec(cfg: ModelConfig, serving: bool = True) -> dict:
+    """The serving layout (default): every projection column-parallel
+    (output channels over "model", the contraction whole on each rank),
+    as the reference's ``attn_spec(serving=True)``.  The training layout
+    (``serving=False``), the reference's Megatron pairs under FSDP:
+    ``wq`` / ``wk`` / ``wv`` (data, model), ``wo`` (model, data)."""
+    if serving:
+        s = {k: dense_spec(None, MODEL, cfg.quant)
+             for k in ("wq", "wk", "wv", "wo")}
+    else:
+        s = {k: dense_spec(DATA, MODEL, cfg.quant)
+             for k in ("wq", "wk", "wv")}
+        s["wo"] = dense_spec(MODEL, DATA, cfg.quant)
     if cfg.qk_norm:
         s["q_norm"] = norm_spec("rmsnorm")
         s["k_norm"] = norm_spec("rmsnorm")
@@ -98,10 +119,14 @@ def _context(o: torch.Tensor, local: bool) -> torch.Tensor:
 
 
 def _project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor, batch_invariant: bool = True):
+                 positions: torch.Tensor, batch_invariant: bool = True,
+                 whole: bool = False):
+    """q, k, v of a rank's own heads (:func:`_heads`), or with ``whole``
+    of every head."""
     B, S, _ = x.shape
     dh = cfg.head_dim
-    hq, hkv, local = _heads(cfg)
+    hq, hkv, local = (cfg.n_heads, cfg.n_kv_heads, False) if whole \
+        else _heads(cfg)
     kw = dict(batch_invariant=batch_invariant, local=local)
     q = dense_apply(p["wq"], x, cfg.quant, **kw).reshape(B, S, hq, dh)
     k = dense_apply(p["wk"], x, cfg.quant, **kw).reshape(B, S, hkv, dh)
@@ -133,11 +158,71 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.reshape(B, S, H, G, D)
 
 
+def _attn_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig,
+               positions: torch.Tensor, batch_invariant: bool):
+    """:func:`attn_train` under a training mesh (see the module
+    docstring): x is this rank's block of the batch."""
+    B, S, _ = x.shape
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    tp = axis_size(MODEL)
+    kw = dict(batch_invariant=batch_invariant, local=True)
+    q_cut = is_sharded(p["wq"]["w"], 1)
+    if q_cut:                   # the column-parallel products' input
+        x = sum_grads(x)
+    q = dense_apply(p["wq"], x, cfg.quant, **kw)
+    k = dense_apply(p["wk"], x, cfg.quant, **kw)
+    v = dense_apply(p["wv"], x, cfg.quant, **kw)
+    own = q_cut and hq % tp == 0          # whole query heads a rank
+    # a rank's own query heads read its own KV heads when "model" splits
+    # both; otherwise it reads them from every rank's columns
+    kv_own = own and hkv % tp == 0 and is_sharded(p["wk"]["w"], 1)
+    if q_cut and not own:
+        q = gather(q, MODEL, -1)
+    if is_sharded(p["wk"]["w"], 1) and not kv_own:
+        k, v = gather(k, MODEL, -1), gather(v, MODEL, -1)
+    hl = hq // tp if own else hq
+    h0 = axis_index(MODEL) * hl if own else 0
+    nk = hkv // tp if kv_own else hkv
+    q = q.reshape(B, S, hl, dh)
+    k = k.reshape(B, S, nk, dh)
+    v = v.reshape(B, S, nk, dh)
+    if "q_norm" in p:
+        # this rank's heads only: the scales' gradients sum over "model"
+        q = norm_apply(tree_map(sum_grads, p["q_norm"]), q, "rmsnorm")
+        k = norm_apply(tree_map(sum_grads, p["k_norm"]), k, "rmsnorm")
+    q = apply_rope(q, positions, dh, cfg.rope_fraction, cfg.rope_theta)
+    k = apply_rope(k, positions, dh, cfg.rope_fraction, cfg.rope_theta)
+    # the KV heads this rank's query heads read: a run of whole groups or
+    # one head (a query group split unevenly over ranks: no arch has one)
+    g = hq // hkv
+    if kv_own:
+        sel, n_kv = slice(None), nk
+    elif hl % g == 0:
+        sel, n_kv = slice(h0 // g, (h0 + hl) // g), hl // g
+    elif g % hl == 0:
+        sel, n_kv = slice(h0 // g, h0 // g + 1), 1
+    else:
+        raise NotImplementedError(
+            f"{hl} query heads a rank split the groups of {g} unevenly "
+            f"(n_heads {hq}, n_kv_heads {hkv}, model {tp})")
+    o = flash_attention(q.reshape(B, S, n_kv, hl // n_kv, dh),
+                        k[:, :, sel].contiguous(), v[:, :, sel].contiguous(),
+                        cfg.causal)
+    ctx = o.reshape(B, S, hl * dh)
+    if is_sharded(p["wo"]["w"], 0) and not own:
+        n = hq * dh // tp                 # wo's rows of this rank
+        ctx = ctx.narrow(-1, axis_index(MODEL) * n, n)
+    y = dense_apply(p["wo"], ctx, cfg.quant, batch_invariant=batch_invariant)
+    return y, (k, v)
+
+
 def attn_train(p: dict, x: torch.Tensor, cfg: ModelConfig,
                positions: torch.Tensor, batch_invariant: bool = False):
     """Full-sequence attention, x (B, S, D) -> (y, (k, v)): the training
     forward (plain products) and, with ``batch_invariant``, the dense
     prefill (the serving products)."""
+    if fsdp_active():
+        return _attn_mesh(p, x, cfg, positions, batch_invariant)
     B, S, _ = x.shape
     dh = cfg.head_dim
     hq, hkv, local = _heads(cfg)
@@ -165,6 +250,11 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dh = cfg.head_dim
     hq, hkv, local = _heads(cfg)
     positions = pos.to(torch.int32).expand(B, 1)
+    if is_sharded(k_cache, 1):
+        q, k, v = _project_qkv(p, x, cfg, positions, whole=True)
+        o = _decode_time_cut(q, k, v, k_cache, v_cache, pos, cfg)
+        return dense_apply(p["wo"], o.reshape(B, 1, -1).to(x.dtype),
+                           cfg.quant), k_cache, v_cache
     q, k, v = _project_qkv(p, x, cfg, positions)
     idx = pos.reshape(1).long()
     k_cache.index_copy_(1, idx, k.to(k_cache.dtype))
@@ -180,6 +270,35 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     o = o.reshape(B, 1, hq * dh).to(x.dtype)
     return dense_apply(p["wo"], _context(o, local), cfg.quant), k_cache, \
         v_cache
+
+
+def _decode_time_cut(q, k, v, k_cache, v_cache, pos, cfg):
+    """:func:`attn_decode` on a cache whose time axis is cut over "model"
+    (every head on every rank): the rank that owns ``pos`` writes the new
+    K / V, each rank attends over its block of positions in float32, and
+    the blocks merge by their log-sum-exp (every rank the same result).
+    Returns the context (B, Hkv, G, Dh) float32."""
+    B, T = k_cache.shape[:2]
+    dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
+    t0 = axis_index(MODEL) * T
+    idx = (pos - t0).clamp(0, T - 1).reshape(1).long()
+    mine = (pos >= t0) & (pos < t0 + T)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache.index_copy_(1, idx, torch.where(
+            mine, new.to(cache.dtype), cache.index_select(1, idx)))
+    qg = q.reshape(B, hkv, hq // hkv, dh).to(torch.float32)
+    logits = torch.einsum("bhgd,bthd->bhgt", qg,
+                          k_cache.to(torch.float32)) / math.sqrt(dh)
+    valid = t0 + torch.arange(T, device=q.device) <= pos
+    logits = torch.where(valid, logits, torch.tensor(-1e30, device=q.device))
+    m = logits.amax(-1, keepdim=True)
+    e = torch.exp(logits - m)
+    part = torch.cat([torch.einsum("bhgt,bthd->bhgd", e,
+                                   v_cache.to(torch.float32)),
+                      e.sum(-1, keepdim=True), m], dim=-1)
+    every = gather(part[None], MODEL, 0)          # (tp, B, Hkv, G, Dh + 2)
+    w = torch.exp(every[..., -1:] - every[..., -1:].amax(0))
+    return (w * every[..., :dh]).sum(0) / (w * every[..., dh:dh + 1]).sum(0)
 
 
 def _scatter_pools(pools: dict, fmt: str, k_new: torch.Tensor,

@@ -27,6 +27,17 @@ approximate BSN adder, stays whole on one rank.  :func:`dense_apply`
 computes the rank's columns through the same products and then gathers
 them (``distributed.sharding.cols``), or keeps them (``local=True``) for
 a layer that runs its own heads or channels.
+
+Training mesh.  Under a training mapping (``sharding.fsdp_active``) a
+weight's dimensions cut over "data" (FSDP) are gathered at use, and the
+product follows the weight's "model" cut: column-parallel (output
+channels) on the replicated input, whose gradient the caller sums over
+"model" once for every product that reads it (``sum_grads``: the q / k /
+v projections share one, the gate and up projections one); row-parallel
+(the contraction) on the rank's block of the input, the partial sums
+added over "model" (``psum``).  A replicated scale read by a rank's block
+of the computation has its gradient summed over "model" here.  The LSQ
+gradient scale counts the whole tensors, as unsharded.
 """
 
 from __future__ import annotations
@@ -39,9 +50,12 @@ import torch.nn.functional as F
 
 from ..core.quant import ternary_weight_quant, thermometer_act_quant
 from ..core.sc_layers import SCQuantConfig, sc_linear_int_from_qat
-from ..distributed.sharding import MODEL, cols
+from ..distributed.sharding import (DATA, MODEL, _names, axis_size,
+                                    batch_axes, cols, fsdp_active, gather,
+                                    is_sharded, psum, spec_of, sum_grads)
 
-__all__ = ["dense_init", "dense_apply", "dense_spec", "matmul_rows",
+__all__ = ["dense_init", "dense_apply", "dense_spec", "fsdp_gather",
+           "whole_numel", "matmul_rows",
            "sum_fixed", "norm_init", "norm_apply", "norm_spec", "rope_freqs",
            "apply_rope", "ACT_FNS", "big_neg", "softcap"]
 
@@ -111,7 +125,11 @@ def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
     products go through :func:`matmul_rows` when ``batch_invariant`` (the
     serving engine), else through a plain ``x @ w`` (training).  Under a
     mesh the output is this rank's block of columns with ``local``, all
-    of them otherwise."""
+    of them otherwise; under a training mesh a row-parallel weight takes
+    this rank's block of the contraction and returns the summed
+    output."""
+    if fsdp_active():
+        return _dense_mesh(p, x, quant, batch_invariant, local)
     if quant.enabled and quant.mode == "sc_int":
         y = sc_linear_int_from_qat(p, x, quant)
     else:
@@ -123,6 +141,59 @@ def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
             w_fq = ternary_weight_quant(p["w"], p["alpha_w"])
             y = product(x_fq, w_fq.to(x_fq.dtype))
     return cols(y, p["w"], local, MODEL)
+
+
+def fsdp_gather(t: torch.Tensor) -> torch.Tensor:
+    """A leaf with its "data"-cut dimensions gathered (FSDP; the gradient
+    comes back reduce-scattered), its "model" cut kept."""
+    for dim, ax in enumerate(spec_of(t)):
+        if DATA in _names(ax) and axis_size(DATA) > 1:
+            t = gather(t, DATA, dim)
+    return t
+
+
+def whole_numel(t: torch.Tensor, model_cut: bool = False,
+                batch_cut: bool = False) -> int:
+    """The element count of the whole tensor a rank holds a block of: its
+    "model" block (``model_cut``) and its block of the batch
+    (``batch_cut``) scaled back up."""
+    n = t.numel()
+    if model_cut:
+        n *= axis_size(MODEL)
+    if batch_cut:
+        n *= axis_size(batch_axes())
+    return n
+
+
+def _dense_mesh(p: dict, x: torch.Tensor, quant: SCQuantConfig,
+                batch_invariant: bool, local: bool) -> torch.Tensor:
+    """:func:`dense_apply` under a training mapping (see the module
+    docstring).  ``x`` is this rank's block of the batch, whole in its
+    last dimension for a column-parallel or whole weight (its gradient
+    summed over "model" by the caller: ``sum_grads``), this rank's block
+    of it for a row-parallel one."""
+    w = p["w"]
+    row, col = is_sharded(w, 0, MODEL), is_sharded(w, 1, MODEL)
+    w = fsdp_gather(w)
+    product = matmul_rows if batch_invariant else torch.matmul
+    if quant.enabled and quant.mode == "sc_int":
+        raise NotImplementedError("the training mesh runs quantization "
+                                  "off or sc_qat, not the integer "
+                                  "datapath")
+    if quant.enabled and quant.mode == "sc_qat":
+        # replicated scales that read this rank's block of the product
+        alpha_a = sum_grads(p["alpha_a"]) if row or col else p["alpha_a"]
+        alpha_w = fsdp_gather(p["alpha_w"])
+        if row:
+            alpha_w = sum_grads(alpha_w)
+        x = thermometer_act_quant(x, alpha_a, quant.act_bsl,
+                                  numel=whole_numel(x, row, True))
+        w = ternary_weight_quant(w, alpha_w,
+                                 numel=whole_numel(w, row or col))
+    y = product(x, w.to(x.dtype))
+    if row:
+        return psum(y)
+    return gather(y, MODEL, -1) if col and not local else y
 
 
 def norm_init(d: int, kind: str, device: torch.device) -> dict:

@@ -41,7 +41,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import MODEL, block, gather, splits
+from ..distributed.sharding import DATA, MODEL, block, gather, splits
 from .common import ACT_FNS, dense_apply, dense_init, dense_spec, sum_fixed
 
 __all__ = ["mamba_init", "mamba_spec", "mamba_train", "mamba_prefill_chunk",
@@ -77,12 +77,21 @@ def mamba_init(cfg: ModelConfig, *, generator: torch.Generator,
     }
 
 
-def mamba_spec(cfg: ModelConfig) -> dict:
-    """The serving layout: the projections column-parallel, the
+def mamba_spec(cfg: ModelConfig, serving: bool = True) -> dict:
+    """The serving layout (default): the projections column-parallel, the
     per-channel leaves over ``d_inner`` ("model").  The reference's
     ``mamba_spec`` splits ``x_proj``'s and ``out_proj``'s contraction
-    over "model"; the port keeps every contraction whole."""
+    over "model"; the port serves every contraction whole.  The training
+    layout (``serving=False``) is the reference's; its forward under a
+    training mesh waits for ROADMAP Queue 1 item 15."""
     q = cfg.quant
+    if not serving:
+        return {"in_proj": dense_spec(DATA, MODEL, q),
+                "conv_w": (MODEL, None), "conv_b": (MODEL,),
+                "x_proj": dense_spec(MODEL, None, q),
+                "dt_proj": dense_spec(None, MODEL, q),
+                "dt_bias": (MODEL,), "a_log": (MODEL, None),
+                "d_skip": (MODEL,), "out_proj": dense_spec(MODEL, DATA, q)}
     return {"in_proj": dense_spec(None, MODEL, q),
             "conv_w": (MODEL, None), "conv_b": (MODEL,),
             "x_proj": dense_spec(None, MODEL, q),

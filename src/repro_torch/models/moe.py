@@ -38,11 +38,21 @@ and capacities are those of the unsharded call), and ``d_ff`` is split
 over "data" with the hidden layer gathered before ``w_down``, so no
 expert's sum is ever split.  The expert outputs are gathered over
 "model" and combined in the unsharded order; routing is replicated.
+
+Under a training mesh (:func:`moe_spec` ``serving=False``: experts over
+"model", ``d_model`` over "data", gathered at use) the layer is
+expert-parallel over its data block: each rank routes the tokens of its
+block of the batch (replicated over "model"), in the groups the
+unsharded call forms (a group may not straddle two data ranks' blocks),
+with the unsharded call's capacity; it runs its own experts on their
+rows and weights their outputs, and the ranks' partial combines add over
+"model" (``psum``).
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -50,10 +60,12 @@ import torch.nn.functional as F
 from ..configs.base import ModelConfig
 from ..core.quant import ternary_weight_quant, thermometer_act_quant
 from ..core.sc_layers import SCQuantConfig
-from ..distributed.sharding import (DATA, MODEL, block, cols, gather_lanes,
-                                    is_sharded, lane_slice)
+from ..distributed.sharding import (DATA, MODEL, axis_index, axis_size,
+                                    batch_axes, block, cols, fsdp_active,
+                                    gather, gather_lanes,
+                                    is_sharded, lane_slice, psum, sum_grads)
 from ..kernels.ops import ternary_matmul
-from .common import ACT_FNS, matmul_rows
+from .common import ACT_FNS, fsdp_gather, matmul_rows, whole_numel
 
 __all__ = ["moe_init", "moe_apply", "moe_spec", "route"]
 
@@ -106,18 +118,26 @@ def _expert_dense_spec(quant: SCQuantConfig, spec: tuple) -> dict:
     return s
 
 
-def moe_spec(cfg: ModelConfig) -> dict:
-    """The serving layout: experts over "model", each expert's output
-    channels over "data" (``w_gate`` / ``w_up``: ``d_ff``; ``w_down``:
-    ``d_model``), the router whole.  The reference's ``moe_spec(serving=
-    True)`` puts ``w_down``'s ``d_ff`` (its contraction) over "data" and
-    all-reduces partial sums; the port gathers the hidden layer instead,
-    by the reference's own rule that no contraction is split."""
+def moe_spec(cfg: ModelConfig, serving: bool = True) -> dict:
+    """The serving layout (default): experts over "model", each expert's
+    output channels over "data" (``w_gate`` / ``w_up``: ``d_ff``;
+    ``w_down``: ``d_model``), the router whole.  The reference's
+    ``moe_spec(serving=True)`` puts ``w_down``'s ``d_ff`` (its
+    contraction) over "data" and all-reduces partial sums; the port
+    gathers the hidden layer instead, by the reference's own rule that no
+    contraction is split.  The training layout is the reference's:
+    experts over "model" and ``d_model`` over "data", the contraction of
+    ``w_gate`` / ``w_up`` and the output of ``w_down`` (ZeRO over
+    ``d_model``, gathered at use)."""
+    if serving:
+        up = down = (MODEL, None, DATA)
+    else:
+        up, down = (MODEL, DATA, None), (MODEL, None, DATA)
     s = {"router": (None, None),
-         "w_up": _expert_dense_spec(cfg.quant, (MODEL, None, DATA)),
-         "w_down": _expert_dense_spec(cfg.quant, (MODEL, None, DATA))}
+         "w_up": _expert_dense_spec(cfg.quant, up),
+         "w_down": _expert_dense_spec(cfg.quant, down)}
     if cfg.ffn_gated:
-        s["w_gate"] = _expert_dense_spec(cfg.quant, (MODEL, None, DATA))
+        s["w_gate"] = _expert_dense_spec(cfg.quant, up)
     return s
 
 
@@ -145,6 +165,8 @@ def _expert_matmul(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
     ``batch_invariant``, else ``torch.matmul`` in ``x.dtype`` (training).
     """
     w = p["w"]
+    if fsdp_active():
+        return _expert_matmul_mesh(p, x, quant, batch_invariant)
     if quant.enabled and quant.mode == "sc_int":
         half = quant.act_half
         aa = p["alpha_a"].to(x.dtype)
@@ -175,6 +197,28 @@ def _expert_matmul(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
     return out
 
 
+def _expert_matmul_mesh(p: dict, x: torch.Tensor, quant: SCQuantConfig,
+                        batch_invariant: bool) -> torch.Tensor:
+    """:func:`_expert_matmul` under a training mesh: this rank's experts
+    (``x`` their rows of its block of the batch) with ``d_model``
+    gathered over "data"; the replicated ``alpha_a``'s gradient summed
+    over "model", the LSQ scales sized by the whole tensors."""
+    if quant.enabled and quant.mode == "sc_int":
+        raise NotImplementedError("the training mesh runs quantization "
+                                  "off or sc_qat, not the integer "
+                                  "datapath")
+    cut = is_sharded(p["w"], 0)
+    w = fsdp_gather(p["w"])
+    if quant.enabled and quant.mode == "sc_qat":
+        x = thermometer_act_quant(x, sum_grads(p["alpha_a"]), quant.act_bsl,
+                                  numel=whole_numel(x, cut, True))
+        w = ternary_weight_quant(w, fsdp_gather(p["alpha_w"]),
+                                 numel=whole_numel(w, cut))
+    if batch_invariant:
+        return matmul_rows(x, w.to(x.dtype))
+    return torch.matmul(x, w.to(x.dtype))
+
+
 def route(router: torch.Tensor, xt: torch.Tensor, k: int, *,
           batch_invariant: bool = True):
     """Router logits (float32), softmax probabilities, and each token's top
@@ -198,50 +242,55 @@ def route(router: torch.Tensor, xt: torch.Tensor, k: int, *,
     return logits, probs, top_w, top_i
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-              batch_invariant: bool = True):
-    """x: (B, S, D) -> (y (B, S, D), aux loss); see the module docstring.
-    The serving engine calls it on (S, 1, D) decode lanes and (G, C, D)
-    prefill chunks (a data rank's block of the lanes under a mesh);
-    training passes ``batch_invariant=False``."""
-    x = gather_lanes(x)
-    B, S, D = x.shape
-    E, k = cfg.n_experts, cfg.n_experts_per_tok
-    T = B * S
-    sg = min(cfg.moe_group_size, T)
-    if T % sg:
-        raise ValueError(f"{T} tokens do not split into groups of {sg}")
-    G = T // sg
-    cap = int(-(-k * sg * cfg.moe_capacity_factor // E))
-    cap = max(4, -(-cap // 4) * 4)                 # pad to a multiple of 4
+class _Routed(NamedTuple):
+    """A call's routing and this rank's expert rows (:func:`_dispatch`)."""
+    logits: torch.Tensor        # (G, sg, E) float32
+    probs: torch.Tensor
+    onehot: torch.Tensor        # (G, sg, k, E)
+    top_w: torch.Tensor         # (G, sg, k)
+    keep: torch.Tensor          # kept (token, slot) pairs
+    dest: torch.Tensor          # each pair's row of every expert's slots
+    ours: torch.Tensor          # kept pairs routed to this rank's experts
+    dest_l: torch.Tensor        # their rows of this rank's slots
+    ein: torch.Tensor           # (El, G * cap, D) this rank's experts' rows
 
-    xt = x.reshape(G, sg, D)
+
+def _dispatch(p: dict, xt: torch.Tensor, cfg: ModelConfig, cap: int,
+              batch_invariant: bool, rows_from=None) -> _Routed:
+    """Route the tokens ``xt`` (G, sg, D) and copy each kept (token, slot)
+    pair's row (of ``rows_from``, default ``xt``) into its (expert, group,
+    slot) row of this rank's experts (all of them without a mesh);
+    dropped pairs go to one spare row past the end, which is cut off."""
+    G, sg, D = xt.shape
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
     logits, probs, top_w, top_i = route(p["router"], xt, k,
                                         batch_invariant=batch_invariant)
-
     # position of each (token, slot) in its expert's queue, token-major
     onehot = F.one_hot(top_i, E)                                # (G,sg,k,E)
     queue = torch.cumsum(onehot.reshape(G, sg * k, E), dim=1) - 1
     pos = torch.gather(queue, 2, top_i.reshape(G, sg * k, 1)) \
         .reshape(G, sg, k)
     keep = (pos < cap) & (top_w > 0)
-
-    # dispatch: row (e, g, c) of the (E, G, cap) expert slots; dropped
-    # pairs go to one spare row past the end, which is cut off
-    g_idx = torch.arange(G, device=x.device)[:, None, None]
+    g_idx = torch.arange(G, device=xt.device)[:, None, None]
     dest = torch.where(keep, (top_i * G + g_idx) * cap + pos,
                        E * G * cap).reshape(-1)
-    # this rank's experts (all of them without a mesh)
-    w_up = p["w_up"]["w"]
-    mine = block(E) if is_sharded(w_up, 0) else slice(0, E)
-    e0, El = mine.start, mine.stop - mine.start
+    mine = block(E) if is_sharded(p["w_up"]["w"], 0) else slice(0, E)
+    e0 = mine.start or 0
+    El = (mine.stop or E) - e0
     ours = keep & (top_i >= e0) & (top_i < e0 + El)
     dest_l = torch.where(ours, ((top_i - e0) * G + g_idx) * cap + pos,
                          El * G * cap).reshape(-1)
-    src = xt[:, :, None, :].expand(G, sg, k, D).reshape(-1, D)
-    rows = x.new_zeros((El * G * cap + 1, D)).index_put((dest_l,), src)
-    ein = rows[:-1].reshape(El, G * cap, D)
+    src = (xt if rows_from is None else rows_from)[:, :, None, :] \
+        .expand(G, sg, k, D).reshape(-1, D)
+    rows = xt.new_zeros((El * G * cap + 1, D)).index_put((dest_l,), src)
+    return _Routed(logits, probs, onehot, top_w, keep, dest, ours, dest_l,
+                   rows[:-1].reshape(El, G * cap, D))
 
+
+def _ffn(p: dict, ein: torch.Tensor, cfg: ModelConfig, batch_invariant: bool,
+         hidden=lambda h: h) -> torch.Tensor:
+    """The experts' FFN on their rows, ``hidden`` applied to the hidden
+    layer before ``w_down``."""
     act = ACT_FNS[cfg.ffn_act]
     kw = dict(batch_invariant=batch_invariant)
     if cfg.ffn_gated:
@@ -249,26 +298,94 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
             * _expert_matmul(p["w_up"], ein, cfg.quant, **kw)
     else:
         h = act(_expert_matmul(p["w_up"], ein, cfg.quant, **kw))
-    h = cols(h, w_up, False, DATA)              # d_ff whole: the contraction
-    eout = _expert_matmul(p["w_down"], h, cfg.quant, **kw)  # (El, G*cap, D)
-    eout = cols(eout, p["w_down"]["w"], False, DATA)
-    eout = cols(eout, w_up, False, MODEL, w_dim=0, y_dim=0)  # every expert
+    return _expert_matmul(p["w_down"], hidden(h), cfg.quant, **kw)
 
-    # combine: each token's k expert rows, weighted (the weights rounded
-    # to x.dtype, as the reference's combine tensor), summed in slot order
-    eflat = torch.cat([eout.reshape(E * G * cap, D),
-                       eout.new_zeros((1, D))])
+
+def _combine(eout: torch.Tensor, dest: torch.Tensor, wts: torch.Tensor,
+             acc_dt: torch.dtype) -> torch.Tensor:
+    """Each token's k expert rows (``dest`` into ``eout``'s rows, the spare
+    row past the end a zero), weighted by ``wts`` (G, sg, k) and summed in
+    slot order in ``acc_dt``: (G, sg, D)."""
+    G, sg, k = wts.shape
+    D = eout.shape[-1]
+    eflat = torch.cat([eout.reshape(-1, D), eout.new_zeros((1, D))])
     picked = eflat[dest].reshape(G, sg, k, D)
-    wts = torch.where(keep, top_w, 0.0).to(x.dtype)
-    acc_dt = torch.float64 if batch_invariant else torch.float32
     y = wts[..., 0, None].to(acc_dt) * picked[:, :, 0].to(acc_dt)
     for j in range(1, k):
         y = y + wts[..., j, None].to(acc_dt) * picked[:, :, j].to(acc_dt)
-    y = y.to(x.dtype).reshape(B, S, D)[lane_slice()]
+    return y
 
-    # Switch-style load-balance loss + router z-loss
-    density = onehot.sum(2).to(torch.float32).mean(1)          # (G, E)
-    p_mean = probs.mean(1)                                     # (G, E)
-    aux = E * torch.mean(torch.sum(density * p_mean, dim=-1))
-    zloss = torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
-    return y, aux + 1e-3 * zloss
+
+def _aux(r: _Routed, E: int) -> torch.Tensor:
+    """Switch-style load-balance loss + 1e-3 x the router z-loss."""
+    density = r.onehot.sum(2).to(torch.float32).mean(1)        # (G, E)
+    aux = E * torch.mean(torch.sum(density * r.probs.mean(1), dim=-1))
+    return aux + 1e-3 * torch.mean(torch.logsumexp(r.logits, dim=-1) ** 2)
+
+
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+              batch_invariant: bool = True):
+    """x: (B, S, D) -> (y (B, S, D), aux loss); see the module docstring.
+    The serving engine calls it on (S, 1, D) decode lanes and (G, C, D)
+    prefill chunks (a data rank's block of the lanes under a mesh);
+    training passes ``batch_invariant=False``."""
+    if fsdp_active():
+        return _moe_mesh(p, x, cfg, batch_invariant)
+    x = gather_lanes(x)
+    B, S, D = x.shape
+    G, sg, cap = _groups(cfg, B * S, B * S)
+    r = _dispatch(p, x.reshape(G, sg, D), cfg, cap, batch_invariant)
+    w_up = p["w_up"]["w"]
+    # d_ff whole before w_down (the contraction), then every expert's rows
+    eout = _ffn(p, r.ein, cfg, batch_invariant,
+                hidden=lambda h: cols(h, w_up, False, DATA))
+    eout = cols(eout, p["w_down"]["w"], False, DATA)
+    eout = cols(eout, w_up, False, MODEL, w_dim=0, y_dim=0)
+    # the weights rounded to x.dtype, as the reference's combine tensor
+    y = _combine(eout, r.dest, torch.where(r.keep, r.top_w, 0.0)
+                 .to(x.dtype), torch.float64 if batch_invariant
+                 else torch.float32)
+    return (y.to(x.dtype).reshape(B, S, D)[lane_slice()],
+            _aux(r, cfg.n_experts))
+
+
+def _groups(cfg: ModelConfig, T: int, whole: int) -> tuple[int, int, int]:
+    """(groups, group size, capacity) of ``T`` tokens, the group size and
+    capacity those of a call on ``whole`` tokens."""
+    E, k = cfg.n_experts, cfg.n_experts_per_tok
+    sg = min(cfg.moe_group_size, whole)
+    if T % sg:
+        raise ValueError(f"{T} tokens do not split into groups of {sg}")
+    cap = int(-(-k * sg * cfg.moe_capacity_factor // E))
+    return T // sg, sg, max(4, -(-cap // 4) * 4)   # a multiple of 4
+
+
+def _moe_mesh(p: dict, x: torch.Tensor, cfg: ModelConfig,
+              batch_invariant: bool):
+    """:func:`moe_apply` under a training mesh (see the module docstring):
+    x (B, S, D) is this rank's block of the batch."""
+    axes = batch_axes()
+    own = x.shape[0]
+    # a group of the unsharded call that straddles data ranks' blocks (a
+    # decode step's few tokens): every rank routes all the tokens, as the
+    # serving engine does, and keeps its rows of the output
+    straddle = (x.shape[0] * x.shape[1]) % min(
+        cfg.moe_group_size, x.shape[0] * x.shape[1] * axis_size(axes))
+    if straddle:
+        x = gather(x, axes, 0)
+    B, S, D = x.shape
+    G, sg, cap = _groups(cfg, B * S, B * S * (1 if straddle
+                                              else axis_size(axes)))
+    xt = x.reshape(G, sg, D)
+    # the rows of this rank's experts collect their gradient from every
+    # rank of "model"
+    r = _dispatch(p, xt, cfg, cap, batch_invariant, rows_from=sum_grads(xt))
+    eout = _ffn(p, r.ein, cfg, batch_invariant)
+    # this rank's share of the weights' gradient, summed over "model"
+    wts = torch.where(r.ours, sum_grads(r.top_w), 0.0).to(x.dtype)
+    y = _combine(eout, r.dest_l, wts, torch.float64 if batch_invariant
+                 else torch.float32)
+    y = psum(y).to(x.dtype).reshape(B, S, D)
+    if straddle:
+        y = y.narrow(0, axis_index(axes) * own, own)
+    return y, _aux(r, cfg.n_experts)

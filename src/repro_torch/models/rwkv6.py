@@ -41,7 +41,8 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import MODEL, axis_size, cols, gather, splits
+from ..distributed.sharding import (DATA, MODEL, axis_size, cols, gather,
+                                    splits)
 from .common import (ACT_FNS, dense_apply, dense_init, dense_spec,
                      matmul_rows, norm_apply, norm_init, norm_spec, sum_fixed)
 
@@ -104,24 +105,36 @@ def rwkv_cmix_init(cfg: ModelConfig, *, generator: torch.Generator,
             "wr": dense_init(d, d, q, **kw)}
 
 
-def rwkv_tmix_spec(cfg: ModelConfig) -> dict:
-    """The serving layout: the projections column-parallel, the per-head
-    leaves (``w0``, ``u``, ``ln_x``) and ``dw2`` / ``tm_w2``'s outputs
-    over "model"; ``maa*``, ``tm_w1`` and ``dw1`` whole, as the
+def rwkv_tmix_spec(cfg: ModelConfig, serving: bool = True) -> dict:
+    """The serving layout (default): the projections column-parallel, the
+    per-head leaves (``w0``, ``u``, ``ln_x``) and ``dw2`` / ``tm_w2``'s
+    outputs over "model"; ``maa*``, ``tm_w1`` and ``dw1`` whole, as the
     reference's.  The reference's ``wo`` splits its contraction; the
-    port's is column-parallel."""
+    port serves it column-parallel.  The training layout
+    (``serving=False``) is the reference's; its forward under a training
+    mesh waits for ROADMAP Queue 1 item 15."""
     q = cfg.quant
     s = {"maa_x": (None,), "maa": (None, None), "tm_w1": (None, None),
          "tm_w2": (None, None, MODEL), "w0": (MODEL,), "dw1": (None, None),
          "dw2": (None, MODEL), "u": (MODEL, None),
-         "ln_x": norm_spec("layernorm", MODEL)}
-    s.update({k: dense_spec(None, MODEL, q)
-              for k in ("wr", "wk", "wv", "wg", "wo")})
+         "ln_x": norm_spec("layernorm", MODEL if serving else None)}
+    s.update({k: dense_spec(DATA if not serving else None, MODEL, q)
+              for k in ("wr", "wk", "wv", "wg")})
+    s["wo"] = dense_spec(None, MODEL, q) if serving \
+        else dense_spec(MODEL, DATA, q)
     return s
 
 
-def rwkv_cmix_spec(cfg: ModelConfig) -> dict:
+def rwkv_cmix_spec(cfg: ModelConfig, serving: bool = True) -> dict:
+    """The serving layout (default): every projection column-parallel.
+    The training layout is the reference's: ``wk`` (data, model), ``wv``
+    (model, data), ``wr`` (data, None)."""
     q = cfg.quant
+    if not serving:
+        return {"mk": (None,), "mr": (None,),
+                "wk": dense_spec(DATA, MODEL, q),
+                "wv": dense_spec(MODEL, DATA, q),
+                "wr": dense_spec(DATA, None, q)}
     return {"mk": (None,), "mr": (None,), "wk": dense_spec(None, MODEL, q),
             "wv": dense_spec(None, MODEL, q), "wr": dense_spec(None, MODEL, q)}
 

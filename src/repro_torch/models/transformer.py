@@ -43,7 +43,20 @@ columns).  A step's lanes split over "data" in contiguous blocks
 V rows, state rows, verify snapshots and logits of all lanes are
 gathered over "data", and the pools and state rows stay whole on every
 data rank.  The dense entry points (``prefill``, ``decode_step``) shard
-over "model" only.
+over "model" only under a serving mesh.
+
+Under a training mesh (``sharding.fsdp_active``: the training mapping,
+the layout of ``param_specs(serving=False)``) every rank runs its block
+of the batch: the embedding table and every weight's "data"-cut
+dimension are gathered at use (FSDP), the vocabulary-parallel embedding
+sums its ranks' rows, attention / FFN / MoE run tensor- and
+expert-parallel over "model", and :func:`loss_fn` takes the
+vocabulary-parallel cross-entropy of the rank's lm_head columns and the
+global token-weighted mean over the batch axes.  The recurrent mixers
+refuse a training mesh (ROADMAP Queue 1 item 15).  The dense entry points
+run under it too, the batch cut over the batch axes (the dry-run's
+prefill and decode cells), the decode's cache cut as :func:`cache_specs`
+says.
 """
 
 from __future__ import annotations
@@ -57,20 +70,23 @@ from ..configs.base import LayerSpec, ModelConfig
 from ..core.kv_quant import check_kv_format
 from ..core.quant import lsq_fake_quant
 from ..device import resolve_device
-from ..distributed.sharding import (DATA, MODEL, axis_index, cols,
-                                    current_rules, gather, gather_lanes,
-                                    is_sharded, shard_tree, split_lanes)
+from ..distributed.sharding import (DATA, MODEL, axis_index, axis_size,
+                                    batch_axes, cols, current_rules,
+                                    fsdp_active, gather, gather_lanes,
+                                    is_sharded, psum, shard_tree,
+                                    split_lanes, sum_grads)
 from ..tree import tree_map
 from . import attention, ffn, mamba, moe, rwkv6
-from .common import (ACT_FNS, dense_apply, dense_init, dense_spec, norm_apply,
-                     norm_init, norm_spec)
+from .common import (ACT_FNS, dense_apply, dense_init, dense_spec,
+                     fsdp_gather, norm_apply, norm_init, norm_spec,
+                     whole_numel)
 
 __all__ = ["init_params", "forward", "loss_fn", "init_cache", "decode_step",
            "prefill", "init_paged_cache", "paged_decode_step",
            "paged_prefill", "paged_verify_step", "gather_state_rows",
            "scatter_state_rows", "select_state_snapshot", "param_specs",
-           "paged_cache_specs", "supports_paged_prefill", "batch_specs",
-           "make_dummy_batch"]
+           "paged_cache_specs", "cache_specs", "supports_paged_prefill",
+           "batch_specs", "make_dummy_batch"]
 
 _MIXER_INIT = {"attn": attention.attn_init, "mamba": mamba.mamba_init,
                "rwkv6": rwkv6.rwkv_tmix_init}
@@ -169,19 +185,24 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     return params
 
 
-def param_specs(cfg: ModelConfig) -> dict:
-    """The serving layout of :func:`init_params`'s tree (physical spec
-    tuples, for ``shard_tree``): every projection column-parallel over
-    "model", experts over "model", the embedding's vocabulary over
-    "model" and its width over "data" (the reference's ``embed_spec``),
-    the lm_head's vocabulary over "model", norms and scalars whole."""
+def param_specs(cfg: ModelConfig, serving: bool = True) -> dict:
+    """A layout of :func:`init_params`'s tree (physical spec tuples, for
+    ``shard_tree``).  The serving layout (default): every projection
+    column-parallel over "model", experts over "model", the embedding's
+    vocabulary over "model" and its width over "data" (the reference's
+    ``embed_spec``), the lm_head's vocabulary over "model", norms and
+    scalars whole.  The training layout (``serving=False``) is the
+    reference's ``param_specs(serving=False)``, a list of layers in place
+    of its stacked periods: Megatron column / row pairs with the other
+    dimension over "data" (FSDP), experts over "model" with ``d_model``
+    over "data", the lm_head (data, model)."""
     _check_ported(cfg)
 
     def layer(spec: LayerSpec) -> dict:
         s = {"norm1": norm_spec(cfg.norm),
-             "mixer": _MIXER_SPEC[spec.mixer](cfg),
+             "mixer": _MIXER_SPEC[spec.mixer](cfg, serving=serving),
              "norm2": norm_spec(cfg.norm),
-             "ffn": _FFN_SPEC[spec.ffn](cfg)}
+             "ffn": _FFN_SPEC[spec.ffn](cfg, serving=serving)}
         if cfg.quant.enabled:
             s["alpha_r1"] = ()
             s["alpha_r2"] = ()
@@ -189,7 +210,8 @@ def param_specs(cfg: ModelConfig) -> dict:
     specs = {"embed": {"table": (MODEL, DATA)},
              "layers": [layer(_spec(cfg, i)) for i in range(cfg.n_layers)],
              "final_norm": norm_spec(cfg.norm),
-             "lm_head": dense_spec(None, MODEL, cfg.quant)}
+             "lm_head": dense_spec(None if serving else DATA, MODEL,
+                                   cfg.quant)}
     if cfg.frontend != "none":
         # the front end's projections stay whole on every rank
         specs["frontend"] = {k: dense_spec(None, None, cfg.quant)
@@ -233,6 +255,37 @@ def paged_cache_specs(cfg: ModelConfig, kv_format: str = "fp") -> dict:
     return {"layers": layers}
 
 
+def cache_specs(cfg: ModelConfig, seq_shard: bool = False,
+                kv_head_shard: bool = True) -> dict:
+    """Logical axes of :func:`init_cache`'s tree (``shard_tree(...,
+    logical=True)``), the reference's ``cache_specs`` without its stacked
+    leading axis.  ``seq_shard``: K / V time over "seq" (long-context
+    parallelism, batch 1); ``kv_head_shard=False``: the KV heads do not
+    divide "model", so K / V time goes over "model" instead (the decode
+    merges the blocks by their log-sum-exp)."""
+    _check_ported(cfg)
+    if seq_shard:
+        kv = (None, "seq", None, None)
+    elif kv_head_shard:
+        kv = ("batch", None, "model", None)
+    else:
+        kv = ("batch", "model", None, None)
+    layers = []
+    for i in range(cfg.n_layers):
+        spec = _spec(cfg, i)
+        e = {}
+        if spec.mixer == "attn":
+            e["k"] = e["v"] = kv
+        elif spec.mixer == "mamba":
+            e.update(h=("batch", "model", None), conv=("batch", None, "model"))
+        elif spec.mixer == "rwkv6":
+            e.update(s=("batch", "model", None, None), shift=("batch", None))
+        if spec.ffn == "rwkv_cmix":
+            e["cmix"] = {"shift": ("batch", None)}
+        layers.append(e)
+    return {"pos": (), "layers": layers}
+
+
 def _state_entry(cfg: ModelConfig, spec: LayerSpec, rows: int,
                  device: torch.device) -> dict:
     """Zero recurrent state of one layer for ``rows`` rows: the mixer's
@@ -268,6 +321,8 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     rows are gathered over "model" and each token keeps its owner's row
     (a copy), then d_model is gathered over "data"."""
     tok = tokens.long()
+    if fsdp_active():
+        return _embed_mesh(table, tok)
     if not is_sharded(table, 0):
         x = table[tok]
     else:
@@ -278,6 +333,30 @@ def _embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
         x = every[own.reshape(-1), torch.arange(
             tok.numel(), device=tok.device)].reshape(*tok.shape, -1)
     return cols(x, table, False, DATA)
+
+
+def _embed_mesh(table: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
+    """:func:`_embed` under a training mesh, the tokens this rank's block
+    of the batch: the table's width gathered over "data" (FSDP), each
+    rank's rows of the tokens its vocabulary block owns (zeros for the
+    others) summed over "model", an exact sum of one row and zeros."""
+    cut = is_sharded(table, 0)
+    table = fsdp_gather(table)
+    if not cut:
+        return table[tok]
+    rows = table.shape[0]
+    own = (tok // rows) == axis_index(MODEL)
+    x = table[torch.where(own, tok - axis_index(MODEL) * rows, 0)]
+    return psum(torch.where(own[..., None], x, torch.zeros((), dtype=x.dtype,
+                                                           device=x.device)))
+
+
+def _refuse_on_training_mesh(spec: LayerSpec) -> None:
+    """The recurrent layers have no training-mesh forward yet."""
+    if fsdp_active() and (spec.mixer != "attn" or spec.ffn == "rwkv_cmix"):
+        raise NotImplementedError(
+            f"layer {spec} under a training mesh: the recurrent mixers' "
+            "training layouts are ROADMAP Queue 1 item 15")
 
 
 def _gather_rows(rows: dict, dim: int = 0) -> dict:
@@ -350,10 +429,13 @@ def scatter_state_rows(cache: dict, rows: list[dict],
 
 
 def _residual_add(x, dx, lp, name, cfg: ModelConfig):
+    """``x + dx``, fake-quantized under sc_qat; under a training mesh the
+    LSQ gradient scale counts the whole batch, not this rank's block."""
     y = x + dx
     if cfg.quant.enabled and cfg.quant.mode == "sc_qat":
+        numel = whole_numel(y, batch_cut=True) if fsdp_active() else None
         y = lsq_fake_quant(y, lp[name], -cfg.quant.resid_half,
-                           cfg.quant.resid_half)
+                           cfg.quant.resid_half, numel)
     return y
 
 
@@ -363,6 +445,7 @@ def _apply_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
     """norm -> mixer (``mixer(h)``) -> residual -> norm -> dense FFN, MoE
     or the rwkv channel mix (``cmix(h)``) -> residual.  Returns (x, the
     layer's MoE aux loss or None)."""
+    _refuse_on_training_mesh(spec)
     h = norm_apply(lp["norm1"], x, cfg.norm)
     x = _residual_add(x, mixer(h), lp, "alpha_r1", cfg)
     h2 = norm_apply(lp["norm2"], x, cfg.norm)
@@ -489,6 +572,39 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, mode: str = "train",
     return logits + _vocab_bias(cfg, logits.dtype, logits.device), aux
 
 
+def _local_logits(params: dict, x: torch.Tensor, cfg: ModelConfig,
+                  dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The lm_head's logits of this rank's vocabulary block (all of them
+    when "model" does not cut it), with the padding bias."""
+    lm = params["lm_head"]
+    if is_sharded(lm["w"], 1):           # a column-parallel product's input
+        x = sum_grads(x)
+    logits = dense_apply(lm, x, cfg.quant, batch_invariant=False, local=True)
+    dt = dtype or logits.dtype
+    bias = _vocab_bias(cfg, dt, logits.device)
+    if is_sharded(lm["w"], 1):
+        n = logits.shape[-1]
+        bias = bias.narrow(0, axis_index(MODEL) * n, n)
+    return logits.to(dt) + bias
+
+
+def _nll_mesh(logits: torch.Tensor, targets: torch.Tensor,
+              vocab_cut: bool) -> torch.Tensor:
+    """The cross-entropy of logits over this rank's vocabulary block: the
+    log-sum-exp and the target's logit summed over "model"."""
+    if not vocab_cut:
+        return _nll(logits, targets)
+    lf = logits.to(torch.float32)
+    n = lf.shape[-1]
+    m = gather(lf.detach().amax(-1, keepdim=True), MODEL, -1).amax(
+        -1, keepdim=True)
+    lse = torch.log(psum(torch.exp(lf - m).sum(-1))) + m[..., 0]
+    t = targets.long() - axis_index(MODEL) * n
+    here = (t >= 0) & (t < n)
+    tl = torch.gather(lf, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    return lse - psum(torch.where(here, tl, torch.zeros((), device=lf.device)))
+
+
 def _nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
@@ -505,37 +621,49 @@ def loss_fn(params: dict, batch: dict, cfg: ModelConfig):
     the largest count below it that divides S), each projected to the
     vocabulary and reduced under ``torch.utils.checkpoint``, so only one
     chunk's logits are alive at a time, in the forward and the backward.
+
+    Under a training mesh ``batch`` is this rank's block: the
+    cross-entropy is taken over the rank's vocabulary block of the logits
+    (:func:`_nll_mesh`), and the token-weighted mean and the MoE loss's
+    mean over every rank of the batch axes, so every rank holds the
+    unsharded loss.
     """
     dev = params["embed"]["table"].device
     targets = batch["targets"].to(dev)
     mask = batch.get("loss_mask")
+    hidden, aux = forward(params, batch, cfg, return_hidden=True)
+    cut = fsdp_active() and is_sharded(params["lm_head"]["w"], 1)
     if cfg.ce_chunks > 1:
-        hidden, aux = forward(params, batch, cfg, return_hidden=True)
         S = hidden.shape[1]
-        nc = cfg.ce_chunks
-        while S % nc:
-            nc -= 1
-        c = S // nc
-        bias = _vocab_bias(cfg, torch.float32, dev)
+        c = _chunks(S, cfg.ce_chunks)
 
         def chunk_nll(xc, tc):
-            lc = dense_apply(params["lm_head"], xc, cfg.quant,
-                             batch_invariant=False)
-            return _nll(lc.to(torch.float32) + bias, tc)
-
+            return _nll_mesh(_local_logits(params, xc, cfg, torch.float32),
+                             tc, cut)
         nll = torch.cat([checkpoint(chunk_nll, hidden[:, i:i + c],
                                     targets[:, i:i + c], use_reentrant=False)
                          for i in range(0, S, c)], dim=1)
     else:
-        logits, aux = forward(params, batch, cfg)
-        nll = _nll(logits, targets)
+        nll = _nll_mesh(_local_logits(params, hidden, cfg), targets, cut)
+    axes = batch_axes()
     if mask is not None:
         mask = mask.to(dev)
-        ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        ce = psum((nll * mask).sum(), axes) \
+            / torch.clamp(psum(mask.sum(), axes), min=1.0)
     else:
-        ce = nll.mean()
+        ce = psum(nll.sum(), axes) / (nll.numel() * axis_size(axes))
+    aux = psum(aux, axes) / axis_size(axes)
     loss = ce + 1e-2 * aux
     return loss, {"loss": loss, "ce": ce, "aux": aux}
+
+
+def _chunks(S: int, ce_chunks: int) -> int:
+    """The chunk length of the chunked cross-entropy: S over ``ce_chunks``
+    or the largest count below it that divides S."""
+    nc = ce_chunks
+    while S % nc:
+        nc -= 1
+    return S // nc
 
 
 def _logits(params: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

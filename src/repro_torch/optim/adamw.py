@@ -9,6 +9,11 @@ The update is in place: the reference's launcher donates the training
 state to its jitted step, so the old state is never read again, and
 writing into the same tensors keeps one copy of the parameters and of
 ``m`` / ``v`` on the card instead of two.
+
+Under a training mesh each rank holds its block of every parameter, and
+``m`` / ``v`` are blocks of the same cut (ZeRO: no replicated optimizer
+memory; :func:`opt_state_specs`); the update is elementwise, so a rank
+updates its blocks alone.
 """
 
 from __future__ import annotations
@@ -17,17 +22,26 @@ import torch
 
 from ..tree import tree_leaves, tree_map
 
-__all__ = ["adamw_init", "adamw_update"]
+__all__ = ["adamw_init", "adamw_update", "opt_state_specs"]
 
 
 def adamw_init(params, state_dtype: str = "float32") -> dict:
     dt = getattr(torch, state_dtype)
 
     def zeros(p):
-        return torch.zeros(p.shape, dtype=dt, device=p.device)
+        z = torch.zeros(p.shape, dtype=dt, device=p.device)
+        if hasattr(p, "mesh_spec"):         # a block: the state's is too
+            z.mesh_spec = p.mesh_spec
+        return z
     dev = tree_leaves(params)[0].device
     return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
             "count": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_state_specs(param_specs) -> dict:
+    """The optimizer state's specs: ``m`` / ``v`` cut as the parameters,
+    the step count whole."""
+    return {"m": param_specs, "v": param_specs, "count": ()}
 
 
 @torch.no_grad()

@@ -18,6 +18,16 @@ error-feedback round trip (``distributed.compression``) before AdamW,
 the residual carried in ``TrainState.error``.  One scale covers a leaf
 of every layer of one period position, as one stacked leaf of the
 reference's (:func:`_scale_groups`).
+
+Under a training mesh (``sharding.fsdp_active``; the state holds this
+rank's blocks, ``shard_tree`` of ``param_specs(cfg, serving=False)``) the
+step cuts the batch over the batch axes (a field that is a block already
+stays as it is), and the loss is the global token-weighted mean
+(``models.loss_fn``).  A leaf cut over "data" gets its gradient
+reduce-scattered by the FSDP gather's backward and then summed over the
+batch axes it is not cut on ("pod"); a leaf kept whole is summed over
+every batch axis.  Clipping, compression's scales and the metrics count
+each leaf's blocks once; AdamW updates the local blocks.
 """
 
 from __future__ import annotations
@@ -28,6 +38,9 @@ import torch
 
 from ..configs.base import ModelConfig
 from ..distributed.compression import compress_decompress, init_error_state
+from ..distributed.sharding import (_names, axis_size, batch_axes,
+                                    current_rules, fsdp_active, psum,
+                                    shard_tree, spec_of)
 from ..models import loss_fn
 from ..optim import adamw_init, adamw_update, clip_by_global_norm
 from ..tree import tree_leaves, tree_map, tree_paths
@@ -67,6 +80,24 @@ def decay_mask(params: dict) -> list[bool]:
             for path, p in tree_paths(params)]
 
 
+def _cut_batch(batch: dict) -> dict:
+    """This rank's block of each batch field over the batch axes."""
+    nb = axis_size(batch_axes())
+    for k, v in batch.items():
+        if not hasattr(v, "mesh_spec") and v.shape[0] % nb:
+            raise ValueError(f"batch field {k!r} of {v.shape[0]} rows does "
+                             f"not split over {nb} batch ranks")
+    specs = {k: ("batch",) + (None,) * (v.ndim - 1) for k, v in batch.items()}
+    return shard_tree(batch, specs, current_rules(), logical=True)
+
+
+def _sum_over_batch(g: torch.Tensor, spec: tuple) -> torch.Tensor:
+    """A rank's gradient of a leaf summed over the batch axes the leaf is
+    not cut on (its "data" cut was reduce-scattered already)."""
+    cut = {a for ax in spec for a in _names(ax)}
+    return psum(g, tuple(a for a in batch_axes() if a not in cut))
+
+
 def init_train_state(params, cfg: ModelConfig,
                      grad_compress: bool = False) -> TrainState:
     opt = adamw_init(params, cfg.opt_state_dtype)
@@ -101,7 +132,11 @@ def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
         params = state.params
         leaves = tree_leaves(params)
         dev = leaves[0].device
-        batch = {k: v.to(dev) for k, v in batch.items()}
+        mesh = fsdp_active()
+        batch = {k: v if hasattr(v, "mesh_spec") else v.to(dev)
+                 for k, v in batch.items()}
+        if mesh:
+            batch = _cut_batch(batch)
         if grad_accum == 1:
             metrics, grads = value_and_grad(leaves, params, batch)
         else:
@@ -124,13 +159,16 @@ def build_train_step(cfg: ModelConfig, lr_schedule: Callable,
         for p in leaves:
             p.requires_grad_(False)
         # grads: a flat list in tree_leaves(params) order
-        grads, gnorm = clip_by_global_norm(grads, max_grad_norm)
+        specs = [spec_of(p) for p in leaves] if mesh else None
+        if mesh:
+            grads = [_sum_over_batch(g, s) for g, s in zip(grads, specs)]
+        grads, gnorm = clip_by_global_norm(grads, max_grad_norm, specs)
         error = state.error
         if grad_compress and error is not None:
             it = iter(grads)
             gtree, error = compress_decompress(
                 tree_map(lambda _: next(it), params), error,
-                shared=_scale_groups(params, cfg))
+                shared=_scale_groups(params, cfg), specs=specs)
             grads = tree_leaves(gtree)
         lr = lr_schedule(state.step)
         adamw_update(grads, state.opt, params, lr,

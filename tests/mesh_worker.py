@@ -9,7 +9,14 @@ itself; the parent calls it with ``rules=None`` for the mesh-off run.
 This module imports torch, numpy and ``repro_torch`` only, so a rank
 never loads JAX or the reference; each rank runs one torch thread (the
 port tests' one-thread rule) and every case at once, so a file pays the
-ranks' start-up once.
+ranks' start-up once; a job's cases reach its ranks through a temporary
+file (:func:`_stash`), so that all of them start together.
+
+The training mesh's side: :class:`Ranks` runs a function of this module
+on a gloo group; :func:`train_step_case` is one train step (mesh-on under
+training rules, or mesh-off), :func:`decode_step_case` one dense decode
+step over a time-cut cache, :func:`restore_on_mesh` a checkpoint
+restored as blocks.
 """
 
 from __future__ import annotations
@@ -85,9 +92,35 @@ def serve(case: dict, rules=None) -> dict:
             "sums": [s.cpu().numpy() for s in sums]}
 
 
+def _stash(obj) -> str:
+    """``obj`` pickled to a temporary file, whose path the ranks get: a
+    spawn's arguments go through a pipe that blocks the parent until the
+    child has started, so large ones would start the ranks one by one."""
+    import os
+    import pickle
+    import tempfile
+    fd, path = tempfile.mkstemp(suffix=".pkl")
+    with os.fdopen(fd, "wb") as f:
+        pickle.dump(obj, f)
+    return path
+
+
+def _unstash(path: str):
+    import pickle
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def _drop(path: str) -> None:
+    import os
+    if os.path.exists(path):
+        os.unlink(path)
+
+
 def _child(name, rank, world, port, data_parallel, cases, queue):
     torch.set_num_threads(1)
     try:
+        cases = _unstash(cases)
         import torch.distributed as dist
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 world_size=world, rank=rank,
@@ -122,11 +155,12 @@ class Job:
         self.meshes = meshes
         self.queue = ctx.Queue()
         self.procs = {}
+        self.path = _stash(cases)
         for name, (world, dp) in meshes.items():
             port = free_port()
             for r in range(world):
                 self.procs[name, r] = ctx.Process(
-                    target=_child, args=(name, r, world, port, dp, cases,
+                    target=_child, args=(name, r, world, port, dp, self.path,
                                          self.queue), daemon=True)
         for p in self.procs.values():
             p.start()
@@ -148,6 +182,7 @@ class Job:
                 if p.is_alive():
                     p.kill()
                     p.join()
+            _drop(self.path)
         codes = {k: p.exitcode for k, p in self.procs.items()}
         if errors or any(c != 0 for c in codes.values()):
             raise AssertionError(f"mesh ranks failed (exit codes {codes})\n"
@@ -159,6 +194,7 @@ class Job:
 def _rank_main(target, rank, world, port, args, queue):
     torch.set_num_threads(1)
     try:
+        args = _unstash(args)
         import torch.distributed as dist
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
                                 world_size=world, rank=rank,
@@ -172,32 +208,48 @@ def _rank_main(target, rank, world, port, args, queue):
         raise
 
 
-def on_ranks(target, world: int, *args, timeout: float = 120) -> list:
+class Ranks:
     """``target(rank, world, *args)`` (a function of this module) on each
-    rank of a gloo group of ``world`` ranks; each rank's result."""
-    import torch.multiprocessing as mp
-    ctx = mp.get_context("spawn")
-    queue, port = ctx.Queue(), free_port()
-    procs = [ctx.Process(target=_rank_main, daemon=True,
-                         args=(target, r, world, port, args, queue))
-             for r in range(world)]
-    for p in procs:
-        p.start()
-    out = {}
-    try:
-        for _ in procs:
-            rank, res, err = queue.get(timeout=timeout)
-            if err is not None:
-                raise AssertionError(f"rank {rank}:\n{err}")
-            out[rank] = res
-    finally:
-        for p in procs:
-            p.join(timeout=30)
-            if p.is_alive():
-                p.kill()
-                p.join()
-    assert all(p.exitcode == 0 for p in procs), [p.exitcode for p in procs]
-    return [out[r] for r in range(world)]
+    rank of a gloo group of ``world`` ranks, started at construction;
+    several may run at once.  :meth:`collect` waits for each rank's
+    result; a rank that fails fails the call, and no rank outlives it."""
+
+    def __init__(self, target, world: int, *args):
+        import torch.multiprocessing as mp
+        ctx = mp.get_context("spawn")
+        self.queue, port = ctx.Queue(), free_port()
+        self.path = _stash(args)
+        self.procs = [ctx.Process(target=_rank_main, daemon=True,
+                                  args=(target, r, world, port, self.path,
+                                        self.queue))
+                      for r in range(world)]
+        for p in self.procs:
+            p.start()
+
+    def collect(self, timeout: float = 120) -> list:
+        out = {}
+        try:
+            for _ in self.procs:
+                rank, res, err = self.queue.get(timeout=timeout)
+                if err is not None:
+                    raise AssertionError(f"rank {rank}:\n{err}")
+                out[rank] = res
+        finally:
+            for p in self.procs:
+                p.join(timeout=30)
+                if p.is_alive():
+                    p.kill()
+                    p.join()
+            _drop(self.path)
+        assert all(p.exitcode == 0 for p in self.procs), \
+            [p.exitcode for p in self.procs]
+        return [out[r] for r in range(len(self.procs))]
+
+
+def on_ranks(target, world: int, *args, timeout: float = 120) -> list:
+    """``target(rank, world, *args)`` on each rank of a gloo group of
+    ``world`` ranks; each rank's result."""
+    return Ranks(target, world, *args).collect(timeout)
 
 
 def psum(rank, world, grads):
@@ -316,3 +368,113 @@ def assert_matches_reference(got, want, case, datapath):
         lg = logits[first]
         assert float(lg[g[first]]) == float(lg[w[first]]) == \
             float(lg.max()), (prompt, first)
+
+
+
+# -- the training mesh ----------------------------------------------------
+
+def _mesh_rules(shape):
+    """Training rules on a (data, model) or (pod, data, model) mesh."""
+    from repro_torch.launch.mesh import _grid, training_rules
+    axes = ("pod", "data", "model")[-len(shape):]
+    return training_rules(_grid(tuple(shape), axes, backend="gloo"))
+
+
+def train_step_case(case: dict, rules=None) -> dict:
+    """One ``build_train_step`` step of ``case`` (a config, the port's
+    parameters as numpy, a numpy batch, ``grad_compress``) under
+    ``rules`` (or mesh-off): the metrics and the whole params, ``m`` and
+    ``v`` after it (gathered from the blocks), as numpy."""
+    from repro_torch.distributed.sharding import (mesh_rules, shard_tree,
+                                                  unshard_tree)
+    from repro_torch.models import param_specs
+    from repro_torch.optim import warmup_cosine
+    from repro_torch.train import build_train_step, init_train_state
+    from repro_torch.tree import tree_map, tree_paths
+    cfg, comp = case["cfg"], case.get("grad_compress", False)
+    params = tree_map(lambda a: torch.from_numpy(a.copy()), case["params"])
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    with mesh_rules(rules):
+        if rules is not None:
+            params = shard_tree(params, param_specs(cfg, serving=False),
+                                rules)
+        state = init_train_state(params, cfg, grad_compress=comp)
+        step = build_train_step(cfg, lambda s: warmup_cosine(
+            s + 1, 1e-3, 2, 10), grad_compress=comp)
+        state, m = step(state, batch)
+        if case.get("ckpt_dir"):
+            from repro_torch.checkpoint import save_checkpoint
+            save_checkpoint(case["ckpt_dir"], 1, state, async_=False)
+        whole = unshard_tree(state)
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            **{name: {k: v.numpy() for k, v in tree_paths(tree)}
+               for name, tree in (("params", whole.params),
+                                  ("m", whole.opt["m"]),
+                                  ("v", whole.opt["v"]))}}
+
+
+def train_mesh(rank, world, shape, cases):
+    """Every case of ``cases`` ({id: case}) on a ``shape`` training mesh
+    of gloo ranks (``train_step_case``)."""
+    rules = _mesh_rules(shape)
+    return {cid: train_step_case(case, rules) for cid, case in cases.items()}
+
+
+def restore_on_mesh(rank, world, shape, cfg, jobs):
+    """``restore_checkpoint`` of step 1 of each ``(directory, prefix,
+    target)`` of ``jobs`` onto a ``shape`` training mesh (each rank its
+    blocks, under the training layout; ``prefix`` the key the params sit
+    under in the checkpoint, or None), gathered whole again: each leaf's
+    raw bits and the blocks' shapes."""
+    from repro_torch.checkpoint import restore_checkpoint
+    from repro_torch.distributed.sharding import mesh_rules, unshard_tree
+    from repro_torch.models import param_specs
+    from repro_torch.tree import tree_map, tree_paths
+    rules = _mesh_rules(shape)
+    out = []
+    for ckpt_dir, prefix, target in jobs:
+        specs = param_specs(cfg, serving=False)
+        tgt = tree_map(lambda a: torch.from_numpy(a.copy()), target)
+        if prefix:
+            tgt, specs = {prefix: tgt}, {prefix: specs}
+        with mesh_rules(rules):
+            blocks = restore_checkpoint(ckpt_dir, 1, tgt, rules=rules,
+                                        specs=specs)
+            whole = unshard_tree(blocks)
+        out.append(({k: v.view(_raw(v.dtype)).numpy()
+                     for k, v in tree_paths(whole)},
+                    {k: tuple(v.shape) for k, v in tree_paths(blocks)}))
+    return out
+
+
+def decode_step_case(case: dict, rules=None) -> dict:
+    """One dense ``decode_step`` of ``case`` (a config, the port's params,
+    a cache as numpy, tokens) under ``rules`` (or mesh-off), the params
+    in the serving layout and the cache cut as ``cache_specs(
+    kv_head_shard=False)`` says (time over "model"): the logits and the
+    cache after the step, whole."""
+    from repro_torch.distributed.sharding import (mesh_rules, shard_tree,
+                                                  unshard_tree)
+    from repro_torch.models import cache_specs, decode_step, param_specs
+    from repro_torch.tree import tree_map, tree_paths
+    cfg = case["cfg"]
+    params = tree_map(lambda a: torch.from_numpy(a.copy()), case["params"])
+    cache = tree_map(lambda a: torch.from_numpy(a.copy()), case["cache"])
+    tokens = torch.from_numpy(case["tokens"])
+    with mesh_rules(rules), torch.no_grad():
+        if rules is not None:
+            params = shard_tree(params, param_specs(cfg), rules)
+            cache = shard_tree(cache, cache_specs(cfg, kv_head_shard=False),
+                               rules, logical=True)
+            tokens = shard_tree(tokens, ("batch", None), rules, logical=True)
+        logits, cache = decode_step(params, cache, tokens, cfg)
+        if rules is not None:
+            from repro_torch.distributed.sharding import batch_axes, gather
+            logits = gather(logits, batch_axes(), 0)
+        whole = unshard_tree(cache)
+    return {"logits": logits.numpy(),
+            "cache": {k: v.numpy() for k, v in tree_paths(whole)}}
+
+
+def decode_mesh(rank, world, shape, case):
+    return decode_step_case(case, _mesh_rules(shape))
