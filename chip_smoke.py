@@ -29,7 +29,7 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    phase 8's shapes too: jamba's attention at head_dim 128, rwkv6's
    channel mix and jamba's ``in_proj``);
 4. serve full-width granite-3-2b (bf16, random weights from a seed,
-   ``--layers`` of its 40 layers, 20 by default) through
+   ``--layers`` of its 40 layers, 6 by default) through
    ``ServeEngine`` on qat x fp, sc_int x int8 (every projection
    through the ternary matmul kernel) and sc_int_approx x sc: every
    kernel on the path must have launched, the batched tokens must equal
@@ -55,7 +55,7 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    a tiny float32 config's train step on the card equals the same step on
    the CPU within a stated tolerance;
 7. serve full-width qwen3-moe-235b-a22b (128 experts top-8, qk_norm,
-   bf16, seeded random weights, ``--moe-layers`` of its 94 layers, 4 by
+   bf16, seeded random weights, ``--moe-layers`` of its 94 layers, 2 by
    default,
    capacity factor E / k = 16 so no token drops) on the same three pairs
    and traffic (8 new tokens): batched tokens equal
@@ -68,7 +68,7 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    same tokens on the card as on the CPU;
 8. serve the recurrent mixers at full width (bf16, seeded random
    weights) on the same three pairs and traffic (8 new tokens):
-   rwkv6-7b at ``--rwkv-layers`` (default 16 of its 32 layers; d 4096, 64
+   rwkv6-7b at ``--rwkv-layers`` (default 4 of its 32 layers; d 4096, 64
    wkv heads of 64, d_ff 14336, vocab 65536) and jamba-1.5-large-398b at
    ``--jamba-layers`` (default 5 of its 72: mamba + dense, mamba + MoE,
    mamba + dense, mamba + MoE, attention + dense; d 8192, d_inner 16384,
@@ -194,23 +194,45 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    on the host meanwhile), labelled: two ranks share one H100.  Then a
    tiny float32 step without quantization on both meshes on the card
    equals the CPU's unsharded step at ``TINY_TRAIN_TOL``.
+15. the recurrent archs on the training mesh, the same way: 2 ranks train
+   full-width rwkv6-7b at ``--rwkv-train-layers`` (the chunked wkv: the
+   token scan's operands of 2 rows are past the card) and jamba's layers
+   0 and 4 (mamba + dense, attention + dense) on (1, 2) and (2, 1), 2
+   steps of 2 x 4096 tokens each, bf16 sc_qat: each step's loss, and a
+   quantization-off step's loss and grad norm (rwkv6's in float32:
+   ``FLOAT32_QUANT_OFF``), within ``MESH_TRAIN_RTOL`` of the unsharded
+   steps run first; step 2 moves
+   every watched leaf whose update exceeds half an ulp (phase 9's rule);
+   each rank launches the flash kernel at D 128 once a forward and
+   recompute of jamba's attention layer, with its 32 / 4 local heads on
+   (1, 2); s / step, the collectives' ms and the peaks beside the
+   dry-run's prediction.  Then long_500k's decode: jamba's layer 4 alone
+   (float32, quantization off) at batch 1 over a 524288-position dense
+   cache of seeded random K / V, 4 teacher-forced ``decode_step``s
+   straddling the two ranks' blocks, the time cut over "data" on a (2, 1)
+   mesh (the dry-run's long_500k rules): logits within ``LONG_LOGIT_RTOL``
+   of mesh-off's largest and K / V written where mesh-off writes them,
+   bit for bit, and nowhere else; ms a step each.  Then tiny float32 rwkv6
+   and jamba (a whole period, MoE and flash) steps on both meshes on the
+   card equal the CPU's unsharded step at ``TINY_TRAIN_TOL``.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
-4096, 64 / 8 heads, D 128), at hubert's (B 2, S 1500, 16 heads of D 80,
-bidirectional) and llava's prefill (B 2, S 2896, 56 / 8 heads, D 128,
-causal), at a ragged bidirectional GQA shape (all bf16: the tensor-core
-kernel), in float32 (the CUDA-core kernel), and its
-gradient against autograd through the plain version at D 64 and D 128;
-and it measures what rounding P to one bf16 term, or to the kernel's
-two, does to O.  Phases 4, 7 and 8 hold the batched engine against the
-paged oracle (``serving.engine._paged_sequential_generate``) on every
-pair; ``sequential_generate`` itself runs the dense cache for fp, as the
+4096, 64 / 8 heads, D 128) and at its (1, 2) rank's (B 2, S 4096, 32 / 4
+heads), at hubert's (B 2, S 1500, 16 heads of D 80, bidirectional) and
+llava's prefill (B 2, S 2896, 56 / 8 heads, D 128, causal), at a ragged
+bidirectional GQA shape (all bf16: the tensor-core kernel), in float32
+(the CUDA-core kernel), and its gradient against autograd through the
+plain version at D 64 and D 128; and it measures what rounding P to one
+bf16 term, or to the kernel's two, does to O. Phases 4, 7 and 8 hold the
+batched engine against the paged oracle
+(``serving.engine._paged_sequential_generate``) on every pair;
+``sequential_generate`` itself runs the dense cache for fp, as the
 reference's, and phase 9 holds that.
 
 Run from the repository root::
 
-    python3 chip_smoke.py                 # full run (20 / 4 / 8 / 5 / 2 /
+    python3 chip_smoke.py                 # full run (6 / 2 / 4 / 5 / 2 /
                                           # 48 / 4 layers)
     python3 chip_smoke.py --layers 2 --moe-layers 1 --rwkv-layers 2 \
         --jamba-layers 2 --rwkv-train-layers 1 --hubert-layers 2 \
@@ -980,6 +1002,9 @@ FLASH_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=8, D=64)   # phase 6's attention
 FLASH_LOCAL_SHAPE = dict(B=2, S=4096, Hq=16, Hkv=4, D=64)
 # jamba-1.5-large's attention layers over a train_4k sequence
 JAMBA_FLASH_SHAPE = dict(B=1, S=4096, Hq=64, Hkv=8, D=128)
+# phase 15's: jamba's attention on a rank of the (1, 2) training mesh, its
+# half of the query heads and the KV heads they read
+JAMBA_LOCAL_FLASH_SHAPE = dict(B=2, S=4096, Hq=32, Hkv=4, D=128)
 # phase 13's: hubert-xlarge's encoder (2 utterances of 1500 frames, 16
 # heads of 80, bidirectional) and llava-next-34b's dense prefill (2
 # requests of 2880 patches + 16 tokens, 56 q heads over 8 KV heads)
@@ -1037,9 +1062,12 @@ def check_flash(torch, dev, gen):
     from repro_torch.kernels.flash_attention import flash_attention_cuda
     from repro_torch.kernels.ref import flash_attention_ref
     cases = []
-    # phase 14's shape draws its inputs from a stream of its own, so that
-    # the other cases keep the inputs they had before it came
-    local_gen = torch.Generator(dev).manual_seed(SEED + 14)
+    # phase 14's and phase 15's shapes draw their inputs from streams of
+    # their own, so that the other cases keep the inputs they had before
+    # they came
+    own_gen = {id(FLASH_LOCAL_SHAPE): torch.Generator(dev).manual_seed(
+        SEED + 14), id(JAMBA_LOCAL_FLASH_SHAPE): torch.Generator(
+            dev).manual_seed(SEED + 15)}
     # bf16 runs the tensor-core kernel, float32 the CUDA-core one
     for label, shp, causal, dtype in (
             ("train B2 S4096 causal", FLASH_SHAPE, True, torch.bfloat16),
@@ -1054,10 +1082,11 @@ def check_flash(torch, dev, gen):
             ("hubert B2 S1500 Hq16 D80 bidirectional", HUBERT_FLASH_SHAPE,
              False, torch.bfloat16),
             ("llava prefill B2 S2896 Hq56 Hkv8 D128 causal",
-             LLAVA_FLASH_SHAPE, True, torch.bfloat16)):
-        q, k, v = _flash_inputs(
-            torch, local_gen if shp is FLASH_LOCAL_SHAPE else gen, dev,
-            **shp, dtype=dtype)
+             LLAVA_FLASH_SHAPE, True, torch.bfloat16),
+            ("jamba train (1, 2) local heads B2 S4096 Hq32 Hkv4 D128 causal",
+             JAMBA_LOCAL_FLASH_SHAPE, True, torch.bfloat16)):
+        q, k, v = _flash_inputs(torch, own_gen.get(id(shp), gen), dev,
+                                **shp, dtype=dtype)
         out, lse = flash_attention_cuda(q, k, v, causal=causal)
         want, want_lse = flash_attention_ref(q, k, v, causal,
                                              return_lse=True)
@@ -1703,19 +1732,27 @@ def _watch(params, arch="granite-3-2b"):
 
 def _rounded_away(torch, state, lr, arch="granite-3-2b"):
     """Per watched leaf, the largest ratio of the last AdamW update to half
-    an ulp of the entry it was added to, recomputed from the optimizer's
-    own m / v / count exactly as ``optim.adamw_update`` forms it: below 1
-    the update rounds away in the leaf's dtype, and the leaf stays."""
+    an ulp of the entry it was added to (:func:`_update_over_half_ulp`)."""
+    return _update_over_half_ulp(
+        torch, *(_watch(t, arch) for t in (state.params, state.opt["m"],
+                                           state.opt["v"])),
+        float(state.opt["count"]), lr)
+
+
+def _update_over_half_ulp(torch, params, m_w, v_w, count, lr):
+    """Per watched leaf (``params``, ``m_w``, ``v_w``: whole leaves keyed
+    by path), the largest ratio of the last AdamW update to half an ulp of
+    the entry it was added to, recomputed from the optimizer's own m / v /
+    ``count`` exactly as ``optim.adamw_update`` forms it: below 1 the
+    update rounds away in the leaf's dtype, and the leaf stays."""
     import inspect
     from repro_torch.optim import adamw_update
     arg = {k: p.default for k, p in
            inspect.signature(adamw_update).parameters.items()}
-    c = float(state.opt["count"])
+    c = count
     bc1, bc2 = 1 - arg["b1"] ** c, 1 - arg["b2"] ** c
     ratios = {}
-    for (k, p), m, v in zip(_watch(state.params, arch).items(),
-                            _watch(state.opt["m"], arch).values(),
-                            _watch(state.opt["v"], arch).values()):
+    for (k, p), m, v in zip(params.items(), m_w.values(), v_w.values()):
         step = (m.float() / bc1) / (torch.sqrt(v.float() / bc2) + arg["eps"])
         if p.ndim + k.startswith("layers/") >= 2:      # train.decay_mask
             step = step + arg["weight_decay"] * p.float()
@@ -2728,12 +2765,19 @@ MESH_MOE_LAYERS = 2
 MESH_LABEL = "2 ranks sharing one H100; not a tensor-parallel speedup"
 
 
-def _granite(torch, dev, layers):
+def _granite_cfg(layers, mode=None):
+    """granite-3-2b at ``layers``, its registered quantization or
+    ``mode``."""
     from repro_torch.configs import get_arch
-    from repro_torch.models import init_params
     cfg = get_arch("granite-3-2b")
     if layers != cfg.n_layers:
         cfg = cfg.scaled(n_layers=layers)
+    return cfg.scaled(quant=cfg.quant.with_mode(mode)) if mode else cfg
+
+
+def _granite(torch, dev, layers):
+    from repro_torch.models import init_params
+    cfg = _granite_cfg(layers)
     return cfg, init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
 
 
@@ -3663,12 +3707,6 @@ def _norm_shift(got, want):
             for k in top}
 
 
-def _gathered_watch(torch, params):
-    """The watched leaves, whole (every rank takes part)."""
-    from repro_torch.distributed.sharding import unshard_tree
-    return {k: v.clone() for k, v in unshard_tree(_watch(params)).items()}
-
-
 def _timed_collectives(torch):
     """Wrap the mesh's collectives (gather, all-reduce, reduce-scatter) with
     host timers around a synchronize; returns (restore, the ms list)."""
@@ -3732,24 +3770,22 @@ def _tiny_step(torch, cfg, params, batch, rules=None):
                                   ("v", whole.opt["v"]))}}
 
 
-def _granite_step(torch, dev, layers, mode="none", float32=False,
-                  rows=TRAIN_BATCH, rules=None, nudge=False):
-    """One step (lr 0) of phase 6's granite at ``layers`` under
-    quantization ``mode``, from phase 6's seed and the first ``rows`` of
-    its first batch, in bf16 or (``float32``) on the bf16 weights upcast,
-    with ``nudge`` layer 0's ``wo`` scaled by 1 + 2^-7 (each entry about
-    one bf16 ulp up), under ``rules`` or unsharded: its loss and grad
-    norm (under sc_qat also :func:`_grad_norms_by_kind`)."""
-    from repro_torch.configs import get_arch
+def _first_step(torch, dev, cfg, rules=None, float32=False,
+                rows=TRAIN_BATCH, nudge=False):
+    """Step 1 (lr 0) of ``cfg`` at full width from phase 6's seed (mamba's
+    taps live) on the first ``rows`` of phase 6's first batch, in the
+    config's dtype or (``float32``) on its bf16 weights upcast, with
+    ``nudge`` layer 0's ``wo`` scaled by 1 + 2^-7 (each entry about one
+    bf16 ulp up), under the active ``rules`` or unsharded: its loss, grad
+    norm and grad norm by kind of leaf (:func:`_grad_norms_by_kind`)."""
     from repro_torch.data import SyntheticLM
     from repro_torch.distributed.sharding import shard_tree
     from repro_torch.models import init_params, param_specs
     from repro_torch.optim import warmup_cosine
     from repro_torch.train import build_train_step, init_train_state
     from repro_torch.tree import tree_map
-    base = get_arch("granite-3-2b").scaled(n_layers=layers)
-    cfg = base.scaled(quant=base.quant.with_mode(mode))
-    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    params = live_ssm(init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                  dev))
     if nudge:
         params["layers"][0]["mixer"]["wo"]["w"].mul_(1 + 2 ** -7)
     if float32:
@@ -3765,81 +3801,116 @@ def _granite_step(torch, dev, layers, mode="none", float32=False,
     batch = {k: v[:rows] for k, v in batch.items()}
     state, m = step_fn(init_train_state(params, cfg), batch)
     out = {k: float(m[k]) for k in ("loss", "grad_norm")}
-    if mode == "sc_qat":
-        out["by_kind"] = _grad_norms_by_kind(state, out["grad_norm"])
+    out["by_kind"] = _grad_norms_by_kind(state, out["grad_norm"])
     del params, state
     torch.cuda.empty_cache()
     return out
 
 
-def train_mesh_rank_work(torch, layers, dev):
-    """One rank of phase 14 (both ranks run it): full-width granite-3-2b at
-    ``layers`` trained on each mesh of ``TRAIN_MESHES`` for
-    ``MESH_TRAIN_STEPS`` steps from phase 6's seed, schedule and batches
-    (the launch counts set to 0 just before, the collectives timed at
-    the last step, the peak memory of the steps); then the tiny float32
-    step on the card under each mesh."""
+def _mesh_train(torch, dev, cfg, rules, arch="granite-3-2b"):
+    """``MESH_TRAIN_STEPS`` steps of ``cfg`` at full width under ``rules``
+    from phase 6's seed (mamba's taps live), schedule and batches of
+    ``TRAIN_BATCH`` x ``TRAIN_SEQ``: the launch counts set to 0 just
+    before the steps, the collectives timed at the last step, the peak
+    memory of the steps, the share of each watched leaf's entries that
+    step 2 changed (:func:`_changed_share`) and, for a leaf it left, the
+    largest update over half an ulp (:func:`_update_over_half_ulp`), step
+    1's grad norm by kind of leaf."""
     from repro_torch.data import SyntheticLM
-    from repro_torch.distributed.sharding import mesh_rules, shard_tree
+    from repro_torch.distributed.sharding import (mesh_rules, shard_tree,
+                                                  unshard_tree)
     from repro_torch.kernels import build as kbuild
-    from repro_torch.launch.mesh import _grid, training_rules
-    from repro_torch.models import param_specs
+    from repro_torch.models import init_params, param_specs
     from repro_torch.optim import warmup_cosine
     from repro_torch.train import build_train_step, init_train_state
+    params = live_ssm(init_params(cfg, torch.Generator(dev).manual_seed(SEED),
+                                  dev))
+    ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ, seed=SEED)
+    with mesh_rules(rules):
+        if rules is not None:
+            params = shard_tree(params, param_specs(cfg, serving=False),
+                                rules)
+            torch.cuda.empty_cache()
+        state = init_train_state(params, cfg)
+        step_fn = build_train_step(cfg, lambda s: warmup_cosine(
+            s, TRAIN_LR, 1, TRAIN_STEPS))
+        before = {k: v.clone()
+                  for k, v in _watch(state.params, arch).items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kbuild.reset_launches()
+        steps, collective_ms = [], None
+        for i in range(MESH_TRAIN_STEPS):
+            batch = ds.batch(i, TRAIN_BATCH)
+            last = i == MESH_TRAIN_STEPS - 1
+            restore, spent = _timed_collectives(torch) if last \
+                else (lambda: None, None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                state, m = step_fn(state, batch)
+                torch.cuda.synchronize()
+            finally:
+                restore()
+            steps.append(dict({k: float(v) for k, v in m.items()},
+                              sec=time.perf_counter() - t0))
+            if i == 0:
+                by_kind = _grad_norms_by_kind(state, steps[-1]["grad_norm"])
+            if last:
+                collective_ms = dict(ms=sum(spent), calls=len(spent))
+        launches = dict(kbuild.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        changed = _changed_share(torch, before, _watch(state.params, arch),
+                                 rules)
+        # a leaf step 2 left: its update against half an ulp, whole
+        stuck = {k: None for k, c in changed.items() if c == 0}
+        rounded = _update_over_half_ulp(torch, *(
+            unshard_tree({k: v for k, v in _watch(t, arch).items()
+                          if k in stuck})
+            for t in (state.params, state.opt["m"], state.opt["v"])),
+            float(state.opt["count"]), steps[-1]["lr"]) if stuck else {}
+    del state, params, before
+    torch.cuda.empty_cache()
+    return dict(steps=steps, launches=launches, peak_bytes=peak,
+                collectives_last_step=collective_ms, changed=changed,
+                update_over_half_ulp=rounded,
+                step1_grad_norm_by_kind=by_kind)
+
+
+def _changed_share(torch, before, after, rules):
+    """The share of each watched leaf's entries that differ between
+    ``before`` and ``after`` (this rank's blocks): the counts summed over
+    every rank of the mesh, a leaf held whole on several ranks counted
+    once on each in both terms."""
+    from repro_torch.distributed.sharding import psum
+    counts = torch.stack([torch.stack([(after[k] != v).sum().double(),
+                                       torch.tensor(float(v.numel()),
+                                                    device=v.device,
+                                                    dtype=torch.float64)])
+                          for k, v in before.items()])
+    if rules is not None:
+        counts = psum(counts, rules.mesh.axis_names)
+    return {k: (c[0] / c[1]).item() for k, c in zip(before, counts)}
+
+
+def train_mesh_rank_work(torch, layers, dev):
+    """One rank of phase 14 (both ranks run it): full-width granite-3-2b at
+    ``layers`` trained on each mesh of ``TRAIN_MESHES``
+    (:func:`_mesh_train`), then one step with quantization off under the
+    same rules; then the tiny float32 step on the card under each mesh."""
+    from repro_torch.distributed.sharding import mesh_rules
+    from repro_torch.launch.mesh import _grid, training_rules
     out = {}
     for shape in TRAIN_MESHES:
         name = "x".join(map(str, shape))
         rules = training_rules(_grid(shape, ("data", "model"), "gloo"))
-        cfg, params = _granite(torch, dev, layers)
-        ds = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
-                         seed=SEED)
+        out[name] = _mesh_train(torch, dev, _granite_cfg(layers), rules)
         with mesh_rules(rules):
-            params = shard_tree(params, param_specs(cfg, serving=False),
-                                rules)
-            torch.cuda.empty_cache()
-            state = init_train_state(params, cfg)
-            step_fn = build_train_step(cfg, lambda s: warmup_cosine(
-                s, TRAIN_LR, 1, TRAIN_STEPS))
-            before = _gathered_watch(torch, state.params)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            kbuild.reset_launches()
-            steps, collective_ms = [], None
-            for i in range(MESH_TRAIN_STEPS):
-                batch = ds.batch(i, TRAIN_BATCH)
-                last = i == MESH_TRAIN_STEPS - 1
-                restore, spent = _timed_collectives(torch) if last \
-                    else (lambda: None, None)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                try:
-                    state, m = step_fn(state, batch)
-                    torch.cuda.synchronize()
-                finally:
-                    restore()
-                steps.append(dict({k: float(v) for k, v in m.items()},
-                                  sec=time.perf_counter() - t0))
-                if i == 0:
-                    by_kind = _grad_norms_by_kind(state,
-                                                  steps[-1]["grad_norm"])
-                if last:
-                    collective_ms = dict(ms=sum(spent), calls=len(spent))
-            launches = dict(kbuild.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated()
-            after = _gathered_watch(torch, state.params)
-        changed = {k: (after[k] != v).float().mean().item()
-                   for k, v in before.items()}
-        del state, params, before, after
-        torch.cuda.empty_cache()
-        with mesh_rules(rules):
-            off = _granite_step(torch, dev, layers, rules=rules)
-            qat32 = _granite_step(torch, dev, layers, "sc_qat", True,
-                                  rules=rules) if shape[1] > 1 else None
-        out[name] = dict(
-            steps=steps, launches=launches, peak_bytes=peak,
-            collectives_last_step=collective_ms, changed=changed,
-            quant_off=off, sc_qat_float32=qat32,
-            step1_grad_norm_by_kind=by_kind)
+            out[name]["quant_off"] = _first_step(
+                torch, dev, _granite_cfg(layers, "none"), rules)
+            out[name]["sc_qat_float32"] = _first_step(
+                torch, dev, _granite_cfg(layers, "sc_qat"), rules, True) \
+                if shape[1] > 1 else None
         torch.cuda.empty_cache()
     cfg, cpu, batch = _tiny_mesh_case(torch)
     out["tiny"] = {}
@@ -3853,13 +3924,19 @@ def train_mesh_rank_work(torch, layers, dev):
     return out
 
 
-def train_mesh_rank(rank, port, layers, queue):
-    """The entry point of a spawned rank of phase 14: the gloo group over
-    localhost, the kernels the parent built (loaded, not rebuilt), then
-    :func:`train_mesh_rank_work`."""
+def train_mesh_rank(rank, port, work, arg, queue):
+    """The entry point of a spawned rank of phases 14 and 15: the gloo
+    group over localhost, the kernels the parent built (loaded, not
+    rebuilt), then ``work`` (the name of this module's function: its
+    ``(torch, arg, device)``)."""
     import datetime
+    import os
     import traceback
 
+    # two ranks share the card: segments that grow leave less of it
+    # reserved and unused between them
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     sys.path.insert(0, str(ROOT / "src"))
     try:
@@ -3873,7 +3950,7 @@ def train_mesh_rank(rank, port, layers, queue):
             timeout=datetime.timedelta(seconds=600))
         from repro_torch.kernels import build as kbuild
         kbuild.library()
-        out = train_mesh_rank_work(torch, layers, torch.device("cuda"))
+        out = globals()[work](torch, arg, torch.device("cuda"))
         dist.barrier()
         dist.destroy_process_group()
         queue.put((rank, out, None))
@@ -3882,15 +3959,17 @@ def train_mesh_rank(rank, port, layers, queue):
         raise
 
 
-def _predicted_peaks(layers):
-    """The dry-run's peak a rank for phase 14's configurations, traced on
+def _predicted_peaks(cases):
+    """The dry-run's peak a rank for each of ``cases`` ({label: (arch,
+    layers, the period's layers kept or None, config overrides, mesh
+    shape)}, trained on ``TRAIN_BATCH`` x ``TRAIN_SEQ`` tokens), traced on
     the host (meta tensors, a fake process group) in a process of its own
     while the ranks train: returns the reader of its result."""
     code = ("import json, sys; sys.path.insert(0, sys.argv[1]); "
             "from repro_torch.launch.dryrun import predict_train_peak; "
-            "print(json.dumps({'x'.join(map(str, m)): predict_train_peak("
-            f"'granite-3-2b', {layers}, {TRAIN_BATCH}, {TRAIN_SEQ}, m) "
-            f"for m in {TRAIN_MESHES!r}}}))")
+            "print(json.dumps({k: predict_train_peak(a, n, "
+            f"{TRAIN_BATCH}, {TRAIN_SEQ}, m, keep, over) for k, (a, n, keep, "
+            f"over, m) in {cases!r}.items()}}))")
     proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT / "src")],
                             stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True)
@@ -3901,8 +3980,8 @@ def _predicted_peaks(layers):
         finally:
             proc.kill()
         if proc.returncode:
-            raise AssertionError(f"phase 14: the dry-run's prediction "
-                                 f"failed:\n{stderr[-3000:]}")
+            raise AssertionError(f"the dry-run's prediction failed:\n"
+                                 f"{stderr[-3000:]}")
         return json.loads(stdout.strip().splitlines()[-1])
     return read
 
@@ -3927,24 +4006,43 @@ def _tiny_errors(torch, got, want):
     return errs
 
 
+def _held_gaps(per, label_values, what):
+    """Each (label, value of a rank's result, the unsharded value): the
+    ranks' values must be one finite number; returns its relative gaps."""
+    gaps = {}
+    for label, got_of, want in label_values:
+        got = [got_of(p) for p in per]
+        if len(set(got)) != 1 or not math.isfinite(got[0]):
+            raise AssertionError(f"{what} {label}: the ranks' values {got}")
+        gaps[label] = abs(got[0] - want) / abs(want)
+    return gaps
+
+
 def training_mesh(torch, dev, layers, training, smi):
     """Phase 14 (see the module docstring): the ranks' runs against phase
     6's unsharded steps (``training``), the tiny card steps against the
     CPU's unsharded step, the peaks beside the dry-run's.  Returns
     (results, the main path's launches, both ranks')."""
     torch.cuda.empty_cache()
-    predicted = _predicted_peaks(layers)
-    off_ref = _granite_step(torch, dev, layers)
+    predicted = _predicted_peaks({
+        "x".join(map(str, m)): ("granite-3-2b", layers, None, {}, m)
+        for m in TRAIN_MESHES})
+    off_ref = _first_step(torch, dev, _granite_cfg(layers, "none"))
     # the planted fault: a rank that trains on its half of the batch
-    half = _granite_step(torch, dev, layers, rows=TRAIN_BATCH // 2)
-    fault = {k: abs(half[k] - off_ref[k]) / abs(off_ref[k]) for k in half}
+    half = _first_step(torch, dev, _granite_cfg(layers, "none"),
+                       rows=TRAIN_BATCH // 2)
+    fault = {k: abs(half[k] - off_ref[k]) / abs(off_ref[k])
+             for k in ("loss", "grad_norm")}
     if not fault["grad_norm"] > MESH_TRAIN_RTOL:
         raise AssertionError(f"phase 14: half the batch reads {fault}, "
                              f"inside the tolerance {MESH_TRAIN_RTOL}")
-    qat32_ref = _granite_step(torch, dev, layers, "sc_qat", True)
-    nudged = _granite_step(torch, dev, layers, "sc_qat", nudge=True)
+    qat32_ref = _first_step(torch, dev, _granite_cfg(layers, "sc_qat"),
+                            float32=True)
+    nudged = _first_step(torch, dev, _granite_cfg(layers, "sc_qat"),
+                         nudge=True)
     t0 = time.perf_counter()
-    ranks = _spawn(train_mesh_rank, (layers,), "phase 14")
+    ranks = _spawn(train_mesh_rank, ("train_mesh_rank_work", layers),
+                   "phase 14")
     wall_s = time.perf_counter() - t0
     tcfg, tcpu, tbatch = _tiny_mesh_case(torch)
     want_tiny = _tiny_step(torch, tcfg, tcpu, tbatch)
@@ -3983,31 +4081,23 @@ def training_mesh(torch, dev, layers, training, smi):
     for shape in TRAIN_MESHES:
         name = "x".join(map(str, shape))
         per = [r[name] for r in ranks]
-        gaps = {}
-        for label, got_of, want in (
-                [(f"sc_qat step {i + 1} {k}",
-                  lambda p, i=i, k=k: p["steps"][i][k], ref[i][k])
-                 for i in range(MESH_TRAIN_STEPS)
-                 for k in ("loss", "grad_norm")]
-                + [(f"quant-off {k}", lambda p, k=k: p["quant_off"][k],
-                    off_ref[k]) for k in ("loss", "grad_norm")]
-                + ([("sc_qat float32 grad_norm",
-                     lambda p: p["sc_qat_float32"]["grad_norm"],
-                     qat32_ref["grad_norm"])] if shape[1] > 1 else [])):
-            got = [got_of(p) for p in per]
-            if len(set(got)) != 1 or not math.isfinite(got[0]):
-                raise AssertionError(f"phase 14 {name} {label}: the ranks' "
-                                     f"values {got}")
-            gaps[label] = abs(got[0] - want) / abs(want)
+        gaps = _held_gaps(per, [
+            (f"sc_qat step {i + 1} {k}",
+             lambda p, i=i, k=k: p["steps"][i][k], ref[i][k])
+            for i in range(MESH_TRAIN_STEPS) for k in ("loss", "grad_norm")]
+            + [(f"quant-off {k}", lambda p, k=k: p["quant_off"][k],
+                off_ref[k]) for k in ("loss", "grad_norm")]
+            + ([("sc_qat float32 grad_norm",
+                 lambda p: p["sc_qat_float32"]["grad_norm"],
+                 qat32_ref["grad_norm"])] if shape[1] > 1 else []),
+            f"phase 14 {name}")
         held = {k: v for k, v in gaps.items() if "grad_norm" not in k
                 or k.startswith("quant-off")}
-        errs = list(held.values())
-        if not max(errs) <= MESH_TRAIN_RTOL:
+        if not max(held.values()) <= MESH_TRAIN_RTOL:
             raise AssertionError(
                 f"phase 14 {name}: off the unsharded steps by {held} (tol "
                 f"{MESH_TRAIN_RTOL}): {[p['steps'] for p in per]} against "
-                f"{ref[:2]}; quantization off "
-                f"{[p['quant_off'] for p in per]} against {off_ref}")
+                f"{ref[:2]}")
         want = layers * 2 * MESH_TRAIN_STEPS      # forward + recompute
         for p in per:
             if not all(c > 0 for c in p["changed"].values()):
@@ -4048,7 +4138,9 @@ def training_mesh(torch, dev, layers, training, smi):
                 f"{[round(s['grad_norm'], 1) for s in p['steps']]} (phase "
                 f"6: {[round(s['loss'], 4) for s in ref[:2]]}, "
                 f"{[round(s['grad_norm'], 1) for s in ref[:2]]}; quant-off "
-                f"step {p['quant_off']} against {off_ref}; relative gaps "
+                f"step loss {p['quant_off']['loss']} grad_norm "
+                f"{p['quant_off']['grad_norm']} against {off_ref['loss']}, "
+                f"{off_ref['grad_norm']}; relative gaps "
                 + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
                 + f"; held: {', '.join(held)}, tol {MESH_TRAIN_RTOL}); "
                 f"s/step {[round(s['sec'], 2) for s in p['steps']]}, the "
@@ -4088,20 +4180,414 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the recurrent archs on the training mesh; long_500k's decode
+# ---------------------------------------------------------------------------
+
+# jamba's layers 0 and 4: mamba + dense, then attention + dense (an MoE
+# layer's 9.7 B expert parameters are past one card shared by two ranks)
+JAMBA_MESH_KEEP = (0, 4)
+# rwkv6 trains with the chunked wkv here: the token scan keeps (S, H, K, V)
+# operands of 4.3 GB a row a layer, and 1 row at 2 layers peaked at 37.30
+# GiB (PERF.md, PR 19): 2 rows are past the card, let alone two ranks.
+# Chunks of 16: the chunked form keeps (C, C, H, K) operands a chunk, S C H
+# K in all, and at its default 32 a (1, 2) rank of 2 rows ran out of the
+# card shared with the other rank (PERF.md, PR 25)
+RWKV_MESH = dict(rwkv_wkv_impl="chunked", rwkv_chunk=16)
+# long_500k's decode: jamba's layer 4 alone at batch 1 over the shape's
+# 524288 positions, the K / V time cut over "data" on a (2, 1) mesh (two
+# blocks of 262144); 4 teacher-forced steps straddle the blocks' boundary
+# the archs whose quantization-off step runs in float32 on the bf16 weights
+# upcast: in bf16 rwkv6's grad norm is carried by the bonus u's gradient, a
+# sum over every token that cancels, and the mesh's bf16 partial sums part
+# it from the unsharded step's by 3.1e-3 / 5.6e-3 on (2, 1) / (1, 2)
+# against 2.2e-6 / 2.4e-6 in float32 (PERF.md, PR 25); jamba's float32 step
+# is past the card, and in bf16 it reads 3e-6 / 1.4e-4
+FLOAT32_QUANT_OFF = (RWKV_ARCH,)
+# phase 9's tiny configs the card's mesh steps hold against the CPU (the
+# chunked wkv runs at full width above)
+TINY_MESH = ("rwkv6-7b scan", "jamba-1.5-large-398b")
+LONG_CONTEXT = 524288
+LONG_POSITIONS = (262143, 262144, 262145, 262146)
+LONG_MESH = (2, 1)
+# float32 sums in another order (the blocks' log-sum-exp merge): logits of
+# the largest, as the CPU test of the same decode
+LONG_LOGIT_RTOL = 1e-5
+
+
+def _mesh_arch_cfg(arch, rwkv_layers, mode="sc_qat"):
+    """Phase 15's full-width training config: rwkv6 at ``rwkv_layers``
+    with ``RWKV_MESH``, jamba's layers ``JAMBA_MESH_KEEP``; quantization
+    ``mode``."""
+    from repro_torch.configs import get_arch
+    cfg = get_arch(arch)
+    if arch == JAMBA_ARCH:
+        cfg = cfg.scaled(n_layers=len(JAMBA_MESH_KEEP), period=tuple(
+            cfg.period[i] for i in JAMBA_MESH_KEEP))
+    else:
+        cfg = cfg.scaled(n_layers=rwkv_layers, **RWKV_MESH)
+    return cfg.scaled(quant=cfg.quant.with_mode(mode))
+
+
+def _flash_heads(torch):
+    """Record the (query heads, KV heads, head dim) of every flash launch
+    through ``dispatch.flash_attention``; returns (restore, the list)."""
+    from repro_torch.kernels import dispatch
+    inner, seen = dispatch.flash_attention, []
+
+    def spy(q, k, v, *a, **kw):
+        seen.append((q.shape[2], k.shape[2], q.shape[3]))
+        return inner(q, k, v, *a, **kw)
+    dispatch.flash_attention = spy
+
+    def restore():
+        dispatch.flash_attention = inner
+    return restore, seen
+
+
+def _long_rules():
+    """The dry-run's long_500k rules on ``LONG_MESH``: the training
+    mapping with the batch of 1 on no axis ("seq", K / V time, over
+    "data")."""
+    from repro_torch.distributed.sharding import MeshRules, multipod_mapping
+    from repro_torch.launch.mesh import _grid
+    return MeshRules(mesh=_grid(LONG_MESH, ("data", "model"), "gloo"),
+                     mapping=dict(multipod_mapping(), batch=()))
+
+
+def long_decode(torch, dev, rules=None):
+    """long_500k's decode on jamba's layer 4 alone (attention + dense, d
+    8192, 64 / 8 heads of 128, vocab 65536; full width, seeded random
+    weights) in float32 without quantization: a dense cache of batch 1
+    and ``LONG_CONTEXT`` positions, seeded random K / V below the first
+    of ``LONG_POSITIONS``, then a teacher-forced ``decode_step`` at each.
+    Under ``rules`` (:func:`_long_rules`) a rank holds its block of the
+    positions.  Returns each step's logits and ms, the K / V rows this
+    rank wrote at the positions it holds, the positions whose K or V
+    changed, and the peak memory.  float32: in bf16 the logits are bf16
+    themselves, so a gate of 1e-5 could hold only bit for bit, and under
+    sc_qat the attention's context (~1e-3 at random init) quantizes to 0
+    and would hide the merge."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.sharding import (DATA, axis_index,
+                                                  mesh_rules, shard_tree)
+    from repro_torch.models import (cache_specs, decode_step, init_cache,
+                                    init_params, param_specs)
+    base = get_arch(JAMBA_ARCH)
+    cfg = base.scaled(n_layers=1, period=(base.period[4],), dtype="float32",
+                      quant=base.quant.with_mode("none"))
+    params = init_params(cfg, torch.Generator(dev).manual_seed(SEED), dev)
+    cache = init_cache(cfg, 1, LONG_CONTEXT, device=dev)
+    gen = torch.Generator(dev).manual_seed(SEED + 15)
+    p0 = LONG_POSITIONS[0]
+    for key in ("k", "v"):
+        t = cache["layers"][0][key]
+        t[:, :p0] = torch.randn(t[:, :p0].shape, generator=gen, device=dev)
+    cache["pos"].fill_(p0)
+    tokens = torch.randint(0, cfg.vocab_size, (len(LONG_POSITIONS), 1, 1),
+                           generator=gen, device=dev, dtype=torch.int32)
+    out = dict(ms=[], logits=[], written={}, changed={})
+    torch.cuda.reset_peak_memory_stats()
+    with mesh_rules(rules), torch.no_grad():
+        if rules is not None:
+            params = shard_tree(params, param_specs(cfg), rules)
+            cache = shard_tree(cache, cache_specs(cfg, seq_shard=True),
+                               rules, logical=True)
+            torch.cuda.empty_cache()
+        T = cache["layers"][0]["k"].shape[1]
+        t0 = axis_index(DATA) * T if rules is not None else 0
+        before = {k: cache["layers"][0][k].clone() for k in ("k", "v")}
+        for tok in tokens:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            logits, cache = decode_step(params, cache, tok, cfg)
+            torch.cuda.synchronize()
+            out["ms"].append((time.perf_counter() - t1) * 1e3)
+            out["logits"].append(logits[0, 0].cpu().numpy())
+        for key in ("k", "v"):
+            now = cache["layers"][0][key]
+            hit = (now != before[key]).flatten(2).any(-1).any(0)
+            out["changed"][key] = [t0 + int(i) for i in
+                                   hit.nonzero().flatten().tolist()]
+            for pos in LONG_POSITIONS:
+                if t0 <= pos < t0 + T:
+                    out["written"][f"{key} {pos}"] = \
+                        now[:, pos - t0].cpu().numpy()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    del params, cache, before
+    torch.cuda.empty_cache()
+    return out
+
+
+def _tiny_recurrent_case(torch, label):
+    """Phase 9's tiny float32 ``label`` (``TINY_RECURRENT``) without
+    quantization: its config, the CPU's initial params (mamba's taps live)
+    and a batch of 4 x 96 tokens."""
+    from repro_torch.data import SyntheticLM
+    from repro_torch.models import init_params
+    arch, kw = TINY_RECURRENT[label]
+    qat = _tiny_cfg(arch, **kw)
+    cfg = qat.scaled(quant=qat.quant.with_mode("none"))
+    params = live_ssm(init_params(cfg, torch.Generator().manual_seed(SEED),
+                                  "cpu"))
+    batch = SyntheticLM(vocab_size=cfg.vocab_size, seq_len=96,
+                        seed=SEED).batch(0, 4)
+    return cfg, params, batch
+
+
+def recurrent_mesh_rank_work(torch, rwkv_layers, dev):
+    """One rank of phase 15 (both ranks run it): rwkv6-7b and jamba's
+    layers 0 and 4 trained on each mesh of ``TRAIN_MESHES``
+    (:func:`_mesh_train`, the flash launches' local heads recorded) and
+    one step each with quantization off; long_500k's decode on
+    ``LONG_MESH``; the tiny float32 steps on the card under each mesh."""
+    from repro_torch.distributed.sharding import mesh_rules
+    from repro_torch.launch.mesh import _grid, training_rules
+    out = {}
+    for arch in (RWKV_ARCH, JAMBA_ARCH):
+        for shape in TRAIN_MESHES:
+            name = f"{arch} {'x'.join(map(str, shape))}"
+            rules = training_rules(_grid(shape, ("data", "model"), "gloo"))
+            restore, heads = _flash_heads(torch)
+            try:
+                out[name] = _mesh_train(torch, dev, _mesh_arch_cfg(
+                    arch, rwkv_layers), rules, arch)
+            finally:
+                restore()
+            out[name]["flash_heads"] = sorted(set(heads))
+            with mesh_rules(rules):
+                out[name]["quant_off"] = _first_step(
+                    torch, dev, _mesh_arch_cfg(arch, rwkv_layers, "none"),
+                    rules, arch in FLOAT32_QUANT_OFF)
+    out["long"] = long_decode(torch, dev, _long_rules())
+    out["tiny"] = {}
+    for label in TINY_MESH:
+        cfg, cpu, batch = _tiny_recurrent_case(torch, label)
+        for shape in TRAIN_MESHES:
+            rules = training_rules(_grid(shape, ("data", "model"), "gloo"))
+            res = _tiny_step(torch, cfg, _to(cpu, dev), batch, rules)
+            # numpy through the queue: a tensor would need this process alive
+            out["tiny"][f"{label} {'x'.join(map(str, shape))}"] = {
+                k: v if k == "metrics" else {n: t.numpy()
+                                             for n, t in v.items()}
+                for k, v in res.items()}
+    return out
+
+
+def recurrent_training_mesh(torch, dev, rwkv_layers, smi):
+    """Phase 15 (see the module docstring): the unsharded steps and
+    long_500k's mesh-off decode on the parent's card, then the ranks'
+    runs held against them, the tiny card steps against the CPU's, the
+    peaks beside the dry-run's.  Returns (results, the main path's
+    launches, both ranks')."""
+    torch.cuda.empty_cache()
+    archs = (RWKV_ARCH, JAMBA_ARCH)
+    predicted = _predicted_peaks({
+        f"{a} {'x'.join(map(str, m))}":
+        (a, _mesh_arch_cfg(a, rwkv_layers).n_layers,
+         JAMBA_MESH_KEEP if a == JAMBA_ARCH else None,
+         {} if a == JAMBA_ARCH else RWKV_MESH, m)
+        for a in archs for m in TRAIN_MESHES})
+    refs = {}
+    for arch in archs:
+        t0 = time.perf_counter()
+        refs[arch] = _mesh_train(torch, dev, _mesh_arch_cfg(
+            arch, rwkv_layers), None, arch)
+        refs[arch]["quant_off"] = _first_step(
+            torch, dev, _mesh_arch_cfg(arch, rwkv_layers, "none"),
+            float32=arch in FLOAT32_QUANT_OFF)
+        log(f"recurrent train mesh {arch}: unsharded steps "
+            + ", ".join(f"loss {s['loss']:.4f} grad_norm "
+                        f"{s['grad_norm']:.4g} {s['sec']:.2f} s"
+                        for s in refs[arch]["steps"])
+            + f"; quantization off loss {refs[arch]['quant_off']['loss']} "
+            f"grad_norm {refs[arch]['quant_off']['grad_norm']}; peak "
+            f"{refs[arch]['peak_bytes'] / 2**30:.2f} GiB; "
+            f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    long_off = long_decode(torch, dev)
+    t0 = time.perf_counter()
+    ranks = _spawn(train_mesh_rank, ("recurrent_mesh_rank_work",
+                                     rwkv_layers), "phase 15")
+    wall_s = time.perf_counter() - t0
+    want_tiny = {label: _tiny_step(torch, *_tiny_recurrent_case(torch,
+                                                                label))
+                 for label in TINY_MESH}
+    peaks = predicted()
+    out = {"nvidia_smi": smi, "label": MESH_LABEL, "ranks_wall_s": wall_s,
+           "tolerance": MESH_TRAIN_RTOL, "unsharded": refs, "meshes": {},
+           "long_500k": {}, "tiny_card_vs_cpu": {}}
+    launches = {}
+    for arch in archs:
+        cfg = _mesh_arch_cfg(arch, rwkv_layers)
+        n_attn = sum(spec.mixer == "attn" for spec in cfg.period)
+        ref, off_ref = refs[arch]["steps"], refs[arch]["quant_off"]
+        for shape in TRAIN_MESHES:
+            mesh = "x".join(map(str, shape))
+            name = f"{arch} {mesh}"
+            per = [r[name] for r in ranks]
+            gaps = _held_gaps(per, [
+                (f"sc_qat step {i + 1} {k}",
+                 lambda p, i=i, k=k: p["steps"][i][k], ref[i][k])
+                for i in range(MESH_TRAIN_STEPS)
+                for k in ("loss", "grad_norm")]
+                + [(f"quant-off {k}", lambda p, k=k: p["quant_off"][k],
+                    off_ref[k]) for k in ("loss", "grad_norm")],
+                f"phase 15 {name}")
+            held = {k: v for k, v in gaps.items() if "grad_norm" not in k
+                    or k.startswith("quant-off")}
+            shift = _norm_shift(per[0]["quant_off"]["by_kind"],
+                                off_ref["by_kind"])
+            log(f"recurrent train mesh {name}: the quantization-off step's "
+                f"({'float32' if arch in FLOAT32_QUANT_OFF else 'bf16'}) "
+                f"squared grad norm against the unsharded step's, moved most "
+                f"by (share of the change, the kind's own gap) "
+                + ", ".join(f"{k} {v['share']:.2f} {v['gap']:.3g}"
+                            for k, v in shift.items()))
+            if not max(held.values()) <= MESH_TRAIN_RTOL:
+                raise AssertionError(
+                    f"phase 15 {name}: off the unsharded steps by {held} "
+                    f"(tol {MESH_TRAIN_RTOL}): {[p['steps'] for p in per]} "
+                    f"against {ref}")
+            want_flash = n_attn * 2 * MESH_TRAIN_STEPS  # forward + recompute
+            local = shape[1] > 1
+            want_heads = [(cfg.n_heads // shape[1], cfg.n_kv_heads
+                           // shape[1], cfg.head_dim)] if n_attn else []
+            for r, p in enumerate(per):
+                stuck = {k: p["update_over_half_ulp"][k]
+                         for k, c in p["changed"].items() if c == 0}
+                if not any(p["changed"].values()) \
+                        or any(v >= 1 for v in stuck.values()):
+                    raise AssertionError(
+                        f"phase 15 {name} rank {r}: step 2 left watched "
+                        f"leaves unchanged: {p['changed']}; update / "
+                        f"half-ulp {p['update_over_half_ulp']}")
+                flash = p["launches"].get("flash_attention", 0)
+                if flash != want_flash or p["flash_heads"] != want_heads:
+                    raise AssertionError(
+                        f"phase 15 {name} rank {r}: flash launched {flash} "
+                        f"times at {p['flash_heads']} (heads, KV heads, D), "
+                        f"expected {want_flash} at {want_heads}")
+                for k, v in p["launches"].items():
+                    launches[k] = launches.get(k, 0) + v
+            pred = peaks[name]["peak"]
+            out["meshes"][name] = dict(
+                per_rank=per, gaps=gaps, quant_off_shift=shift,
+                predicted_peak_bytes=pred,
+                peak_over_predicted=[p["peak_bytes"] / pred for p in per],
+                tensor_parallel=local)
+            for r, p in enumerate(per):
+                c = p["collectives_last_step"]
+                log(f"recurrent train mesh {name} rank {r}: losses "
+                    f"{[round(s['loss'], 4) for s in p['steps']]} grad norms "
+                    f"{[round(s['grad_norm'], 1) for s in p['steps']]} "
+                    f"(unsharded: {[round(s['loss'], 4) for s in ref]}, "
+                    f"{[round(s['grad_norm'], 1) for s in ref]}; quant-off "
+                    f"step loss {p['quant_off']['loss']} grad_norm "
+                    f"{p['quant_off']['grad_norm']} against "
+                    f"{off_ref['loss']}, {off_ref['grad_norm']}; relative "
+                    f"gaps " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                         gaps.items())
+                    + f"; held: {', '.join(held)}, tol {MESH_TRAIN_RTOL}); "
+                    f"s/step {[round(s['sec'], 2) for s in p['steps']]}, the "
+                    f"last step's collectives {c['ms']:.1f} ms over "
+                    f"{c['calls']} calls (a sync around each); peak "
+                    f"{p['peak_bytes'] / 2**30:.2f} GiB, the dry-run's "
+                    f"prediction {pred / 2**30:.2f} GiB (measured / "
+                    f"predicted {p['peak_bytes'] / pred:.3f}); flash "
+                    f"launches {p['launches'].get('flash_attention', 0)} at "
+                    f"{p['flash_heads']}; watched leaves changed at step 2 "
+                    + ", ".join(f"{k} {v:.3g}" for k, v in p["changed"]
+                                .items())
+                    + f" [{MESH_LABEL}; {smi}]")
+    # long_500k: the (2, 1) mesh's decode against mesh-off's
+    longs = [rk["long"] for rk in ranks]
+    written = {}
+    for r, lg in enumerate(longs):
+        for i, (got, want) in enumerate(zip(lg["logits"],
+                                            long_off["logits"])):
+            err = float(abs(got - want).max() / abs(want).max())
+            out["long_500k"][f"rank {r} step {i + 1} logit_err"] = err
+            if not err <= LONG_LOGIT_RTOL:
+                raise AssertionError(f"phase 15 long_500k rank {r} step "
+                                     f"{i + 1}: logits off mesh-off's by "
+                                     f"{err} of the largest")
+        for k, v in lg["written"].items():
+            if k in written:
+                raise AssertionError(f"phase 15 long_500k: {k} written on "
+                                     f"two ranks")
+            written[k] = v
+        for key, hit in lg["changed"].items():
+            mine = [p for p in LONG_POSITIONS
+                    if f"{key} {p}" in lg["written"]]
+            if hit != mine:
+                raise AssertionError(f"phase 15 long_500k rank {r}: {key} "
+                                     f"changed at {hit}, expected {mine}")
+    if long_off["changed"] != {k: list(LONG_POSITIONS) for k in ("k", "v")}:
+        raise AssertionError(f"phase 15 long_500k mesh-off wrote "
+                             f"{long_off['changed']}")
+    for k, want in long_off["written"].items():
+        if k not in written or not (written[k] == want).all():
+            raise AssertionError(f"phase 15 long_500k: {k} not written as "
+                                 f"mesh-off writes it")
+    out["long_500k"].update(
+        positions=list(LONG_POSITIONS), context=LONG_CONTEXT,
+        mesh_off_ms=long_off["ms"], ranks_ms=[lg["ms"] for lg in longs],
+        mesh_off_peak_bytes=long_off["peak_bytes"],
+        ranks_peak_bytes=[lg["peak_bytes"] for lg in longs])
+    log(f"long_500k decode (jamba layer 4 alone, float32, {LONG_CONTEXT} "
+        f"positions, K / V time over \"data\" on {LONG_MESH}): logits within "
+        + ", ".join(f"{v:.3g}" for k, v in out["long_500k"].items()
+                    if k.endswith("logit_err"))
+        + f" of the largest (tol {LONG_LOGIT_RTOL}); K / V written at "
+        f"{list(LONG_POSITIONS)} as mesh-off, nowhere else; ms a step "
+        f"mesh-off {[round(x, 1) for x in long_off['ms']]}, "
+        + ", ".join(f"rank {r} {[round(x, 1) for x in lg['ms']]}"
+                    for r, lg in enumerate(longs))
+        + f"; peak GiB mesh-off {long_off['peak_bytes'] / 2**30:.2f}, ranks "
+        + ", ".join(f"{lg['peak_bytes'] / 2**30:.2f}" for lg in longs)
+        + f" [{MESH_LABEL}; {smi}]")
+    for label in TINY_MESH:
+        for shape in TRAIN_MESHES:
+            key = f"{label} {'x'.join(map(str, shape))}"
+            for r, rk in enumerate(ranks):
+                got = {k: v if k == "metrics" else {
+                    n: torch.from_numpy(a) for n, a in v.items()}
+                    for k, v in rk["tiny"][key].items()}
+                errs = _tiny_errors(torch, got, want_tiny[label])
+                bad = {k: e for k, e in errs.items()
+                       if e > TINY_TRAIN_TOL["metric" if k in (
+                           "loss", "grad_norm") else k]}
+                if bad:
+                    raise AssertionError(f"phase 15 tiny {key} rank {r}: "
+                                         f"the card's mesh step != the "
+                                         f"CPU's {bad}")
+                out["tiny_card_vs_cpu"][f"{key} rank {r}"] = errs
+                log(f"tiny recurrent train mesh {key} rank {r}: card == the "
+                    "CPU's unsharded step ("
+                    + ", ".join(f"{k} {v:.2g}" for k, v in errs.items())
+                    + f"; tolerances {TINY_TRAIN_TOL})")
+    return out, launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # phases 4, 6 and 7 were cut from 40 and 8 layers when phase 8 came,
-    # to keep the whole run near half the driver's 1200 s
-    ap.add_argument("--layers", type=int, default=20,
+    # to keep the whole run near half the driver's 1200 s; granite from 20
+    # to 6 layers when phase 15 came (on one H100 the phases summed to
+    # 1103.5 s at 20 layers before phase 15, and to 1084.9 s with it at
+    # 10)
+    ap.add_argument("--layers", type=int, default=6,
                     help="granite-3-2b depth to serve (phases 4, 10 and "
                          "11) and train (of 40; full width always)")
-    ap.add_argument("--moe-layers", type=int, default=4,
+    # 2 since phase 15 came (4 since phase 8)
+    ap.add_argument("--moe-layers", type=int, default=2,
                     help="qwen3-moe-235b-a22b depth to serve in phase 7 "
                          "(of 94; full width always)")
-    # 16 of 32 since phase 14 came: the whole run stays inside its 1200 s
-    # limit (the sc_int_approx prefill is phase 8's largest cost; at 32
-    # layers the run took 1110 s of phases, at 16 1053 s)
-    ap.add_argument("--rwkv-layers", type=int, default=16,
+    # 4 of 32 since phase 15 came (16 since phase 14): the whole run stays
+    # inside its 1200 s limit (the sc_int_approx prefill is phase 8's
+    # largest cost; at 32 layers the run took 1110 s of phases, at 16 1053
+    # s)
+    ap.add_argument("--rwkv-layers", type=int, default=4,
                     help="rwkv6-7b depth to serve in phase 8 (of 32; full "
                          "width always)")
     ap.add_argument("--jamba-layers", type=int, default=5,
@@ -4121,6 +4607,7 @@ def main() -> int:
     ap.add_argument("--llava-layers", type=int, default=4,
                     help="llava-next-34b depth to serve in phase 13 (of "
                          "60; full width always)")
+
     args = ap.parse_args()
 
     import torch
@@ -4277,6 +4764,14 @@ def main() -> int:
         launches[k] += v
     mark(14)
 
+    # phase 15: the recurrent archs on the training mesh, long_500k's
+    # decode over a cache cut in time over "data"
+    recurrent_mesh, rm_launches = recurrent_training_mesh(
+        torch, dev, args.rwkv_train_layers, smi)
+    for k, v in rm_launches.items():
+        launches[k] += v
+    mark(15)
+
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
         return {"name": name, "route": "cuda", "source": source,
@@ -4322,6 +4817,7 @@ def main() -> int:
          "sampled_serving": sampled, "mesh_serving": mesh,
          "analysis": analysis, "roofline": analysis["roofline"],
          "frontends": frontends, "training_mesh": train_mesh,
+         "recurrent_training_mesh": recurrent_mesh,
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

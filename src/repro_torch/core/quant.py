@@ -37,14 +37,23 @@ class _LSQ(torch.autograd.Function):
       rail (``qn`` or ``qp``) outside the range and ``q - x / alpha``
       (taken in ``x.dtype``) inside it, and ``gscale = 1 / sqrt(x.numel()
       * max(qp, 1))``, summed to alpha's shape.
+
+    The backward keeps ``x`` and ``alpha`` and forms ``x / alpha`` and
+    ``q`` again, the same ops on the same operands: one tensor of x's
+    size held for the backward in place of two, none when ``x`` is held
+    anyway (a weight).
     """
 
     @staticmethod
-    def forward(ctx, x, alpha, qn: int, qp: int, numel: int | None):
+    def _scaled(x, alpha, qn: int, qp: int):
         a = alpha.to(x.dtype)
         xs = x / a
-        q = torch.clamp(torch.round(xs), qn, qp)
-        ctx.save_for_backward(xs, q)
+        return a, xs, torch.clamp(torch.round(xs), qn, qp)
+
+    @staticmethod
+    def forward(ctx, x, alpha, qn: int, qp: int, numel: int | None):
+        a, _, q = _LSQ._scaled(x, alpha, qn, qp)
+        ctx.save_for_backward(x, alpha)
         ctx.qn, ctx.qp = qn, qp
         ctx.alpha_shape = tuple(alpha.shape)
         # a Python float: x.numel() can pass 2**31
@@ -54,8 +63,9 @@ class _LSQ(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        xs, q = ctx.saved_tensors
+        x, alpha = ctx.saved_tensors
         qn, qp = ctx.qn, ctx.qp
+        _, xs, q = _LSQ._scaled(x, alpha, qn, qp)
         gx = torch.where((xs >= qn) & (xs <= qp), g, torch.zeros((),
                          dtype=g.dtype, device=g.device))
         dalpha = torch.where(xs <= qn, float(qn),

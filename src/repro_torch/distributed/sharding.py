@@ -65,7 +65,7 @@ import torch
 
 __all__ = ["ProcessMesh", "MeshRules", "mesh_rules", "current_rules",
            "serving_mapping", "multipod_mapping", "fit_spec", "shard_tree",
-           "unshard_tree", "spec_of", "is_sharded", "axis_size",
+           "unshard_tree", "spec_of", "is_sharded", "cut_axes", "axis_size",
            "axis_index", "block", "splits", "gather", "psum", "sum_grads",
            "pmax", "cols", "split_lanes", "lane_slice", "gather_lanes",
            "fsdp_active", "batch_axes", "wire_log"]
@@ -279,6 +279,16 @@ def is_sharded(t: torch.Tensor, dim: int, axis: str = MODEL) -> bool:
         return False
     ax = spec[dim % len(spec)]
     return axis in _names(ax) and axis_size(axis) > 1
+
+
+def cut_axes(t: torch.Tensor, dim: int) -> tuple:
+    """The mesh axes that cut dimension ``dim`` of ``t`` under the active
+    rules (``()`` when it is whole on every rank)."""
+    spec = spec_of(t)
+    if not spec or current_rules() is None:
+        return ()
+    names = _names(spec[dim % len(spec)])
+    return names if axis_size(names) > 1 else ()
 
 
 def axis_size(axis=MODEL) -> int:

@@ -21,7 +21,8 @@ tensors without data:
   (an encoder's ``forward``) under the training layout, ``decode`` one
   ``decode_step`` under the serving layout with the cache of
   ``cache_specs``, its time axis over "model" when the KV heads do not
-  divide it (the reference's rule);
+  divide it, or over "data" for long_500k, whose batch of 1 takes no
+  mesh axis (the reference's rules);
 * the record keeps the reference's keys: ``memory_analysis`` (the exact
   bytes of rank 0's argument blocks; the peak of live storages through
   the step, arguments included, counted as each storage is made and
@@ -39,8 +40,7 @@ All cells:  python -m repro_torch.launch.dryrun --all   (a subprocess a
             cell, so one cell's failure cannot take the sweep down)
 
 Skip rules (the reference's): encoder archs skip decode shapes; pure
-full-attention archs skip long_500k.  Skips are recorded.  A recurrent
-arch's cells fail: its training layouts are ROADMAP Queue 1 item 15.
+full-attention archs skip long_500k.  Skips are recorded.
 """
 
 from __future__ import annotations
@@ -284,14 +284,19 @@ def trace_step(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def predict_train_peak(arch: str, layers: int, batch: int, seq: int,
-                       mesh_shape: tuple) -> dict:
-    """The dry-run's peak bytes a rank for ``arch`` cut to ``layers``,
-    training on ``batch`` x ``seq`` tokens over a (data, model) mesh of
-    ``mesh_shape`` (rank 0's share; ``chip_smoke.py`` sets it beside the
-    card's measured peak)."""
+                       mesh_shape: tuple, keep: tuple | None = None,
+                       overrides: dict | None = None) -> dict:
+    """The dry-run's peak bytes a rank for ``arch`` cut to ``layers`` (its
+    period cut to the layers ``keep`` names, when given) with config
+    ``overrides``, training on ``batch`` x ``seq`` tokens over a (data,
+    model) mesh of ``mesh_shape`` (rank 0's share; ``chip_smoke.py`` sets
+    it beside the card's measured peak)."""
     from .mesh import _grid, training_rules
     _world()
-    cfg = get_arch(arch).scaled(n_layers=layers)
+    cfg = get_arch(arch)
+    if keep is not None:
+        cfg = cfg.scaled(period=tuple(cfg.period[i] for i in keep))
+    cfg = cfg.scaled(n_layers=layers, **(overrides or {}))
     rules = training_rules(_grid(tuple(mesh_shape), ("data", "model"),
                                  "fake"))
     t = trace_step(cfg, ShapeConfig("chip", seq, batch, "train"), rules)
@@ -376,10 +381,14 @@ def _save(record: dict, report_dir: str):
 # ---------------------------------------------------------------------------
 
 def sweep(meshes: list[bool], quant: str | None, report_dir: str,
-          only_missing: bool = False, cells=None, timeout: float = 3600):
+          only_missing: bool = False, cells=None, timeout: float = 14400,
+          overrides: dict | None = None):
     """Every cell of ``cells`` (default :func:`all_cells`) on each mesh,
-    each in its own process; a cell that fails is recorded as failed with
-    its error's tail.  Returns 1 if any failed."""
+    each in its own process (``overrides`` passed on as ``--set``); a
+    cell that fails, or runs past ``timeout`` seconds, is recorded as
+    failed with its error's tail.  Returns 1 if any failed.  The
+    recurrent archs' prefill_32k cells trace the per-token recurrence
+    over 32768 positions: jamba's takes more than an hour on the host."""
     results = []
     for arch, shape_name in (cells or all_cells()):
         for multi in meshes:
@@ -399,9 +408,17 @@ def sweep(meshes: list[bool], quant: str | None, report_dir: str,
                    "--report-dir", report_dir]
             if quant:
                 cmd += ["--quant", quant]
+            for k, v in (overrides or {}).items():
+                cmd += ["--set", f"{k}={v}"]
             t0 = time.time()
-            r = subprocess.run(cmd, capture_output=True, text=True,
-                               timeout=timeout)
+            try:
+                r = subprocess.run(cmd, capture_output=True, text=True,
+                                   timeout=timeout)
+            except subprocess.TimeoutExpired as e:
+                err = e.stderr or b""
+                r = subprocess.CompletedProcess(
+                    cmd, 1, "", f"timed out after {timeout} s\n" + (
+                        err.decode() if isinstance(err, bytes) else err))
             status = "ok"
             if r.returncode != 0:
                 status = "FAILED"

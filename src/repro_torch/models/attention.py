@@ -40,8 +40,10 @@ K / V heads they read (gathered over "model"; the gather's gradient
 sums every rank's share back), and ``wo`` sums the ranks' partial
 products (``common.dense_apply``).  The dense cache's decode takes a
 cache whose time axis is cut over "model" (``cache_specs(kv_head_shard=
-False)``): each rank attends over its block of positions and the blocks
-merge by their log-sum-exp.
+False)``) or over "data" (``cache_specs(seq_shard=True)``, long-context
+decode at batch 1, every data rank computing the same query): each rank
+attends over its block of positions and the blocks merge by their
+log-sum-exp over the axes that cut them.
 """
 
 from __future__ import annotations
@@ -53,9 +55,9 @@ import torch
 from ..configs.base import ModelConfig
 from ..core.kv_quant import kv_format_of, kv_quant
 from ..distributed.sharding import (DATA, MODEL, axis_index, axis_size,
-                                    fsdp_active, gather, gather_lanes,
-                                    is_sharded, lane_slice, splits,
-                                    sum_grads)
+                                    cut_axes, fsdp_active, gather,
+                                    gather_lanes, is_sharded, lane_slice,
+                                    splits, sum_grads)
 from ..kernels import dispatch
 from ..tree import tree_map
 from .common import (apply_rope, dense_apply, dense_init, dense_spec,
@@ -250,9 +252,10 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
     dh = cfg.head_dim
     hq, hkv, local = _heads(cfg)
     positions = pos.to(torch.int32).expand(B, 1)
-    if is_sharded(k_cache, 1):
+    cut = cut_axes(k_cache, 1)
+    if cut:
         q, k, v = _project_qkv(p, x, cfg, positions, whole=True)
-        o = _decode_time_cut(q, k, v, k_cache, v_cache, pos, cfg)
+        o = _decode_time_cut(q, k, v, k_cache, v_cache, pos, cfg, cut)
         return dense_apply(p["wo"], o.reshape(B, 1, -1).to(x.dtype),
                            cfg.quant), k_cache, v_cache
     q, k, v = _project_qkv(p, x, cfg, positions)
@@ -272,15 +275,16 @@ def attn_decode(p: dict, x: torch.Tensor, cfg: ModelConfig,
         v_cache
 
 
-def _decode_time_cut(q, k, v, k_cache, v_cache, pos, cfg):
-    """:func:`attn_decode` on a cache whose time axis is cut over "model"
-    (every head on every rank): the rank that owns ``pos`` writes the new
-    K / V, each rank attends over its block of positions in float32, and
-    the blocks merge by their log-sum-exp (every rank the same result).
-    Returns the context (B, Hkv, G, Dh) float32."""
+def _decode_time_cut(q, k, v, k_cache, v_cache, pos, cfg, axes):
+    """:func:`attn_decode` on a cache whose time axis is cut over the mesh
+    axes ``axes`` ("model", or "data" for long contexts; every head on
+    every rank): the rank that owns ``pos`` writes the new K / V, each
+    rank attends over its block of positions in float32, and the blocks
+    merge by their log-sum-exp over ``axes`` (every rank the same
+    result).  Returns the context (B, Hkv, G, Dh) float32."""
     B, T = k_cache.shape[:2]
     dh, hq, hkv = cfg.head_dim, cfg.n_heads, cfg.n_kv_heads
-    t0 = axis_index(MODEL) * T
+    t0 = axis_index(axes) * T
     idx = (pos - t0).clamp(0, T - 1).reshape(1).long()
     mine = (pos >= t0) & (pos < t0 + T)
     for cache, new in ((k_cache, k), (v_cache, v)):
@@ -296,7 +300,7 @@ def _decode_time_cut(q, k, v, k_cache, v_cache, pos, cfg):
     part = torch.cat([torch.einsum("bhgt,bthd->bhgd", e,
                                    v_cache.to(torch.float32)),
                       e.sum(-1, keepdim=True), m], dim=-1)
-    every = gather(part[None], MODEL, 0)          # (tp, B, Hkv, G, Dh + 2)
+    every = gather(part[None], axes, 0)           # (n, B, Hkv, G, Dh + 2)
     w = torch.exp(every[..., -1:] - every[..., -1:].amax(0))
     return (w * every[..., :dh]).sum(0) / (w * every[..., dh:dh + 1]).sum(0)
 

@@ -119,17 +119,18 @@ def dense_spec(in_axis: str | None, out_axis: str | None,
 
 
 def dense_apply(p: dict, x: torch.Tensor, quant: SCQuantConfig, *,
-                batch_invariant: bool = True,
-                local: bool = False) -> torch.Tensor:
+                batch_invariant: bool = True, local: bool = False,
+                take: tuple | None = None) -> torch.Tensor:
     """The SC integration point (see the module docstring).  Float
     products go through :func:`matmul_rows` when ``batch_invariant`` (the
     serving engine), else through a plain ``x @ w`` (training).  Under a
     mesh the output is this rank's block of columns with ``local``, all
     of them otherwise; under a training mesh a row-parallel weight takes
-    this rank's block of the contraction and returns the summed
-    output."""
+    this rank's block of the contraction and returns the summed output,
+    and ``take`` (``(start, length)`` runs of the whole weight's columns)
+    computes just those columns from the weight gathered whole."""
     if fsdp_active():
-        return _dense_mesh(p, x, quant, batch_invariant, local)
+        return _dense_mesh(p, x, quant, batch_invariant, local, take)
     if quant.enabled and quant.mode == "sc_int":
         y = sc_linear_int_from_qat(p, x, quant)
     else:
@@ -165,16 +166,28 @@ def whole_numel(t: torch.Tensor, model_cut: bool = False,
     return n
 
 
+def _take(t: torch.Tensor, runs: tuple, dim: int) -> torch.Tensor:
+    """The ``(start, length)`` runs of ``t`` along ``dim``, concatenated."""
+    return torch.cat([t.narrow(dim, a, n) for a, n in runs], dim=dim)
+
+
 def _dense_mesh(p: dict, x: torch.Tensor, quant: SCQuantConfig,
-                batch_invariant: bool, local: bool) -> torch.Tensor:
+                batch_invariant: bool, local: bool,
+                take: tuple | None = None) -> torch.Tensor:
     """:func:`dense_apply` under a training mapping (see the module
     docstring).  ``x`` is this rank's block of the batch, whole in its
     last dimension for a column-parallel or whole weight (its gradient
     summed over "model" by the caller: ``sum_grads``), this rank's block
-    of it for a row-parallel one."""
+    of it for a row-parallel one.  With ``take`` a column-parallel weight
+    is gathered whole over "model" too and only the named columns are
+    computed: the gather's backward sums each rank's gradient of its own
+    columns into the blocks."""
     w = p["w"]
     row, col = is_sharded(w, 0, MODEL), is_sharded(w, 1, MODEL)
     w = fsdp_gather(w)
+    numel = whole_numel(w, row or col)
+    if take is not None:
+        w = _take(gather(w, MODEL, 1) if col else w, take, 1)
     product = matmul_rows if batch_invariant else torch.matmul
     if quant.enabled and quant.mode == "sc_int":
         raise NotImplementedError("the training mesh runs quantization "
@@ -182,15 +195,21 @@ def _dense_mesh(p: dict, x: torch.Tensor, quant: SCQuantConfig,
                                   "datapath")
     if quant.enabled and quant.mode == "sc_qat":
         # replicated scales that read this rank's block of the product
-        alpha_a = sum_grads(p["alpha_a"]) if row or col else p["alpha_a"]
+        split = row or col or take is not None
+        alpha_a = sum_grads(p["alpha_a"]) if split else p["alpha_a"]
         alpha_w = fsdp_gather(p["alpha_w"])
-        if row:
+        if take is not None and alpha_w.ndim:
+            if is_sharded(p["alpha_w"], 0, MODEL):
+                alpha_w = gather(alpha_w, MODEL, 0)
+            alpha_w = _take(alpha_w, take, 0)
+        elif row or take is not None:
             alpha_w = sum_grads(alpha_w)
         x = thermometer_act_quant(x, alpha_a, quant.act_bsl,
                                   numel=whole_numel(x, row, True))
-        w = ternary_weight_quant(w, alpha_w,
-                                 numel=whole_numel(w, row or col))
+        w = ternary_weight_quant(w, alpha_w, numel=numel)
     y = product(x, w.to(x.dtype))
+    if take is not None:
+        return y
     if row:
         return psum(y)
     return gather(y, MODEL, -1) if col and not local else y

@@ -33,6 +33,18 @@ splits: a rank runs the conv and the recurrence on its block of channels
 and gathers the channels before each contraction over them (``x_proj``,
 ``out_proj``).  Every projection is column-parallel, so ``dt_proj``
 gives a rank its own channels directly.
+
+Under the training layout (``mamba_spec(serving=False)``, the
+reference's) ``x_proj`` and ``out_proj`` contract a rank's channels
+(row-parallel, the partial sums added over "model").  ``in_proj``'s
+columns are cut over "model" in one run of ``2 d_inner``, so a rank's x
+and z channels sit on two other ranks' blocks: it computes just their
+columns from the weight gathered whole (``dense_apply(take=)``), whose
+gradient comes back summed into the blocks.  The layer's input feeds
+only products of a rank's own columns and the summed ``x_proj`` output
+(dt's rank, B and C) only a rank's channels, so both gradients are
+summed over "model" (``sum_grads``); the per-channel leaves are the
+rank's own.
 """
 
 from __future__ import annotations
@@ -41,7 +53,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import DATA, MODEL, block, gather, splits
+from ..distributed.sharding import (DATA, MODEL, axis_size, block, gather,
+                                    is_sharded, splits, sum_grads)
 from .common import ACT_FNS, dense_apply, dense_init, dense_spec, sum_fixed
 
 __all__ = ["mamba_init", "mamba_spec", "mamba_train", "mamba_prefill_chunk",
@@ -82,8 +95,7 @@ def mamba_spec(cfg: ModelConfig, serving: bool = True) -> dict:
     per-channel leaves over ``d_inner`` ("model").  The reference's
     ``mamba_spec`` splits ``x_proj``'s and ``out_proj``'s contraction
     over "model"; the port serves every contraction whole.  The training
-    layout (``serving=False``) is the reference's; its forward under a
-    training mesh waits for ROADMAP Queue 1 item 15."""
+    layout (``serving=False``) is the reference's."""
     q = cfg.quant
     if not serving:
         return {"in_proj": dense_spec(DATA, MODEL, q),
@@ -127,14 +139,35 @@ def _whole(x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return gather(x, MODEL, -1) if splits(cfg.mamba_d_inner) else x
 
 
+def _row_parallel(p: dict) -> bool:
+    """The training layout under a mesh: ``x_proj`` and ``out_proj``
+    contract a rank's block of the channels."""
+    return is_sharded(p["x_proj"]["w"], 0)
+
+
 def _split_xz(p: dict, u: torch.Tensor, cfg: ModelConfig,
               batch_invariant: bool = True):
     """The pre-conv x and the gate z, this rank's channels of each."""
-    xz = dense_apply(p["in_proj"], u, cfg.quant,
-                     batch_invariant=batch_invariant)
     din = cfg.mamba_d_inner
     ch = _channels(cfg)
+    if _row_parallel(p):
+        n = din // axis_size()
+        xz = dense_apply(p["in_proj"], sum_grads(u), cfg.quant,
+                         batch_invariant=batch_invariant,
+                         take=((ch.start, n), (din + ch.start, n)))
+        return xz[..., :n], xz[..., n:]
+    xz = dense_apply(p["in_proj"], u, cfg.quant,
+                     batch_invariant=batch_invariant)
     return xz[..., :din][..., ch], xz[..., din:][..., ch]
+
+
+def _out_proj(p: dict, y: torch.Tensor, cfg: ModelConfig,
+              batch_invariant: bool = True) -> torch.Tensor:
+    """``out_proj`` of a rank's channels of y: their partial products
+    summed (row-parallel), or the product of every channel gathered."""
+    return dense_apply(p["out_proj"], y if _row_parallel(p)
+                       else _whole(y, cfg), cfg.quant,
+                       batch_invariant=batch_invariant)
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -148,7 +181,11 @@ def _ssm_params(p: dict, x: torch.Tensor, cfg: ModelConfig,
     (x and dt: this rank's channels under a mesh)."""
     n, r = cfg.mamba_d_state, cfg.dt_rank
     kw = dict(batch_invariant=batch_invariant)
-    dbc = dense_apply(p["x_proj"], _whole(x, cfg), cfg.quant, **kw)
+    if _row_parallel(p):
+        # the summed output feeds only this rank's channels of dt, B and C
+        dbc = sum_grads(dense_apply(p["x_proj"], x, cfg.quant, **kw))
+    else:
+        dbc = dense_apply(p["x_proj"], _whole(x, cfg), cfg.quant, **kw)
     dt_r, bm, cm = dbc[..., :r], dbc[..., r:r + n], dbc[..., r + n:]
     dt = _softplus(dense_apply(p["dt_proj"], dt_r, cfg.quant,
                                local=splits(cfg.mamba_d_inner), **kw)
@@ -264,8 +301,7 @@ def mamba_train(p: dict, u: torch.Tensor, cfg: ModelConfig):
     dt, bm, cm = _ssm_params(p, x, cfg, batch_invariant=False)
     a = -torch.exp(p["a_log"])                                # (din, n)
     xf = x.to(torch.float32)
-    h = torch.zeros((B, cfg.mamba_d_inner, cfg.mamba_d_state),
-                    device=u.device)
+    h = torch.zeros((B, xf.shape[-1], cfg.mamba_d_state), device=u.device)
     ys = []
     for xc, dtc, bc, cc in zip(*(torch.split(t, c, dim=1)
                                  for t in (xf, dt, bm, cm))):
@@ -277,7 +313,7 @@ def mamba_train(p: dict, u: torch.Tensor, cfg: ModelConfig):
         ys.append(yc)
     y = torch.cat(ys, dim=1) + xf * p["d_skip"]
     y = (y * _silu(z.to(torch.float32))).to(u.dtype)
-    out = dense_apply(p["out_proj"], y, cfg.quant, batch_invariant=False)
+    out = _out_proj(p, y, cfg, batch_invariant=False)
     # decode cache: the last k - 1 pre-conv inputs, left-padded with zeros
     # when the sequence is shorter
     kc = cfg.mamba_d_conv - 1
@@ -312,19 +348,22 @@ def mamba_prefill_chunk(p: dict, u: torch.Tensor, cfg: ModelConfig,
     xf = x.to(torch.float32)
     da = torch.exp(dt[..., None] * a)                         # (B,C,din,n)
     dbx = (dt * xf)[..., None] * bm[:, :, None, :]            # (B,C,din,n)
-    vmask = torch.ones((B, C), dtype=torch.bool, device=u.device) \
-        if valid is None else valid.to(torch.bool)
+    # without ``valid`` every step updates (the select of an all-true
+    # mask, left out)
+    vmask = None if valid is None else valid.to(torch.bool)
     h = state["h"]
     hs = []
     for t in range(C):
         hn = h * da[:, t] + dbx[:, t]
-        h = torch.where(vmask[:, t, None, None], hn, h)
+        h = hn if vmask is None else torch.where(vmask[:, t, None, None],
+                                                 hn, h)
         hs.append(h)
     y = sum_fixed(torch.stack(hs, dim=1) * cm[:, :, None, :], -1)
     y = y + xf * p["d_skip"]
     y = (y * _silu(z.to(torch.float32))).to(u.dtype)
-    out = dense_apply(p["out_proj"], _whole(y, cfg), cfg.quant)
-    nvalid = vmask.sum(dim=1)                                 # (B,)
+    out = _out_proj(p, y, cfg)
+    nvalid = torch.full((B,), C, device=u.device) if vmask is None \
+        else vmask.sum(dim=1)                                 # (B,)
     idx = nvalid[:, None] + torch.arange(k - 1, device=u.device)[None, :]
     tail = torch.gather(xcat, 1, idx[:, :, None].expand(B, k - 1,
                                                         xcat.shape[-1]))
@@ -350,7 +389,7 @@ def mamba_decode(p: dict, u: torch.Tensor, cfg: ModelConfig, state: dict):
     h = state["h"] * da + (dt * xc)[..., None] * bm[:, None, :]
     y = sum_fixed(h * cm[:, None, :], -1) + xc * p["d_skip"]
     y = (y * _silu(z[:, 0].to(torch.float32))).to(u.dtype)
-    out = dense_apply(p["out_proj"], _whole(y, cfg)[:, None, :], cfg.quant)
+    out = _out_proj(p, y[:, None, :], cfg)
     new_conv = torch.cat([state["conv"][:, 1:], x.to(state["conv"].dtype)],
                          dim=1)
     return out, {"h": h, "conv": new_conv}

@@ -34,6 +34,19 @@ heads, ``ln_x`` normalizes its heads, and the output is gathered before
 ``wo``.  The token-shift LoRA's ``tm_w2`` is column-parallel and
 gathered; the other LoRA factors stay whole, as in the reference.  The
 channel mix gathers its hidden layer before ``wv``.
+
+Under the training layout (``serving=False``, the reference's) the time
+mix runs the same heads a rank, with ``wo`` row-parallel (the partial
+products summed over "model") and ``ln_x`` whole, each rank reading its
+heads' slice; the channel mix takes ``wk`` column-parallel, ``wv``
+row-parallel and ``wr`` whole (FSDP only), so every rank computes all of
+r.  A gradient that reaches a replicated value from a rank's own heads or
+hidden block is that rank's share, and is summed over "model"
+(``sum_grads``): the time mix's input and ``maa_x`` / ``maa`` /
+``tm_w1`` / ``dw1`` (they feed column-parallel products and the rank's
+decays), ``ln_x``'s slice, and the channel mix's key branch (``mk``, the
+input of ``wk``).  Its receptance branch (``mr``, ``wr``) is computed
+whole on every rank, so its gradient is whole already.
 """
 
 from __future__ import annotations
@@ -41,8 +54,9 @@ from __future__ import annotations
 import torch
 
 from ..configs.base import ModelConfig
-from ..distributed.sharding import (DATA, MODEL, axis_size, cols, gather,
-                                    splits)
+from ..distributed.sharding import (DATA, MODEL, axis_size, cols,
+                                    fsdp_active, gather, is_sharded, splits,
+                                    sum_grads)
 from .common import (ACT_FNS, dense_apply, dense_init, dense_spec,
                      matmul_rows, norm_apply, norm_init, norm_spec, sum_fixed)
 
@@ -111,8 +125,7 @@ def rwkv_tmix_spec(cfg: ModelConfig, serving: bool = True) -> dict:
     outputs over "model"; ``maa*``, ``tm_w1`` and ``dw1`` whole, as the
     reference's.  The reference's ``wo`` splits its contraction; the
     port serves it column-parallel.  The training layout
-    (``serving=False``) is the reference's; its forward under a training
-    mesh waits for ROADMAP Queue 1 item 15."""
+    (``serving=False``) is the reference's."""
     q = cfg.quant
     s = {"maa_x": (None,), "maa": (None, None), "tm_w1": (None, None),
          "tm_w2": (None, None, MODEL), "w0": (MODEL,), "dw1": (None, None),
@@ -267,6 +280,12 @@ def _tmix_core(p: dict, x: torch.Tensor, sx: torch.Tensor, cfg: ModelConfig,
     local = splits(h)                 # this rank's heads under a mesh
     if local:
         h, d = h // axis_size(), d // axis_size()
+    if local and fsdp_active():
+        # replicated leaves read by this rank's heads only
+        p = dict(p, **{k: sum_grads(p[k])
+                       for k in ("maa_x", "maa", "tm_w1", "dw1")})
+        if not is_sharded(p["ln_x"]["scale"], 0):
+            p["ln_x"] = {n: sum_grads(t) for n, t in p["ln_x"].items()}
     kw = dict(batch_invariant=batch_invariant)
     xw, xk, xv, xr, xg = _ddlerp(p, x, sx, batch_invariant)
     w = _decay(p, xw, batch_invariant, local).reshape(B, S, h, dh)
@@ -285,7 +304,7 @@ def _tmix_core(p: dict, x: torch.Tensor, sx: torch.Tensor, cfg: ModelConfig,
     ln = {n: cols(t, t, local) for n, t in p["ln_x"].items()}
     y = norm_apply(ln, y.reshape(B, S, d), "layernorm", eps=1e-5, groups=h)
     y = (y * g).to(x.dtype)
-    if local:
+    if local and not is_sharded(p["wo"]["w"], 0):
         y = gather(y, MODEL, -1)
     return dense_apply(p["wo"], y, cfg.quant, **kw), sT
 
@@ -319,6 +338,10 @@ def rwkv_tmix_train(p: dict, x: torch.Tensor, cfg: ModelConfig):
     reference."""
     B = x.shape[0]
     h, dh = _n_heads(cfg), cfg.rwkv_head_dim
+    if splits(h):
+        # under a training mesh every path from x ends in this rank's heads
+        h = h // axis_size()
+        x = sum_grads(x)
     s0 = torch.zeros((B, h, dh, dh), device=x.device)
     out, sT = _tmix_core(p, x, _prev_zero(x) - x, cfg, s0,
                          batch_invariant=False)
@@ -350,9 +373,11 @@ def _cmix_core(p: dict, x: torch.Tensor, sx: torch.Tensor, cfg: ModelConfig,
     xk = x + sx * p["mk"].to(x.dtype)
     xr = x + sx * p["mr"].to(x.dtype)
     local = splits(cfg.d_ff)
+    if local and fsdp_active():
+        xk = sum_grads(xk)        # the column-parallel product's input
     k = torch.square(torch.relu(dense_apply(p["wk"], xk, cfg.quant,
                                             local=local, **kw)))
-    if local:
+    if local and not is_sharded(p["wv"]["w"], 0):
         k = gather(k, MODEL, -1)
     kv = dense_apply(p["wv"], k, cfg.quant, **kw)
     return torch.sigmoid(dense_apply(p["wr"], xr, cfg.quant, **kw)) * kv

@@ -53,10 +53,12 @@ sums its ranks' rows, attention / FFN / MoE run tensor- and
 expert-parallel over "model", and :func:`loss_fn` takes the
 vocabulary-parallel cross-entropy of the rank's lm_head columns and the
 global token-weighted mean over the batch axes.  The recurrent mixers
-refuse a training mesh (ROADMAP Queue 1 item 15).  The dense entry points
-run under it too, the batch cut over the batch axes (the dry-run's
-prefill and decode cells), the decode's cache cut as :func:`cache_specs`
-says.
+run their heads or channels a rank (``mamba.py``, ``rwkv6.py``).  The
+dense entry points run under it too, the batch cut over the batch axes
+(the dry-run's prefill and decode cells), the decode's cache cut as
+:func:`cache_specs` says: K / V time over "model" when the KV heads do
+not split, or over "data" (long-context decode at batch 1, every data
+rank holding the same recurrent state).
 """
 
 from __future__ import annotations
@@ -351,14 +353,6 @@ def _embed_mesh(table: torch.Tensor, tok: torch.Tensor) -> torch.Tensor:
                                                            device=x.device)))
 
 
-def _refuse_on_training_mesh(spec: LayerSpec) -> None:
-    """The recurrent layers have no training-mesh forward yet."""
-    if fsdp_active() and (spec.mixer != "attn" or spec.ffn == "rwkv_cmix"):
-        raise NotImplementedError(
-            f"layer {spec} under a training mesh: the recurrent mixers' "
-            "training layouts are ROADMAP Queue 1 item 15")
-
-
 def _gather_rows(rows: dict, dim: int = 0) -> dict:
     """A layer's new state rows (or verify snapshots: ``dim=1``) of all
     lanes, from a data rank's block."""
@@ -445,7 +439,6 @@ def _apply_layer(lp: dict, spec: LayerSpec, x: torch.Tensor,
     """norm -> mixer (``mixer(h)``) -> residual -> norm -> dense FFN, MoE
     or the rwkv channel mix (``cmix(h)``) -> residual.  Returns (x, the
     layer's MoE aux loss or None)."""
-    _refuse_on_training_mesh(spec)
     h = norm_apply(lp["norm1"], x, cfg.norm)
     x = _residual_add(x, mixer(h), lp, "alpha_r1", cfg)
     h2 = norm_apply(lp["norm2"], x, cfg.norm)

@@ -15,8 +15,10 @@ file (:func:`_stash`), so that all of them start together.
 The training mesh's side: :class:`Ranks` runs a function of this module
 on a gloo group; :func:`train_step_case` is one train step (mesh-on under
 training rules, or mesh-off), :func:`decode_step_case` one dense decode
-step over a time-cut cache, :func:`restore_on_mesh` a checkpoint
-restored as blocks.
+step over a time-cut cache (or a batch-cut one), :func:`prefill_case` the
+dense prefill in the training layout, :func:`restore_on_mesh` a
+checkpoint restored as blocks; :func:`mesh_cases` runs cases of every
+kind on one mesh.
 """
 
 from __future__ import annotations
@@ -373,11 +375,18 @@ def assert_matches_reference(got, want, case, datapath):
 
 # -- the training mesh ----------------------------------------------------
 
-def _mesh_rules(shape):
-    """Training rules on a (data, model) or (pod, data, model) mesh."""
+def _mesh_rules(shape, seq: bool = False):
+    """Training rules on a (data, model) or (pod, data, model) mesh; with
+    ``seq`` the long-context decode's (the batch of 1 on no axis, K / V
+    time over "data"), as the dry-run's long_500k cell."""
+    from repro_torch.distributed.sharding import MeshRules
     from repro_torch.launch.mesh import _grid, training_rules
     axes = ("pod", "data", "model")[-len(shape):]
-    return training_rules(_grid(tuple(shape), axes, backend="gloo"))
+    rules = training_rules(_grid(tuple(shape), axes, backend="gloo"))
+    if seq:
+        rules = MeshRules(mesh=rules.mesh, mapping=dict(rules.mapping,
+                                                        batch=()))
+    return rules
 
 
 def train_step_case(case: dict, rules=None) -> dict:
@@ -407,10 +416,15 @@ def train_step_case(case: dict, rules=None) -> dict:
             save_checkpoint(case["ckpt_dir"], 1, state, async_=False)
         whole = unshard_tree(state)
     return {"metrics": {k: float(v) for k, v in m.items()},
-            **{name: {k: v.numpy() for k, v in tree_paths(tree)}
+            **{name: {k: _numpy(v) for k, v in tree_paths(tree)}
                for name, tree in (("params", whole.params),
                                   ("m", whole.opt["m"]),
                                   ("v", whole.opt["v"]))}}
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """``t`` as numpy; bfloat16 (jamba's optimizer state) as float32."""
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def train_mesh(rank, world, shape, cases):
@@ -449,9 +463,9 @@ def restore_on_mesh(rank, world, shape, cfg, jobs):
 
 def decode_step_case(case: dict, rules=None) -> dict:
     """One dense ``decode_step`` of ``case`` (a config, the port's params,
-    a cache as numpy, tokens) under ``rules`` (or mesh-off), the params
-    in the serving layout and the cache cut as ``cache_specs(
-    kv_head_shard=False)`` says (time over "model"): the logits and the
+    a cache as numpy, tokens; ``cache_kw``, the ``cache_specs`` options,
+    default ``kv_head_shard=False``: time over "model") under ``rules``
+    (or mesh-off), the params in the serving layout: the logits and the
     cache after the step, whole."""
     from repro_torch.distributed.sharding import (mesh_rules, shard_tree,
                                                   unshard_tree)
@@ -464,17 +478,71 @@ def decode_step_case(case: dict, rules=None) -> dict:
     with mesh_rules(rules), torch.no_grad():
         if rules is not None:
             params = shard_tree(params, param_specs(cfg), rules)
-            cache = shard_tree(cache, cache_specs(cfg, kv_head_shard=False),
-                               rules, logical=True)
+            cache = shard_tree(cache, cache_specs(
+                cfg, **case.get("cache_kw", dict(kv_head_shard=False))),
+                rules, logical=True)
             tokens = shard_tree(tokens, ("batch", None), rules, logical=True)
-        logits, cache = decode_step(params, cache, tokens, cfg)
+        logits, new = decode_step(params, cache, tokens, cfg)
         if rules is not None:
             from repro_torch.distributed.sharding import batch_axes, gather
             logits = gather(logits, batch_axes(), 0)
-        whole = unshard_tree(cache)
+            # a recurrent layer's new state is a fresh block of the leaf
+            # it replaces
+            new = tree_map(_tag_like, new, cache)
+        whole = unshard_tree(new)
     return {"logits": logits.numpy(),
             "cache": {k: v.numpy() for k, v in tree_paths(whole)}}
 
 
+def _tag_like(new: torch.Tensor, old: torch.Tensor) -> torch.Tensor:
+    if hasattr(old, "mesh_spec") and not hasattr(new, "mesh_spec"):
+        new.mesh_spec = old.mesh_spec
+    return new
+
+
 def decode_mesh(rank, world, shape, case):
     return decode_step_case(case, _mesh_rules(shape))
+
+
+def prefill_case(case: dict, rules=None) -> dict:
+    """The dense ``prefill`` of ``case``'s tokens (a config, the port's
+    params, a numpy batch) under ``rules`` (or mesh-off), the params in
+    the training layout and the batch cut over the batch axes, as the
+    dry-run's prefill cell: the logits of the whole batch."""
+    from repro_torch.distributed.sharding import (batch_axes, gather,
+                                                  mesh_rules, shard_tree)
+    from repro_torch.models import param_specs, prefill
+    from repro_torch.tree import tree_map
+    cfg = case["cfg"]
+    params = tree_map(lambda a: torch.from_numpy(a.copy()), case["params"])
+    batch = {"tokens": torch.from_numpy(case["batch"]["tokens"])}
+    with mesh_rules(rules), torch.no_grad():
+        if rules is not None:
+            params = shard_tree(params, param_specs(cfg, serving=False),
+                                rules)
+            batch = shard_tree(batch, {"tokens": ("batch", None)}, rules,
+                               logical=True)
+        logits, _ = prefill(params, batch, cfg)
+        logits = gather(logits, batch_axes(), 0)
+    return {"logits": logits.numpy()}
+
+
+_KINDS = {"train": train_step_case, "prefill": prefill_case,
+          "decode": decode_step_case}
+
+
+def mesh_cases(rank, world, shape, cases):
+    """Every case of ``cases`` ({id: case}, each with its ``kind``:
+    "train", "prefill", "decode", or "seq_decode", the long-context
+    decode's rules) on a ``shape`` mesh of gloo ranks."""
+    out = {}
+    for cid, case in cases.items():
+        kind = case.get("kind", "train")
+        rules = _mesh_rules(shape, seq=kind == "seq_decode")
+        out[cid] = _KINDS.get(kind, decode_step_case)(case, rules)
+    return out
+
+
+def case_off(case: dict) -> dict:
+    """A case of :func:`mesh_cases` mesh-off."""
+    return _KINDS.get(case.get("kind", "train"), decode_step_case)(case)

@@ -10,8 +10,16 @@ tables (``repro_torch.analysis.report``) against the reference's.
   from the reference's own specs over ``jax.eval_shape`` of its
   ``init_params`` / ``init_cache`` (no 512-device compile); the record
   holds a peak, the counted operations and a roofline.
-* A recurrent arch's cell records ``failed``, naming ROADMAP Queue 1
-  item 15.
+* The recurrent archs' cells: rwkv6-7b ``decode_32k`` and jamba
+  ``long_500k`` (8 of its 72 layers: one period) end ``ok``, their
+  argument bytes the count under the reference's serving
+  ``param_specs`` (the leaves where the port's serving layout departs
+  from it, ROADMAP Queue 1 item 11, under the port's spec: the port
+  serves the recurrent mixers' and the experts' contractions whole) and
+  its ``cache_specs`` (``seq_shard=True`` for long_500k, whose batch of
+  1 takes no mesh axis).
+* ``sweep`` records a cell that fails as ``failed`` with its error: a
+  query-head count whose groups no rank's block divides.
 * The kernels' routes trace through their custom ops' shape functions:
   flash attention on meta tensors at S 4096 never makes an (S, S) tensor.
 """
@@ -41,6 +49,7 @@ from repro.models import param_specs as jparam_specs
 from repro_torch.analysis import report
 from repro_torch.configs import SHAPES, get_arch
 from repro_torch.launch import dryrun
+from repro_torch.models import param_specs
 
 SRC = os.path.join(os.path.dirname(__file__), "..", "src")
 MESH = {"data": 16, "model": 16}            # the single-pod mesh
@@ -67,28 +76,52 @@ def _run(args, timeout=240):
                             stderr=subprocess.PIPE, text=True)
 
 
+# the leaves of the port's serving layout that depart from the
+# reference's (ROADMAP Queue 1 item 11; tests/test_torch_train_mesh.py)
+SERVING_DEPARTURES = {
+    "mamba": {"in_proj", "x_proj", "out_proj"},
+    "rwkv6": {"wr", "wk", "wv", "wg", "wo", "ln_x"},
+    "rwkv_cmix": {"wk", "wv", "wr"},
+    "moe": {"w_down"},
+}
+# the recurrent cells run: (arch, shape, overrides)
+RECURRENT_CELLS = {"rwkv6-decode_32k": ("rwkv6-7b", "decode_32k", {}),
+                   "jamba-long_500k": ("jamba-1.5-large-398b", "long_500k",
+                                       {"n_layers": 8})}
+# 48 query heads over 12 KV heads: a rank of 16 holds 3 of a group of 4
+UNEVEN = {"n_heads": 48, "n_kv_heads": 12, "n_layers": 1}
+
+
 @pytest.fixture(scope="module")
 def cells(tmp_path_factory):
-    """The granite decode cell and an rwkv6 cell (through ``sweep``, which
-    records a failure), each a subprocess, started together."""
+    """The granite decode cell, the recurrent cells and a cell that fails
+    (through ``sweep``, which records the failure), each a subprocess,
+    started together."""
     d = str(tmp_path_factory.mktemp("dryrun"))
-    ok = _run(["--arch", "granite-3-2b", "--shape", "decode_32k",
-               "--mesh", "single", "--report-dir", d])
+    bad_dir = str(tmp_path_factory.mktemp("dryrun_failed"))
+    procs = {"ok": _run(["--arch", "granite-3-2b", "--shape", "decode_32k",
+                         "--mesh", "single", "--report-dir", d])}
+    for name, (arch, shape, over) in RECURRENT_CELLS.items():
+        procs[name] = _run(["--arch", arch, "--shape", shape, "--mesh",
+                            "single", "--report-dir", d]
+                           + [f"--set={k}={v}" for k, v in over.items()])
     code = ("import sys; from repro_torch.launch.dryrun import sweep; "
-            f"sys.exit(sweep([False], None, {d!r}, "
-            "cells=[('rwkv6-7b', 'decode_32k')], timeout=240))")
-    bad = subprocess.Popen([sys.executable, "-c", code],
-                           env=dict(os.environ, PYTHONPATH=SRC),
-                           stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                           text=True)
+            f"sys.exit(sweep([False], None, {bad_dir!r}, "
+            "cells=[('granite-3-2b', 'prefill_32k')], timeout=240, "
+            f"overrides={UNEVEN!r}))")
+    procs["bad"] = subprocess.Popen([sys.executable, "-c", code],
+                                    env=dict(os.environ, PYTHONPATH=SRC),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
     out = {}
-    for name, p in (("ok", ok), ("bad", bad)):
+    for name, p in procs.items():
         try:
             stdout, stderr = p.communicate(timeout=240)
         finally:
             p.kill()
         out[name] = (p.returncode, stdout, stderr)
     recs = {(r["arch"], r["shape"]): r for r in report.load_records(d)}
+    recs["bad"] = report.load_records(bad_dir)
     return out, recs
 
 
@@ -184,13 +217,64 @@ def test_decode_cell_argument_bytes_equal_the_reference_specs(cells):
     json.dumps(rec)
 
 
-def test_recurrent_cell_fails_naming_item_15(cells):
+@pytest.mark.parametrize("name", list(RECURRENT_CELLS))
+def test_recurrent_cell_argument_bytes_equal_the_reference_specs(cells,
+                                                                 name):
+    rc, stdout, stderr = cells[0][name]
+    assert rc == 0, stderr[-3000:]
+    arch, shape_name, over = RECURRENT_CELLS[name]
+    rec = cells[1][(arch, shape_name)]
+    assert rec["status"] == "ok" and rec["mesh"] == "16x16"
+    jc = jget_arch(arch).scaled(**over)
+    shape = JSHAPES[shape_name]
+    b, s = shape.global_batch, shape.seq_len
+    seq = shape_name == "long_500k"
+    physical = {a: (a,) for a in MESH}
+    logical = {k: tuple(v) for k, v in jmultipod_mapping().items()}
+    if seq:
+        logical["batch"] = ()
+    params = _per_device_bytes(
+        jax.eval_shape(partial(jinit_params, cfg=jc), jax.random.key(0)),
+        _serving_specs(arch, over), physical)
+    cache = _per_device_bytes(
+        jax.eval_shape(partial(jinit_cache, jc, b, s)),
+        jcache_specs(jc, seq_shard=seq, kv_head_shard=not seq and
+                     jc.n_kv_heads % MESH["model"] == 0), logical)
+    tokens = _per_device_bytes(jax.ShapeDtypeStruct((b, 1), np.int32),
+                               ("batch", None), logical)
+    ma = rec["memory_analysis"]
+    assert ma["argument_size_in_bytes"] == params + cache + tokens
+    assert ma["peak_memory_in_bytes"] >= ma["argument_size_in_bytes"]
+    assert rec["cost_analysis"]["flops"] > 0
+    assert rec["roofline"]["bottleneck"] in ("compute", "memory",
+                                             "collective")
+
+
+def _serving_specs(arch, over):
+    """The reference's serving ``param_specs`` (stacked periods) with the
+    port's spec (a leading None for the stacked axis) at the leaves where
+    the port's serving layout departs."""
+    jc = jget_arch(arch).scaled(**over)
+    specs = jparam_specs(jc, serving=True)
+    port = param_specs(get_arch(arch).scaled(**over), serving=True)
+    for i, spec in enumerate(jc.period):
+        for part, kind in (("mixer", spec.mixer), ("ffn", spec.ffn)):
+            for leaf in SERVING_DEPARTURES.get(kind, ()):
+                specs["periods"][f"p{i}"][part][leaf] = {
+                    k: jax.sharding.PartitionSpec(None, *v) for k, v in
+                    port["layers"][i][part][leaf].items()}
+    return specs
+
+
+def test_sweep_records_a_failed_cell(cells):
     rc, stdout, stderr = cells[0]["bad"]
     assert rc == 1
-    rec = cells[1][("rwkv6-7b", "decode_32k")]
-    assert rec["status"] == "failed"
+    assert "1 failed" in stdout
+    rec, = cells[1]["bad"]
+    assert (rec["arch"], rec["shape"], rec["status"]) == \
+        ("granite-3-2b", "prefill_32k", "failed")
     assert "NotImplementedError" in rec["stderr"]
-    assert "Queue 1 item 15" in rec["stderr"]
+    assert "unevenly" in rec["stderr"]
 
 
 def test_flash_traces_the_kernel_route_on_meta_tensors():

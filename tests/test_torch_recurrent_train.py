@@ -178,9 +178,9 @@ def _held(name, mode, x, **kw):
     """Run the mixer's training form forward and backward on both sides
     and hold outputs, carry and gradients within the mode's tolerance."""
     jfn, tfn, jp, tp = _mixer(name, mode, **kw)
-    g = np.random.default_rng(5).standard_normal(
-        np.asarray(jfn(jp, jnp.asarray(x))[0]).shape).astype(np.float32)
     (jout, jcarry), vjp = jax.vjp(jfn, jp, jnp.asarray(x))
+    g = np.random.default_rng(5).standard_normal(jout.shape) \
+        .astype(np.float32)
     jcarry_ct = jax.tree.map(jnp.zeros_like, jcarry)
     jgp, jgx = vjp((jnp.asarray(g), jcarry_ct))
     out, carry, gp, gx = _port_vjp(tfn, tp, x, g)
@@ -394,9 +394,9 @@ def test_loss_and_grads_match_jax(arch, kw, mode):
     jc, c = _model_cfgs(arch, mode, **kw)
     jp = _live_ssm(jinit_params(jax.random.key(0), jc))
     b = _batch()
-    (jl, jm), jg = jax.value_and_grad(
+    (jl, jm), jg = jax.jit(jax.value_and_grad(
         lambda p: jloss_fn(p, {k: jnp.asarray(v) for k, v in b.items()},
-                           jc), has_aux=True)(jp)
+                           jc), has_aux=True))(jp)
     loss, metrics, grads = _port_grads(from_jax(_np(jp), c, device="cpu"),
                                        b, c)
     assert abs(loss - float(jl)) <= TOL[mode]
