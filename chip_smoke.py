@@ -215,6 +215,19 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    bit for bit, and nowhere else; ms a step each.  Then tiny float32 rwkv6
    and jamba (a whole period, MoE and flash) steps on both meshes on the
    card equal the CPU's unsharded step at ``TINY_TRAIN_TOL``.
+16. the paper's TNN trained and served on the card: the W2-A8 QAT MLP
+   (784-256-256-10, ``repro_torch.examples._qat_mlp``) trained for 250
+   AdamW steps of 256 ``SyntheticClassification`` rows drawn on the card
+   from seed 0, its QAT accuracy, its export (ternary weights and SI
+   tables) and 4 served batches of 256 through ``ternary_matmul`` with
+   the fused SI (``examples/serve_sc.py`` part 1): 2 launches a batch,
+   each layer's codes equal to the plain version's and to the unfused SI
+   epilogue's bit for bit, and the integer path's accuracy within the
+   reference's 3.5 points of the QAT model's; the first 3 steps at batch
+   16 from the init with power-of-two scales on the card equal the CPU's
+   within ``TNN_STEP_TOL`` (a planted fault, the steps at twice the
+   learning rate, must read above it);
+   s a training step and device ms a served batch.
 
 Phase 3 also holds the flash kernel against its plain version at phase
 6's shape (O and the log-sum-exp), at jamba's attention shape (B 1, S
@@ -4569,6 +4582,153 @@ def recurrent_training_mesh(torch, dev, rwkv_layers, smi):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the paper's TNN trained and served on the card
+# ---------------------------------------------------------------------------
+
+TNN_STEPS, TNN_BATCH, TNN_SERVE_BATCHES = 250, 256, 4
+TNN_GATE = 0.035            # the reference's gate on the QAT -> integer drop
+TNN_CHECK_STEPS, TNN_CHECK_BATCH = 3, 16
+# the first 3 steps from the init with power-of-two LSQ scales, card
+# against CPU: 8.6e-4 read on an H100 (700 W), the planted fault 1.1e-2.
+# At the init's own scales (0.05, 0.5) the card's step-0 loss already
+# parts by 5.0e-3: the quantized blocks' sums are inexact in float32 and
+# their order decides levels at the lattice's rounding boundaries and
+# ReLU gradients at its zeros (ROADMAP Queue 3 item 16)
+TNN_STEP_TOL = 2e-3
+TNN_DYADIC = {"alpha_w": 2.0 ** -4, "alpha_a": 2.0 ** -1, "alpha_r": 2.0 ** -3}
+
+
+def _tnn_steps(qat, init, spec, device, lr=2e-3, steps=TNN_CHECK_STEPS):
+    """``steps`` steps of ``init`` (a CPU copy) on ``device``: the losses
+    and the parameters, back on the CPU."""
+    from repro_torch.tree import tree_leaves, tree_map
+    params = tree_map(lambda t: t.to(device, copy=True), init)
+    losses = qat.fit_mlp(params, spec, steps, TNN_CHECK_BATCH, lr)
+    return losses, [t.cpu() for t in tree_leaves(params)]
+
+
+def _tnn_gap(a, b):
+    """The largest difference between two runs' losses and parameters."""
+    return max(max(abs(x - y) for x, y in zip(a[0], b[0])),
+               max(float((x - y).abs().max()) for x, y in zip(a[1], b[1])))
+
+
+def trained_tnn(torch, dev, smi):
+    """QAT-train the TNN on the card, export it and serve it through the
+    fused-SI ternary matmul (part 1 of ``examples/serve_sc.py``); hold
+    the codes, the launches, the accuracy gate and a card == CPU check
+    of the first steps."""
+    from repro_torch import prng
+    from repro_torch.core.sc_layers import _si_epilogue
+    from repro_torch.examples import _qat_mlp as qat
+    from repro_torch.examples import serve_sc
+    from repro_torch.kernels import build as kbuild
+    from repro_torch.kernels.ref import ternary_matmul_ref
+    spec = serve_sc.SPEC
+
+    # read, not held: the step-0 loss on the card against the CPU's at the
+    # init's own scales (ROADMAP Queue 3 item 16)
+    init = qat.init_mlp(prng.key(SEED), spec, device="cpu")
+    lattice_gap = abs(_tnn_steps(qat, init, spec, dev, steps=1)[0][0]
+                      - _tnn_steps(qat, init, spec, "cpu", steps=1)[0][0])
+
+    # the first steps on the card against the same steps on the CPU, from
+    # one init (its scales powers of two), and a planted fault that must
+    # read above the tolerance
+    for blk in init["blocks"]:
+        blk.update({k: torch.tensor(v) for k, v in TNN_DYADIC.items()})
+    cpu = _tnn_steps(qat, init, spec, "cpu")
+    card = _tnn_steps(qat, init, spec, dev)
+    fault = _tnn_steps(qat, init, spec, dev, lr=4e-3)
+    step_gap, fault_gap = _tnn_gap(card, cpu), _tnn_gap(fault, cpu)
+    log(f"TNN: first {TNN_CHECK_STEPS} steps at batch {TNN_CHECK_BATCH}, "
+        f"card vs CPU: max |loss or param gap| {step_gap:.3g} (tolerance "
+        f"{TNN_STEP_TOL:g}); planted fault (twice the lr) {fault_gap:.3g}; "
+        f"losses card {card[0]} CPU {cpu[0]}; at the init's own scales "
+        f"the step-0 loss parts by {lattice_gap:.3g} (read)")
+    if not step_gap <= TNN_STEP_TOL < fault_gap:
+        raise AssertionError(f"TNN steps: card vs CPU {step_gap} or the "
+                             f"planted fault {fault_gap} against "
+                             f"{TNN_STEP_TOL}")
+
+    # the main path: train, evaluate, export, serve
+    torch.cuda.synchronize()
+    kbuild.reset_launches()
+    t0 = time.perf_counter()
+    params = qat.init_mlp(prng.key(SEED), spec, dev)
+    losses = qat.fit_mlp(params, spec, TNN_STEPS, TNN_BATCH)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    acc_qat = qat.eval_mlp(params, spec)
+    layers = serve_sc.export_int_model(params)
+    batches = [qat.DATASET.batch(30_000 + i, TNN_BATCH, dev)
+               for i in range(TNN_SERVE_BATCHES)]
+    served_launches = []
+    with torch.no_grad():
+        codes, logits = [], []
+        for b in batches:
+            before = kbuild.LAUNCHES["ternary_matmul"]
+            codes.append(serve_sc.serve_codes(params, layers, b["x"]))
+            logits.append(serve_sc.head_logits(params, layers,
+                                               codes[-1][-1]))
+            served_launches.append(kbuild.LAUNCHES["ternary_matmul"]
+                                   - before)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(kbuild.LAUNCHES)
+
+    # checks (their plain-version launches come after the counts are read)
+    if served_launches != [len(layers)] * TNN_SERVE_BATCHES or any(
+            v for k, v in launches.items() if k != "ternary_matmul"):
+        raise AssertionError(f"TNN serving: ternary_matmul launches a batch "
+                             f"{served_launches}, all {launches}")
+    with torch.no_grad():
+        for j, batch_codes in enumerate(codes):
+            for i, layer in enumerate(layers):
+                xin, out = batch_codes[i], batch_codes[i + 1]
+                sum_max = layer["w_int"].shape[0] * ACT_BSL // 2
+                plain = ternary_matmul_ref(xin, layer["w_int"],
+                                           layer["thresholds_q"])
+                unfused = _si_epilogue(
+                    {"thresholds": layer["thresholds_q"][:1] + sum_max,
+                     "sum_max": sum_max},
+                    ternary_matmul_ref(xin, layer["w_int"]))
+                if not (torch.equal(out.to(torch.int32), plain)
+                        and torch.equal(plain, unfused)):
+                    raise AssertionError(f"TNN batch {j} layer {i}: kernel "
+                                         f"codes != plain")
+    correct = sum(int(torch.sum(torch.argmax(lg, -1) == b["y"]))
+                  for lg, b in zip(logits, batches))
+    acc_int = correct / (TNN_BATCH * TNN_SERVE_BATCHES)
+    drop = acc_qat - acc_int
+    if not (all(lg.shape == (TNN_BATCH, 10) and bool(torch.isfinite(lg).all())
+                for lg in logits) and drop < TNN_GATE):
+        raise AssertionError(f"TNN: integer accuracy {acc_int} against QAT "
+                             f"{acc_qat} (gate {TNN_GATE})")
+    x = batches[0]["x"]
+    with torch.no_grad():
+        serve_ms = time_ms(lambda: serve_sc.serve_batch(params, layers, x))
+    res = dict(seconds=seconds, launches=launches,
+               served_launches=served_launches, train_steps=TNN_STEPS,
+               train_batch=TNN_BATCH, train_s=train_s,
+               s_per_step=train_s / TNN_STEPS, first_loss=losses[0],
+               last_loss=losses[-1], acc_qat=acc_qat, acc_int=acc_int,
+               drop=drop, alpha_a=[l["alpha_a"] for l in layers],
+               serve_ms=serve_ms, step_gap=step_gap, lattice_gap=lattice_gap,
+               fault_gap=fault_gap, nvidia_smi=smi)
+    log(f"TNN W2-A8: QAT accuracy {acc_qat * 100:.2f}%, integer accuracy "
+        f"{acc_int * 100:.2f}% ({TNN_SERVE_BATCHES} x {TNN_BATCH} at steps "
+        f"30000+), drop {drop * 100:.2f} pp (gate {TNN_GATE * 100:.1f}), "
+        f"alpha_a {res['alpha_a']}; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {train_s / TNN_STEPS:.4f}"
+        f" s a training step ({TNN_STEPS} steps of {TNN_BATCH}); "
+        f"{serve_ms:.4f} ms a served batch of {TNN_BATCH} (CUDA events); "
+        f"ternary_matmul launches a batch {served_launches}, codes == "
+        f"plain == unfused SI; {seconds:.2f} s; {smi}")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     # phases 4, 6 and 7 were cut from 40 and 8 layers when phase 8 came,
@@ -4772,6 +4932,12 @@ def main() -> int:
         launches[k] += v
     mark(15)
 
+    # phase 16: the paper's TNN trained, exported and served on the card
+    tnn = trained_tnn(torch, dev, smi)
+    for k, v in tnn["launches"].items():
+        launches[k] += v
+    mark(16)
+
     def entry(name, source, replaces, cases, main):
         c = next(x for x in cases if x["label"] == main)
         return {"name": name, "route": "cuda", "source": source,
@@ -4817,7 +4983,7 @@ def main() -> int:
          "sampled_serving": sampled, "mesh_serving": mesh,
          "analysis": analysis, "roofline": analysis["roofline"],
          "frontends": frontends, "training_mesh": train_mesh,
-         "recurrent_training_mesh": recurrent_mesh,
+         "recurrent_training_mesh": recurrent_mesh, "trained_tnn": tnn,
          "float_products": products, "phase_s": phase_s, **summary},
         indent=1))
     print(json.dumps(summary), flush=True)

@@ -25,7 +25,8 @@ import torch
 __all__ = ["bitonic_sort", "exact_bsn_bits", "exact_bsn_counts",
            "SubSampleSpec", "StageSpec", "ApproxBSNSpec",
            "approx_bsn_counts", "approx_bsn_bits", "spatial_temporal_counts",
-           "approx_bsn", "default_approx_spec", "spec_stages"]
+           "approx_bsn", "default_approx_spec", "spec_stages",
+           "approx_bsn_output_bsl", "approx_bsn_scale"]
 
 
 # ---------------------------------------------------------------------------
@@ -147,6 +148,14 @@ class ApproxBSNSpec:
     def scale(self) -> int:
         """Units per output bit relative to the input (prod of strides)."""
         return math.prod(s.sub.stride for s in self.stages)
+
+
+def approx_bsn_output_bsl(spec: ApproxBSNSpec) -> int:
+    return spec.out_bsl
+
+
+def approx_bsn_scale(spec: ApproxBSNSpec) -> int:
+    return spec.scale
 
 
 def spec_stages(spec: ApproxBSNSpec) -> tuple[tuple[int, int, int], ...]:

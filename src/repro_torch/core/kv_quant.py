@@ -23,7 +23,7 @@ from .residual import residual_add_q
 
 __all__ = ["KV_FORMATS", "INT8_BSL", "SC_COARSE_BSL", "SC_RESID_BSL",
            "SC_SHIFT", "check_kv_format", "kv_format_of", "kv_quant",
-           "kv_dequant"]
+           "kv_dequant", "kv_error_bound"]
 
 KV_FORMATS = ("fp", "int8", "sc")
 
@@ -92,3 +92,14 @@ def kv_dequant(q: torch.Tensor, scale: torch.Tensor | None = None,
     fused = residual_add_q(resid, q, SC_SHIFT)          # q*2^s + resid
     alpha_r = scale * (2.0 ** -SC_SHIFT)
     return (fused.to(torch.float32) * alpha_r[..., None]).to(dtype)
+
+
+def kv_error_bound(scale: torch.Tensor, fmt: str) -> torch.Tensor:
+    """Elementwise absolute round-trip error bound of a stored value: 0
+    for fp, half a level for int8 and half a residual level for sc."""
+    check_kv_format(fmt)
+    if fmt == "fp":
+        return torch.zeros_like(scale)
+    if fmt == "int8":
+        return scale * 0.5
+    return scale * (2.0 ** -SC_SHIFT) * 0.5

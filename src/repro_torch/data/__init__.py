@@ -1,5 +1,5 @@
 """Data: stateless seeded synthetic streams (batch = f(seed, step))."""
 
-from .synthetic import SyntheticLM, host_batch
+from .synthetic import SyntheticClassification, SyntheticLM, host_batch
 
-__all__ = ["SyntheticLM", "host_batch"]
+__all__ = ["SyntheticLM", "SyntheticClassification", "host_batch"]

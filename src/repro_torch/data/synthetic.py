@@ -1,13 +1,16 @@
-"""Deterministic synthetic language: a sparse, seeded first-order Markov
-chain (port of ``repro.data.synthetic.SyntheticLM``).
+"""Deterministic synthetic datasets (port of ``repro.data.synthetic``).
+
+``SyntheticLM`` is a sparse, seeded first-order Markov chain;
+``SyntheticClassification`` labels Gaussian inputs with a fixed random
+teacher MLP, the stand-in for MNIST in the paper-mechanism experiments.
 
 Every batch is a pure function of (seed, step), so a restarted job
-replays nothing.  The transition table is the reference's exactly
-(``np.random.default_rng(seed)``), and so are the start states and the
-choices of successor: they come from the same threefry keys
-(``fold_in(key(seed), step)``, split in two) through the port's copy of
-``jax.random`` (``repro_torch.prng``), so a batch equals the reference's
-bit for bit.
+replays nothing.  The tables (the Markov transitions, the teacher) are
+the reference's exactly (``np.random.default_rng(seed)``), and the draws
+come from the same threefry keys through the port's copy of
+``jax.random`` (``repro_torch.prng``): a ``SyntheticLM`` batch equals the
+reference's bit for bit, and a ``SyntheticClassification`` input is
+within an ulp or so of it (``prng.normal``).
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ import numpy as np
 import torch
 
 from .. import prng
+from ..device import resolve_device
 
-__all__ = ["SyntheticLM", "host_batch"]
+__all__ = ["SyntheticLM", "SyntheticClassification", "host_batch"]
 
 
 @dataclass(frozen=True)
@@ -56,6 +60,48 @@ class SyntheticLM:
         """CE of the perfect model: log(branching) (uniform choice)."""
         return float(np.log(self.branching))
 
+
+@dataclass(frozen=True)
+class SyntheticClassification:
+    """Labels from a fixed random teacher MLP over Gaussian inputs.
+
+    A prototype-matching task is linearly separable, and any quantization
+    still scores ~100% on it; a nonlinear teacher makes representation
+    capacity matter, so the paper's activation-quantization cliff (Table
+    III) shows.  ``margin`` is kept as the reference keeps it: the filter
+    takes the more confident half of an oversampled batch, whatever it is.
+    """
+    n_classes: int = 10
+    dim: int = 784
+    seed: int = 0
+    teacher_hidden: int = 48
+    margin: float = 0.25
+
+    def _teacher(self) -> tuple[np.ndarray, np.ndarray]:
+        rng = np.random.default_rng(self.seed)
+        w1 = rng.normal(0, 1 / np.sqrt(self.dim),
+                        (self.dim, self.teacher_hidden)).astype(np.float32)
+        w2 = rng.normal(0, 1 / np.sqrt(self.teacher_hidden),
+                        (self.teacher_hidden, self.n_classes)
+                        ).astype(np.float32)
+        return w1, w2
+
+    def batch(self, step: int, batch_size: int,
+              device: str | torch.device | None = None) -> dict:
+        """``x`` (B, dim) float32 and ``y`` (B,) int32, drawn on the card
+        unless ``device`` says otherwise: 2B normal rows, of which the B
+        with the widest top-2 margin of the teacher's logits are kept, in
+        descending order of margin (a stable sort, as ``jnp.argsort``)."""
+        dev = resolve_device(device)
+        w1, w2 = (torch.from_numpy(a).to(dev) for a in self._teacher())
+        k = prng.fold_in(prng.key(self.seed + 1).to(dev), step)
+        x = prng.normal(k, (2 * batch_size, self.dim))
+        logits = torch.tanh(x @ w1) @ w2
+        top2 = torch.topk(logits, 2, dim=-1).values
+        conf = top2[:, 0] - top2[:, 1]
+        order = torch.sort(-conf, stable=True).indices[:batch_size]
+        y = torch.argmax(logits[order], dim=-1)     # first index on ties
+        return {"x": x[order], "y": y.to(torch.int32)}
 
 
 def host_batch(ds: SyntheticLM, step: int, global_batch: int,

@@ -3,7 +3,7 @@
 against ``jax.random``, ``core/fault.py`` and ``core/fsm_baseline.py``
 under one key, ``core/hwmodel.py``'s cost model, ``configs/paper_tnn``,
 and ``repro_torch.examples`` (quickstart, design_space, train_qat,
-serve_sc's engine part) on the CPU.  Tolerances:
+serve_sc's TNN and engine parts) on the CPU.  Tolerances:
 
 * the draws, the fault masks and decoded values, the stochastic streams
   and the FSM outputs: bit for bit;
@@ -261,6 +261,25 @@ def test_train_qat_runs_and_resumes_on_the_cpu(tmp_path, capsys):
     train_qat.run(steps=3, batch=2, seq=16, device="cpu",
                   ckpt_dir=str(tmp_path))
     assert "resumed from checkpoint step 2" in capsys.readouterr().out
+
+
+def test_serve_sc_tnn_part_on_the_cpu(capsys):
+    """Part 1 at a tiny size: QAT-train the TNN, export it, serve a batch
+    through ``ops.ternary_matmul`` with the fused SI; the gate raises
+    where the integer path falls 3.5 points or more below QAT."""
+    kw = dict(steps=3, batch=16, eval_batches=1, eval_batch=32,
+              device="cpu")
+    res = serve_sc.serve_tnn(gate=False, **kw)
+    assert 0.0 <= res["acc_int"] <= 1.0 and 0.0 <= res["acc_qat"] <= 1.0
+    assert res["drop"] == res["acc_qat"] - res["acc_int"]
+    assert len(res["latency_ms"]) == 1
+    assert "exported 2 SC layers, 131k ternary weights" in \
+        capsys.readouterr().out
+    # three steps leave the TNN under-trained: its integer path falls
+    # more than the gate's 3.5 points below QAT, and the gate raises
+    assert res["drop"] >= 0.035
+    with pytest.raises(AssertionError, match="diverged from QAT"):
+        serve_sc.serve_tnn(**kw)
 
 
 def test_serve_sc_engine_part_on_the_cpu():

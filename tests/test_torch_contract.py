@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from repro_torch import resolve_device
+from repro_torch import prng
 from repro_torch.configs import get_arch
+from repro_torch.data import SyntheticClassification
+from repro_torch.examples._qat_mlp import QatSpec, init_mlp, train_mlp
 from repro_torch.models import init_paged_cache, init_params
 from repro_torch.serving import (EngineConfig, PageAllocator, PageTable,
                                  ServeEngine, pad_pow2, pages_needed,
@@ -52,7 +55,8 @@ def test_importing_the_port_leaves_jax_unloaded():
             "repro_torch.core.si, repro_torch.core.multiplier, "
             "repro_torch.optim, repro_torch.train, repro_torch.data, "
             "repro_torch.checkpoint, repro_torch.launch.train, "
-            "repro_torch.kernels.flash_attention; "
+            "repro_torch.kernels.flash_attention, "
+            "repro_torch.examples.serve_sc; "
             "assert 'jax' not in sys.modules, 'jax'; "
             "assert 'repro' not in sys.modules, 'repro'")
     env = {"PYTHONPATH": str(PKG.parent), "PATH": "/usr/bin:/bin"}
@@ -83,6 +87,12 @@ def test_entry_points_refuse_the_host_unless_asked(monkeypatch):
     assert eng.device.type == "cpu"
     with pytest.raises(RuntimeError, match="CUDA"):
         train_main(["--arch", "granite-3-2b", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SyntheticClassification().batch(0, 2)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_mlp(prng.key(0), QatSpec())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_mlp(QatSpec(), steps=1, batch=2)
 
 
 def test_engine_rejects_params_on_another_device():

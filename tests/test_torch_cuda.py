@@ -1623,3 +1623,75 @@ def test_served_steps_sync_only_at_the_token_read_backs(cuda):
         assert sorted(provenance(f) for _, f in sites) == [
             "serving/engine.py:_decode",
             "serving/engine.py:_prefill_group"], (dp, sites)
+
+
+# ---------------------------------------------------------------------------
+# the paper's TNN: SyntheticClassification, the QAT MLP, serve_sc part 1
+# ---------------------------------------------------------------------------
+
+# one AdamW step of the W2-A8 MLP, card against CPU, from one init whose
+# LSQ scales are powers of two: 4.0e-6 read on an H100.  At the init's own
+# scales the sums of the quantized blocks are inexact in float32 and run
+# in another order on the card, which decides levels at the lattice's
+# rounding boundaries (the step-0 loss parts by 5.0e-3, ROADMAP Queue 3
+# item 16)
+TNN_STEP_TOL = 1e-5
+
+
+def test_synthetic_classification_on_the_card_equals_the_cpu(cuda):
+    """Batches drawn on the card: ``x`` within 1e-6 of the CPU's (the
+    erfinv polynomial's ops may round differently) and the same labels in
+    the same order (at these steps no two kept margins lie within 1e-5)."""
+    from repro_torch.data import SyntheticClassification
+    ds = SyntheticClassification()
+    for step, rows in ((0, 32), (0, 256), (30_000, 16)):
+        got = ds.batch(step, rows, cuda)
+        want = ds.batch(step, rows, "cpu")
+        assert got["x"].is_cuda and got["y"].dtype == torch.int32
+        torch.testing.assert_close(got["x"].cpu(), want["x"], rtol=0,
+                                   atol=1e-6)
+        assert torch.equal(got["y"].cpu(), want["y"])
+
+
+def test_served_tnn_codes_on_the_card_equal_the_cpu(cuda):
+    """``serve_codes`` at 256 rows: two ``ternary_matmul`` launches (the
+    fused SI), and every layer's codes equal the CPU's bit for bit."""
+    from repro_torch import prng
+    from repro_torch.examples import _qat_mlp as qat
+    from repro_torch.examples import serve_sc
+    from repro_torch.tree import tree_map
+    params = qat.init_mlp(prng.key(0), serve_sc.SPEC, "cpu")
+    x = qat.DATASET.batch(30_000, 256, "cpu")["x"]
+    want = serve_sc.serve_codes(params, serve_sc.export_int_model(params), x)
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    layers = serve_sc.export_int_model(on_card)
+    build.reset_launches()
+    got = serve_sc.serve_codes(on_card, layers, x.to(cuda))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ternary_matmul"] == 2
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_tnn_train_step_on_the_card_equals_the_cpu(cuda):
+    """One ``fit_mlp`` step at batch 16 from one init with power-of-two
+    scales: loss and every parameter within ``TNN_STEP_TOL``."""
+    from repro_torch import prng
+    from repro_torch.examples import _qat_mlp as qat
+    from repro_torch.examples import serve_sc
+    from repro_torch.tree import tree_leaves, tree_map
+    init = qat.init_mlp(prng.key(0), serve_sc.SPEC, "cpu")
+    for blk in init["blocks"]:
+        blk.update(alpha_w=torch.tensor(2.0 ** -4),
+                   alpha_a=torch.tensor(2.0 ** -1),
+                   alpha_r=torch.tensor(2.0 ** -3))
+    runs = []
+    for dev in ("cpu", cuda):
+        params = tree_map(lambda t: t.to(dev, copy=True), init)
+        losses = qat.fit_mlp(params, serve_sc.SPEC, 1, 16)
+        runs.append((losses, [t.cpu() for t in tree_leaves(params)]))
+    (l_cpu, p_cpu), (l_card, p_card) = runs
+    assert abs(l_card[0] - l_cpu[0]) <= TNN_STEP_TOL
+    for a, b in zip(p_card, p_cpu):
+        assert float((a - b).abs().max()) <= TNN_STEP_TOL
