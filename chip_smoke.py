@@ -7,8 +7,10 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
 1. the card: torch's device name and ``nvidia-smi``'s name / power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and read
    their machine code (``cuobjdump -sass``): the bf16 flash and paged-
-   prefill kernels must use the tensor cores (HMMA) and, at D 64, they
-   and the split paged-decode kernel use no local memory; the ternary
+   prefill kernels must use the tensor cores (HMMA; the flash kernel at
+   D 64, 80 and 128 wgmma's HGMMA) and, at D 64, they and the split
+   paged-decode kernel use no local memory (the flash kernel at D 80
+   neither); the ternary
    matmul's tensor-core kernel must use the integer tensor cores (IGMMA)
    and no local memory;
 3. hold each kernel against its plain PyTorch version at the shapes its
@@ -51,7 +53,7 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    losses and gradient norms are finite, step 1 (learning rate 0) changes
    no parameter and step 2 changes every watched one whose AdamW update
    does not round away in bf16; one more step is profiled, and
-   all its layers x 2 flash forwards must be the tensor-core kernel; and
+   all its layers x 2 flash forwards must be the wgmma kernel; and
    a tiny float32 config's train step on the card equals the same step on
    the CPU within a stated tolerance;
 7. serve full-width qwen3-moe-235b-a22b (128 experts top-8, qk_norm,
@@ -98,7 +100,9 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    ``paged_decode_step`` with quantization off (logits within 5e-2 of the
    largest), and the dense ``sequential_generate`` on qat / sc_int /
    sc_int_approx x fp, each kernel launched the predicted number of
-   times (the flash kernel once a layer a prefill, the ternary matmul or
+   times (the flash kernel once a layer a prefill, and the profiled
+   quantization-off prefill's flash forwards the wgmma kernel; the
+   ternary matmul or
    the BSN adder by the projections' rows), its tokens printed beside
    the engine's with the first parting and its logit gap (not gated: on
    the fake-quant lattice a one-ulp difference between the flash and the
@@ -234,10 +238,11 @@ Phase 3 also holds the flash kernel against its plain version at phase
 4096, 64 / 8 heads, D 128) and at its (1, 2) rank's (B 2, S 4096, 32 / 4
 heads), at hubert's (B 2, S 1500, 16 heads of D 80, bidirectional) and
 llava's prefill (B 2, S 2896, 56 / 8 heads, D 128, causal), at a ragged
-bidirectional GQA shape (all bf16: the tensor-core kernel), in float32
-(the CUDA-core kernel), and its gradient against autograd through the
-plain version at D 64 and D 128; and it measures what rounding P to one
-bf16 term, or to the kernel's two, does to O. Phases 4, 7 and 8 hold the
+bidirectional GQA shape (all bf16: the wgmma kernel), in float32 (the
+CUDA-core kernel), logging the kernel each case ran, and its gradient
+against autograd through the plain version at D 64 and D 128; and it
+measures what rounding P to one bf16 term, to one fp16 term, or to the
+kernel's two bf16 terms, does to O. Phases 4, 7 and 8 hold the
 batched engine against the paged oracle
 (``serving.engine._paged_sequential_generate``) on every pair;
 ``sequential_generate`` itself runs the dense cache for fp, as the
@@ -333,19 +338,24 @@ def kernel_bound(cost):
         prec, FP32_OPS))
 
 
-SASS_KERNELS = ("flash_fwd_mma_kernel", "flash_fwd_kernel",
-                "bsn_sort_reg_kernel", "paged_decode_split_kernel",
-                "paged_prefill_mma_kernel", "ternary_matmul_mma_kernel")
+# the bf16 flash forward at the models' head widths (D 64, 80, 128)
+MMA_KERNEL = "flash_fwd_wgmma_kernel"
+SASS_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
+                "flash_fwd_kernel", "bsn_sort_reg_kernel",
+                "paged_decode_split_kernel", "paged_prefill_mma_kernel",
+                "ternary_matmul_mma_kernel")
 
 
 def read_sass(so_path):
     """The tensor-core and register-level kernels' machine code in the
     built library (``cuobjdump -sass``): per kernel instance its tensor-
-    core (HMMA / HGMMA) and local-memory (LDL / STL) instructions.  Each
-    bf16 flash and paged-prefill instance must use the tensor cores; at
-    D 64 the flash, paged-prefill and paged-decode kernels spill nothing;
-    every int8 ternary-matmul tensor-core instance uses the integer tensor
-    cores (IGMMA, wgmma's; or IMMA, mma.sync's) and no local memory."""
+    core (HMMA / HGMMA; HGMMA alone) and local-memory (LDL / STL)
+    instructions.  Each bf16 flash and paged-prefill instance must use the
+    tensor cores, and each wgmma flash instance (D 64, 80, 128) wgmma's
+    HGMMA; at D 64 the flash, paged-prefill and paged-decode kernels, and
+    at D 80 the flash kernel, spill nothing; every int8 ternary-matmul
+    tensor-core instance uses the integer tensor cores (IGMMA, wgmma's;
+    or IMMA, mma.sync's) and no local memory."""
     import re
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -363,20 +373,22 @@ def read_sass(so_path):
         tmpl = re.search(r"kernelI(.*?)E+v", name)
         tmpl = tmpl.group(1) if tmpl else ""
         d64 = re.match(r"Li64(E|$)", tmpl) is not None
-        if kernel in ("flash_fwd_mma_kernel", "bsn_sort_reg_kernel",
-                      "ternary_matmul_mma_kernel") or (
+        if kernel in ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
+                      "bsn_sort_reg_kernel", "ternary_matmul_mma_kernel") or (
                 kernel.startswith("paged_") and d64):
             kept.append("Function : " + block)
         found.append(dict(kernel=kernel, template=tmpl, d64=d64,
                           hmma=len(re.findall(r"\bH(?:G)?MMA\b", block)),
+                          hgmma=len(re.findall(r"\bHGMMA\b", block)),
                           imma=len(re.findall(r"\bI(?:G)?MMA\b", block)),
                           ldl=len(re.findall(r"\bLDL\b", block)),
                           stl=len(re.findall(r"\bSTL\b", block))))
     (OUT_DIR / "sass.txt").write_text("".join(kept))
     for f in found:
         f["d128"] = re.match(r"Li128(E|$)", f["template"]) is not None
-        log(f"sass {f['kernel']}<{f['template']}>: {f['hmma']} HMMA, "
-            f"{f['imma']} IMMA / IGMMA, {f['ldl']} LDL, {f['stl']} STL")
+        log(f"sass {f['kernel']}<{f['template']}>: {f['hmma']} HMMA "
+            f"({f['hgmma']} HGMMA), {f['imma']} IMMA / IGMMA, {f['ldl']} "
+            f"LDL, {f['stl']} STL")
     # jamba's head dim: a spill there is recorded, not refused; the bf16
     # flash instances at D 128 must use the tensor cores
     d128 = [f for f in found if (f["kernel"].startswith("paged_")
@@ -385,14 +397,16 @@ def read_sass(so_path):
     log("paged and flash kernels at D 128 (local memory): " + "; ".join(
         f"{f['kernel']}<{f['template']}> {f['hmma']} HMMA {f['ldl']} LDL "
         f"{f['stl']} STL" for f in d128))
-    flash128 = [f for f in d128 if f["kernel"] == "flash_fwd_mma_kernel"]
-    if not flash128 or not all(f["hmma"] > 0 for f in flash128):
-        raise AssertionError(f"flash_fwd_mma_kernel at D 128: tensor-core "
-                             f"instructions missing: {flash128}")
-    for kernel, count in (("flash_fwd_mma_kernel", 5),
-                          ("paged_prefill_mma_kernel", 12)):
+    flash128 = [f for f in d128 if f["kernel"] == MMA_KERNEL]
+    if not flash128 or not all(f["hgmma"] > 0 for f in flash128):
+        raise AssertionError(f"{MMA_KERNEL} at D 128: wgmma instructions "
+                             f"missing: {flash128}")
+    # the routes: wgmma at D 64, 80, 128; mma.sync at D 16, 32
+    for kernel, count, op in ((MMA_KERNEL, 3, "hgmma"),
+                              ("flash_fwd_mma_kernel", 2, "hmma"),
+                              ("paged_prefill_mma_kernel", 12, "hmma")):
         inst = [f for f in found if f["kernel"] == kernel]
-        if len(inst) != count or not all(f["hmma"] > 0 for f in inst):
+        if len(inst) != count or not all(f[op] > 0 for f in inst):
             raise AssertionError(f"{kernel}: tensor-core instructions "
                                  f"missing: {inst}")
     inst = [f for f in found if f["kernel"] == "ternary_matmul_mma_kernel"]
@@ -400,18 +414,18 @@ def read_sass(so_path):
                                  for f in inst):
         raise AssertionError(f"ternary_matmul_mma_kernel: IMMA missing or "
                              f"local memory used: {inst}")
-    for kernel in ("flash_fwd_mma_kernel", "paged_prefill_mma_kernel",
+    for kernel in (MMA_KERNEL, "paged_prefill_mma_kernel",
                    "paged_decode_split_kernel"):
         d64 = [f for f in found if f["kernel"] == kernel and f["d64"]]
         if not d64 or any(f["ldl"] + f["stl"] for f in d64):
             raise AssertionError(f"{kernel} at D 64 uses local memory: "
                                  f"{d64}")
     # hubert's head: the bf16 instance at D 80 spills nothing either
-    d80 = [f for f in found if f["kernel"] == "flash_fwd_mma_kernel"
+    d80 = [f for f in found if f["kernel"] == MMA_KERNEL
            and re.match(r"Li80(E|$)", f["template"])]
     if len(d80) != 1 or d80[0]["ldl"] + d80[0]["stl"]:
-        raise AssertionError(f"flash_fwd_mma_kernel at D 80: missing or "
-                             f"uses local memory: {d80}")
+        raise AssertionError(f"{MMA_KERNEL} at D 80: missing or uses local "
+                             f"memory: {d80}")
     return found
 
 
@@ -1043,7 +1057,8 @@ def flash_bound(B, S, Hq, Hkv, D, causal, itemsize=2):
 def p_rounding_error(torch, q, k, v, rows=512):
     """What rounding P does to O, on the first ``rows`` causal query rows
     (those that see few keys, where one weight moves O most): P as one
-    bf16 term, and as the kernel's bf16 hi + lo terms, each against
+    bf16 term, as one fp16 term (the cheaper operand a kernel could take,
+    were V in fp16) and as the kernel's bf16 hi + lo terms, each against
     float32 P; outputs cast to bf16 as the kernel's are.  Returns
     {name: (max |dO|, outputs off by more than ATTN_ATOL)}."""
     B, _, Hq, D = q.shape
@@ -1063,7 +1078,9 @@ def p_rounding_error(torch, q, k, v, rows=512):
     hi = p.to(torch.bfloat16).float()
     lo = (p - hi).to(torch.bfloat16).float()
     res = {}
-    for name, pp in (("one_bf16_term", hi), ("bf16_hi_lo", hi + lo)):
+    for name, pp in (("one_bf16_term", hi),
+                     ("one_fp16_term", p.to(torch.float16).float()),
+                     ("bf16_hi_lo", hi + lo)):
         err = (out(pp) - exact).abs()
         res[name] = (err.max().item(), int((err > ATTN_ATOL).sum().item()))
     return res
@@ -1071,8 +1088,9 @@ def p_rounding_error(torch, q, k, v, rows=512):
 
 def check_flash(torch, dev, gen):
     import torch.nn.functional as F
-    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import build, dispatch
     from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels.plan import FLASH_KERNELS
     from repro_torch.kernels.ref import flash_attention_ref
     cases = []
     # phase 14's and phase 15's shapes draw their inputs from streams of
@@ -1081,7 +1099,8 @@ def check_flash(torch, dev, gen):
     own_gen = {id(FLASH_LOCAL_SHAPE): torch.Generator(dev).manual_seed(
         SEED + 14), id(JAMBA_LOCAL_FLASH_SHAPE): torch.Generator(
             dev).manual_seed(SEED + 15)}
-    # bf16 runs the tensor-core kernel, float32 the CUDA-core one
+    # bf16 runs a tensor-core kernel (wgmma at these D), float32 the
+    # CUDA-core one: the launch's own geometry names it
     for label, shp, causal, dtype in (
             ("train B2 S4096 causal", FLASH_SHAPE, True, torch.bfloat16),
             ("train (1, 2) local heads B2 S4096 Hq16 Hkv4 causal",
@@ -1100,6 +1119,9 @@ def check_flash(torch, dev, gen):
              JAMBA_LOCAL_FLASH_SHAPE, True, torch.bfloat16)):
         q, k, v = _flash_inputs(torch, own_gen.get(id(shp), gen), dev,
                                 **shp, dtype=dtype)
+        kernel = FLASH_KERNELS[build.geometry(
+            "flash_attention_geometry", shp["B"], shp["S"], shp["Hq"],
+            shp["Hkv"], shp["D"], int(dtype == torch.bfloat16))["kernel"]][0]
         out, lse = flash_attention_cuda(q, k, v, causal=causal)
         want, want_lse = flash_attention_ref(q, k, v, causal,
                                              return_lse=True)
@@ -1123,11 +1145,11 @@ def check_flash(torch, dev, gen):
         b_ms, b_by = flash_bound(**shp, causal=causal,
                                  itemsize=q.element_size())
         cases.append(dict(label=label, **shp, causal=causal,
-                          dtype=str(dtype), max_abs_err=err,
+                          dtype=str(dtype), kernel=kernel, max_abs_err=err,
                           lse_max_abs_err=lse_err, ms=ms, plain_ms=plain_ms,
                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        log(f"flash_attention {label}: max_abs_err={err:.3g} lse_err="
-            f"{lse_err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        log(f"flash_attention {label} ({kernel}): max_abs_err={err:.3g} "
+            f"lse_err={lse_err:.3g} ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms(SDPA)={lib_ms:.4f} bound_ms={b_ms:.4f} ({b_by})")
         if shp is FLASH_SHAPE:
             cases[-1]["p_rounding"] = pr = p_rounding_error(torch, q, k, v)
@@ -1775,15 +1797,30 @@ def _update_over_half_ulp(torch, params, m_w, v_w, count, lr):
     return ratios
 
 
-MMA_KERNEL = "flash_fwd_mma_kernel"     # the bf16 tensor-core forward
+def flash_profile(torch, events):
+    """The flash forwards among a profile's events: their device ms and
+    {kernel name: launches}."""
+    cuda = torch.autograd.DeviceType.CUDA
+    flash = [e for e in events if e.device_type == cuda
+             and "flash_fwd" in e.key]
+    return (sum(_dev_us(e) for e in flash) / 1e3,
+            {e.key: e.count for e in flash})
+
+
+def check_flash_profile(calls, n_flash, what):
+    """``n_flash`` flash forwards, every one of them the wgmma kernel."""
+    if (sum(calls.values()) != n_flash
+            or not all(MMA_KERNEL in k for k in calls)):
+        raise AssertionError(f"{what}: flash kernels {calls}, expected "
+                             f"{n_flash} launches of {MMA_KERNEL}")
 
 
 def profile_train_step(torch, step_fn, state, batch, n_flash,
                        label="train"):
     """One train step under torch.profiler: device busy time, the device's
     idle share of the step's wall time, and the flash forward's time over
-    its ``n_flash`` launches, all of them the tensor-core kernel; the
-    step's metrics too."""
+    its ``n_flash`` launches, all of them the wgmma kernel; the step's
+    metrics too."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1795,21 +1832,14 @@ def profile_train_step(torch, step_fn, state, batch, n_flash,
     events = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     busy_ms = sum(_dev_us(e) for e in events if e.device_type == cuda) / 1e3
-    # every flash forward of a bf16 step is the tensor-core kernel
-    flash = [e for e in events if e.device_type == cuda
-             and "flash_fwd" in e.key]
-    flash_ms = sum(_dev_us(e) for e in flash) / 1e3
-    flash_calls = {e.key: e.count for e in flash}
+    # every flash forward of a bf16 step is the wgmma kernel
+    flash_ms, flash_calls = flash_profile(torch, events)
     rows = sorted(((_dev_us(e), e.key, e.count) for e in events
                    if e.device_type != cuda and _dev_us(e) > 0),
                   reverse=True)
     (OUT_DIR / f"profile_{label}.txt").write_text(events.table(
         sort_by="self_cuda_time_total", row_limit=40))
-    if (sum(flash_calls.values()) != n_flash
-            or not all(MMA_KERNEL in k for k in flash_calls)):
-        raise AssertionError(f"profiled train step: flash kernels "
-                             f"{flash_calls}, expected {n_flash} launches "
-                             f"of {MMA_KERNEL}")
+    check_flash_profile(flash_calls, n_flash, f"profiled {label} step")
     top = [dict(name=k, ms=us / 1e3, calls=n) for us, k, n in rows[:10]]
     res = dict(wall_ms=wall_ms, device_busy_ms=busy_ms,
                idle_share=1 - busy_ms / wall_ms, flash_kernel_ms=flash_ms,
@@ -2251,7 +2281,13 @@ def dense_serving(torch, dev, layers):
     kbuild.reset_launches()
     with torch.inference_mode():
         toks = torch.tensor([seq], dtype=torch.int32, device=dev)
-        lg, cache = prefill(params, {"tokens": toks[:, :plen]}, off)
+        # under the profiler: each layer's flash forward is the wgmma kernel
+        out = {}
+        prof = _profiled(torch, lambda: out.update(r=prefill(
+            params, {"tokens": toks[:, :plen]}, off)), "dense_prefill")
+        check_flash_profile(prof["flash_kernel_calls"], layers,
+                            "the profiled dense prefill")
+        lg, cache = out["r"]
         cache = _pad_prefill_cache(cache, len(seq))
         dense = [lg[0, -1]]
         for t in range(plen, len(seq)):
@@ -2277,12 +2313,15 @@ def dense_serving(torch, dev, layers):
     err = ((dense - paged).abs().max() / paged.abs().max()).item()
     res["dense_vs_paged"] = dict(prompt_len=plen, decode_steps=len(paged) - 1,
                                  max_rel_err=err, flash_launches=n_flash,
+                                 flash_kernel_calls=prof[
+                                     "flash_kernel_calls"],
                                  argmax_equal=bool(torch.equal(
                                      dense.argmax(-1), paged.argmax(-1))))
     log(f"dense vs paged granite-3-2b layers={layers} quant off: prefill of "
         f"{plen} + {len(paged) - 1} decode steps, logits max |diff| / max "
         f"|logit| {err:.3g} (tol {DENSE_LOGIT_RTOL}); greedy ids equal: "
-        f"{res['dense_vs_paged']['argmax_equal']}; flash launches {n_flash}")
+        f"{res['dense_vs_paged']['argmax_equal']}; flash launches {n_flash} "
+        f"(profiled: {prof['flash_kernel_ms']:.2f} ms of {MMA_KERNEL})")
     if not (err <= DENSE_LOGIT_RTOL and n_flash == layers
             and torch.isfinite(dense).all()):
         raise AssertionError(f"dense vs paged: {res['dense_vs_paged']}")
@@ -3362,7 +3401,8 @@ def _frames(torch, dev, utterances, frames, step=0):
 
 def _profiled(torch, fn, label):
     """``fn()`` once under torch.profiler: its wall ms (synchronised),
-    device busy ms and the device's idle share."""
+    device busy ms, the device's idle share and the flash forwards' ms
+    and {kernel: launches}."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -3376,8 +3416,10 @@ def _profiled(torch, fn, label):
     busy_ms = sum(_dev_us(e) for e in events if e.device_type == cuda) / 1e3
     (OUT_DIR / f"profile_{label}.txt").write_text(events.table(
         sort_by="self_cuda_time_total", row_limit=30))
+    flash_ms, flash_calls = flash_profile(torch, events)
     return dict(profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-                idle_share=1 - busy_ms / wall_ms)
+                idle_share=1 - busy_ms / wall_ms, flash_kernel_ms=flash_ms,
+                flash_kernel_calls=flash_calls)
 
 
 def hubert_encoder(torch, dev, layers):
@@ -3431,13 +3473,16 @@ def hubert_encoder(torch, dev, layers):
     if launches["flash_attention"] != layers:
         raise AssertionError(f"hubert: {launches['flash_attention']} flash "
                              f"launches, {layers} expected")
+    check_flash_profile(prof["flash_kernel_calls"], layers,
+                        "hubert's profiled forward")
     res = dict(layers=layers, ms=ms, peak_gib=peak, launches=launches,
                frame0_moved_by=dist, frame0_moved_by_sc_qat=qat_dist, **prof)
     log(f"hubert-xlarge {layers}/48 layers, {HUBERT_UTTERANCES} x "
         f"{HUBERT_FRAMES} frames, bf16 sc_qat: forward ms={ms:.1f} "
         f"busy_ms={prof['device_busy_ms']:.1f} idle_share="
         f"{prof['idle_share']:.3f} peak_gib={peak:.2f} flash launches "
-        f"{launches['flash_attention']}; logits {shape} finite; frame 0 "
+        f"{launches['flash_attention']} ({prof['flash_kernel_ms']:.2f} ms "
+        f"of {MMA_KERNEL}); logits {shape} finite; frame 0 "
         f"moves by {dist:.3g} when the last frame changes (quantization "
         f"off; {qat_dist:.3g} under sc_qat)")
     return res

@@ -302,10 +302,7 @@ __device__ __forceinline__ uint32_t swz128(int row, int chunk) {
 // wgmma shared-memory descriptor of a K-major operand in that layout:
 // 8-row groups 1024 bytes apart
 __device__ __forceinline__ uint64_t desc_b128(uint32_t saddr) {
-  return static_cast<uint64_t>((saddr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
+  return wgmma_desc(saddr, 16, 1024, 1);
 }
 
 // d (64 x 128 int32, the warpgroup's fragments) += a (64 x 32) * b (32 x
@@ -338,20 +335,6 @@ __device__ __forceinline__ void wgmma_s8(int (&d)[64], uint64_t da,
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
         "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
       : "l"(da), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-__device__ __forceinline__ void fence_async_smem() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Shared memory (from a 1024-byte aligned base): TC_STAGES x (x slice

@@ -8,12 +8,21 @@ its plain version is ``kernels/ref.flash_attention_ref``.  Layouts are the
 reference's: q (B, S, Hq, D), k / v (B, S, Hkv, D), q head ``h`` reading
 KV head ``h // (Hq // Hkv)``.
 
-The dtype picks one of two kernels, one per dtype: bfloat16 (the training
-path) runs ``flash_fwd_mma_kernel``, both products on the tensor cores
-(``mma.sync``, float32 sums, P passed as two bf16 terms); float32 runs
-``flash_fwd_kernel``, float32 FMAs on the CUDA cores, which the float32
-card-equals-CPU checks hold to 1e-5.  A call the chosen kernel cannot take
-raises; neither kernel stands in for the other.
+The dtype and head width pick the kernel (``flash_geometry`` in the
+source, reported by ``flash_attention_geometry``), never a failed launch:
+
+- bfloat16 at D 64, 80 and 128 (granite, hubert, jamba and llava: the
+  training path and the dense prefills) runs ``flash_fwd_wgmma_kernel``,
+  warp-specialised for Hopper: a producer warp's TMA loads, two consumer
+  warpgroups' ``wgmma`` products with float32 sums, P passed as two bf16
+  terms;
+- bfloat16 at D 16 and 32 runs ``flash_fwd_mma_kernel`` (``mma.sync``,
+  the same numerics);
+- float32 runs ``flash_fwd_kernel``, float32 FMAs on the CUDA cores,
+  which the float32 card-equals-CPU checks hold to 1e-5.
+
+A call the chosen kernel cannot take raises; no kernel stands in for
+another.
 
 The TPU kernel is forward only: the reference trains through XLA's
 autodiff of its jnp scan.  Here :class:`FlashAttention` is an

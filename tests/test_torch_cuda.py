@@ -10,10 +10,12 @@ different order); the paged kernels with bf16 q (split decode, tensor-
 core prefill) within ``atol=1e-2`` on O, and bit for bit where a lane's
 or a row's output must not depend on the batch, block_q or chunk; the
 BSN adders, the ternary matmul (with and without its SI epilogue) and
-the sort bit for bit.  The flash kernel in bfloat16
-(the tensor-core kernel) within ``atol=1e-2`` on O (one bf16 ulp at
-|o| <= 2 is 7.8e-3) and ``atol=rtol=1e-5`` on its float32 LSE; in
-float32 (the CUDA-core kernel) within ``atol=rtol=1e-5`` on both.
+the sort bit for bit.  The flash kernels in bfloat16
+(wgmma at D 64, 80 and 128, mma.sync at D 16 and 32) within ``atol=1e-2``
+on O (one bf16 ulp at |o| <= 2 is 7.8e-3) and ``atol=rtol=1e-5`` on
+their float32 LSE, and bit for bit where a row must not depend on the
+batch; in float32 (the CUDA-core kernel) within ``atol=rtol=1e-5`` on
+both.
 """
 
 import re
@@ -818,7 +820,7 @@ def test_flash_bf16_kernel_at_the_train_shape(cuda):
 @pytest.mark.parametrize("causal", [True, False])
 def test_flash_bf16_kernel_ragged_gqa4(cuda, S, causal):
     """GQA 4 where the causal diagonal tile and the ragged tail of S meet
-    (128-row q tiles, 64-key tiles)."""
+    (128-row q tiles of two 64-row warpgroups, 128-key tiles)."""
     q, k, v = _flash_case(cuda, 2, S, 8, 2, 64, torch.bfloat16, seed=S)
     out, lse = flash_attention_cuda(q, k, v, causal=causal)
     want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
@@ -872,9 +874,9 @@ def test_flash_bf16_kernel_takes_a_negative_scale(cuda):
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_at_head_dim_80(cuda, B, S, Hq, Hkv, causal, dtype):
-    """D 80 (hubert-xlarge's 1280 / 16): 5 k steps of 16 in q k^T, 10 n
-    tiles of 8 in P V, rows of 11 16-byte units in shared memory; the
-    tensor-core kernel's 256 threads copy 25 rows a pass, 6 idle."""
+    """D 80 (hubert-xlarge's 1280 / 16): 5 k steps of 16 in q k^T, the
+    last from the 16-column box in 32B swizzle; P V in an n64 product and
+    an n16 one, V read MN-major from both boxes."""
     q, k, v = _flash_case(cuda, B, S, Hq, Hkv, 80, dtype, seed=S)
     out, lse = flash_attention_cuda(q, k, v, causal=causal)
     want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
@@ -884,8 +886,8 @@ def test_flash_kernel_at_head_dim_80(cuda, B, S, Hq, Hkv, causal, dtype):
 
 
 def test_flash_bf16_kernel_negative_scale_at_head_dim_80(cuda):
-    """The negated q at D 80: every 16-byte chunk is flipped exactly once
-    (a chunk with two copying threads would be flipped back)."""
+    """The negated q at D 80: every 16-byte unit of both boxes is flipped
+    exactly once (a unit flipped twice would be flipped back)."""
     q, k, v = _flash_case(cuda, 1, 300, 4, 2, 80, torch.bfloat16, seed=80)
     out, lse = flash_attention_cuda(q, k, v, scale=-0.3)
     want, want_lse = flash_attention_ref(q, k, v, True, scale=-0.3,
@@ -909,22 +911,113 @@ def test_flash_kernel_at_gqa_7(cuda, S, causal, dtype):
 
 
 def test_flash_dtype_picks_the_tensor_core_or_cuda_core_kernel(cuda):
-    """By the profiler's kernel names: a bf16 call runs the tensor-core
-    kernel (mma.sync), a float32 call the CUDA-core one; one launch each."""
+    """By the profiler's kernel names: a bf16 call runs a tensor-core
+    kernel (wgmma at D 64, mma.sync at D 32), a float32 call the CUDA-core
+    one; one launch each."""
     from torch.profiler import ProfilerActivity, profile
     names = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        q, k, v = _flash_case(cuda, 1, 256, 4, 2, 64, dtype)
+    for dtype, D in ((torch.bfloat16, 64), (torch.bfloat16, 32),
+                     (torch.float32, 64)):
+        q, k, v = _flash_case(cuda, 1, 256, 4, 2, D, dtype)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             flash_attention_cuda(q, k, v)
             torch.cuda.synchronize()
-        names[dtype] = [e.key for e in prof.key_averages()
-                        if "flash_fwd" in e.key for _ in range(e.count)]
-    assert len(names[torch.bfloat16]) == 1
-    assert "flash_fwd_mma_kernel" in names[torch.bfloat16][0]
-    assert len(names[torch.float32]) == 1
-    assert "flash_fwd_kernel" in names[torch.float32][0]
+        names[dtype, D] = [e.key for e in prof.key_averages()
+                           if "flash_fwd" in e.key for _ in range(e.count)]
+    assert len(names[torch.bfloat16, 64]) == 1
+    assert "flash_fwd_wgmma_kernel" in names[torch.bfloat16, 64][0]
+    assert len(names[torch.bfloat16, 32]) == 1
+    assert "flash_fwd_mma_kernel" in names[torch.bfloat16, 32][0]
+    assert len(names[torch.float32, 64]) == 1
+    assert "flash_fwd_kernel" in names[torch.float32, 64][0]
+
+
+# the wgmma kernel: 128-row q tiles of two 64-row warpgroups, 128-key tiles
+_WG_GROUPS = {1: (3, 3), 7: (14, 2), 8: (8, 1)}      # GQA: (Hq, Hkv)
+
+
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 193])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("gqa", [1, 7, 8])
+def test_flash_wgmma_kernel_across_its_tile_edges(cuda, S, causal, D, gqa):
+    """S on both sides of a warpgroup's 64 rows and of a 128-row / 128-key
+    tile: TMA's zero-filled rows past S, the masked diagonal and ragged
+    tiles, at each head width the kernel takes and GQA 1, 7 and 8."""
+    Hq, Hkv = _WG_GROUPS[gqa]
+    q, k, v = _flash_case(cuda, 2, S, Hq, Hkv, D, torch.bfloat16,
+                          seed=S * D + gqa)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    want, want_lse = flash_attention_ref(q, k, v, causal, return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_kernel_on_prescaled_q(cuda, D, causal):
+    """The model path's call: q scaled beforehand and ``scale=1.0``."""
+    q, k, v = _flash_case(cuda, 2, 300, 8, 2, D, torch.bfloat16, seed=D + 1)
+    q = (q.float() / D ** 0.5).to(torch.bfloat16)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=1.0)
+    want, want_lse = flash_attention_ref(q, k, v, causal, scale=1.0,
+                                         return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_kernel_at_head_dim_128_with_odd_scales(cuda, causal):
+    """jamba's and llava's D 128 (two 64-column boxes): a negative scale
+    (q negated in shared memory) and logits far below zero.  Scale 4 puts
+    the logits of q >= 0, k <= 0 at D 128 where scale 8 puts them at D 64
+    (a sum of twice the terms): rows' maxima near -330, below -128 in
+    log2 units."""
+    q, k, v = _flash_case(cuda, 1, 200, 8, 2, 128, torch.bfloat16, seed=12)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=-0.3)
+    want, want_lse = flash_attention_ref(q, k, v, causal, scale=-0.3,
+                                         return_lse=True)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+    q, k = q.abs(), -k.abs()
+    out, lse = flash_attention_cuda(q, k, v, causal=causal, scale=4.0)
+    want, want_lse = flash_attention_ref(q, k, v, causal, scale=4.0,
+                                         return_lse=True)
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=1e-2)
+    torch.testing.assert_close(lse, want_lse, **TOL)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_wgmma_kernel_is_batch_invariant(cuda, D, causal):
+    """A row's output and LSE do not depend on the batch around it: B 3
+    equals each batch row run alone, bit for bit."""
+    q, k, v = _flash_case(cuda, 3, 200, 8, 2, D, torch.bfloat16, seed=D + 3)
+    out, lse = flash_attention_cuda(q, k, v, causal=causal)
+    for b in range(3):
+        one, one_lse = flash_attention_cuda(q[b:b + 1].contiguous(),
+                                            k[b:b + 1].contiguous(),
+                                            v[b:b + 1].contiguous(),
+                                            causal=causal)
+        assert torch.equal(out[b:b + 1], one)
+        assert torch.equal(lse[b:b + 1], one_lse)
+
+
+@pytest.mark.parametrize("D", [64, 80, 128])
+def test_flash_bf16_at_the_model_widths_reaches_the_wgmma_kernel(cuda, D):
+    """The route is by dtype and D: bf16 at D 64, 80 and 128 is the wgmma
+    kernel (Geometry::kernel 2, 384 threads), float32 is not; one launch
+    a call."""
+    geo = build.geometry("flash_attention_geometry", 2, 300, 8, 2, D, 1)
+    assert (geo["kernel"], geo["threads"], geo["block"]) == (2, 384, 128)
+    assert build.geometry("flash_attention_geometry", 2, 300, 8, 2, D,
+                          0)["kernel"] == 0
+    q, k, v = _flash_case(cuda, 2, 300, 8, 2, D, torch.bfloat16)
+    build.reset_launches()
+    flash_attention_cuda(q, k, v)
+    assert build.LAUNCHES["flash_attention"] == 1
 
 
 def test_flash_kernel_takes_a_caller_scale(cuda):

@@ -228,6 +228,35 @@ def test_plan_sources_name_their_kernels():
                                                               name)
 
 
+@pytest.mark.parametrize("D,kernel", [
+    (16, "flash_fwd_mma_kernel"), (32, "flash_fwd_mma_kernel"),
+    (64, "flash_fwd_wgmma_kernel"), (80, "flash_fwd_wgmma_kernel"),
+    (128, "flash_fwd_wgmma_kernel")])
+def test_flash_plan_routes_bf16_by_head_width(D, kernel):
+    """bf16 at the models' head widths runs the wgmma kernel (384 threads,
+    128-row blocks), the narrower widths the mma.sync one; shared memory
+    within a block's, and every TMA box of the wgmma kernel's q tile and
+    K / V ring 1024-byte aligned, as the 128B swizzle's phase needs (the
+    32B one's 256 bytes follow)."""
+    plan = kp.flash_attention_plan(B=2, S=300, Hq=8, Hkv=2, D=D)
+    assert plan.kernel == kp.kernel_instance(kernel, f"Li{D}E")
+    assert plan.smem <= kp.SMEM_CAP
+    assert kp.flash_attention_plan(B=2, S=300, Hq=8, Hkv=2, D=D,
+                                   bf16=False).code == 0
+    if kernel == "flash_fwd_wgmma_kernel":
+        fl = kp.CSRC_CONSTANTS["flash_attention.cu"]
+        assert (plan.code, plan.threads, plan.block) == (
+            2, fl["WG_THREADS"], fl["WG_BQ"])
+        offs = kp.flash_stage_offsets(D)
+        assert len(offs) == (1 + 2 * fl["WG_STAGES"]) * (D // 64 + D % 64
+                                                         // 16)
+        assert all(o % 1024 == 0 for o in offs)
+        # the barriers sit past the last box, inside the block's memory
+        assert max(offs) < plan.smem - 1024
+    else:
+        assert plan.code == 1
+
+
 def test_ptxas_sample_parses_every_instance():
     assert len(KERNELS) >= 60
     assert all(k["registers"] for k in KERNELS.values())

@@ -97,6 +97,12 @@ def _qkv(seed, B, S, Hq, Hkv, D):
     (2, 128, 8, 2, 32, 32, 16, True),
     (1, 64, 4, 4, 16, 32, 32, False),
     (2, 64, 6, 3, 8, 16, 16, True),      # GQA group 2, non-pow2 heads
+    # the main path's head widths: granite's D 64, hubert's D 80
+    # (bidirectional), jamba's and llava's D 128 at GQA 8 and 7
+    (1, 48, 4, 1, 64, 16, 16, True),
+    (2, 40, 2, 2, 80, 8, 8, False),
+    (1, 32, 8, 1, 128, 16, 16, True),
+    (1, 24, 7, 1, 128, 8, 8, False),
 ])
 def test_flash_plain_vs_pallas_and_ref(B, S, Hq, Hkv, D, bq, bk, causal):
     """The plain version against ``flash_attention_pallas`` (interpret) and
