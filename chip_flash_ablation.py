@@ -73,21 +73,43 @@ print(json.dumps(out))
 """
 
 
-def tree(name: str) -> Path:
-    """``src`` as it is, or a copy with the variant's edit."""
+def edited_tree(csrc: Path, work: Path, name: str,
+                variants: dict) -> Path:
+    """``src`` as it is (``name`` "full"), or a copy under ``work`` whose
+    ``csrc`` has the variant's anchor replaced."""
     if name == "full":
         return ROOT / "src"
-    anchor, repl = VARIANTS[name]
-    dst = WORK / name
+    anchor, repl = variants[name]
+    dst = work / name
     shutil.rmtree(dst, ignore_errors=True)
     shutil.copytree(ROOT / "src" / "repro_torch", dst / "repro_torch",
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
-    path = dst / CSRC.relative_to("src")
+    path = dst / csrc.relative_to("src")
     text = path.read_text()
     if text.count(anchor) != 1:
-        raise RuntimeError(f"{name}: its anchor is not once in {CSRC}")
+        raise RuntimeError(f"{name}: its anchor is not once in {csrc}")
     path.write_text(text.replace(anchor, repl))
     return dst
+
+
+def time_variants(timer: str, csrc: Path, work: Path,
+                  variants: dict) -> dict | None:
+    """Runs ``timer`` (a child program printing a JSON object of ms) on
+    the tree of "full", of each variant, then of "full" again; prints a
+    line each; returns {name: [result, ...]}, None if a child failed."""
+    res = {}
+    for name in ("full", *variants, "full"):
+        src = edited_tree(csrc, work, name, variants)
+        out = subprocess.run([sys.executable, "-c", timer, str(src),
+                              str(ROOT)], capture_output=True, text=True)
+        if out.returncode:
+            print(out.stderr[-3000:], file=sys.stderr)
+            return None
+        ms = json.loads(out.stdout.strip().splitlines()[-1])
+        res.setdefault(name, []).append(ms)
+        print(f"{name}: " + " ".join(f"{k} {v:.4f}" for k, v in ms.items())
+              + " ms", flush=True)
+    return res
 
 
 def sass_counts(so: str) -> dict:
@@ -115,18 +137,10 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip()
     print(smi, flush=True)
-    res = {"nvidia_smi": smi}
-    for name in ("full", *VARIANTS, "full"):
-        src = tree(name)
-        out = subprocess.run([sys.executable, "-c", TIMER, str(src),
-                              str(ROOT)], capture_output=True, text=True)
-        if out.returncode:
-            print(out.stderr[-3000:], file=sys.stderr)
-            return 1
-        ms = json.loads(out.stdout.strip().splitlines()[-1])
-        res.setdefault(name, []).append(ms)
-        print(f"{name}: " + " ".join(f"{k} {v:.4f}" for k, v in ms.items())
-              + " ms", flush=True)
+    times = time_variants(TIMER, CSRC, WORK, VARIANTS)
+    if times is None:
+        return 1
+    res = {"nvidia_smi": smi, **times}
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
     res["sass_d64"] = sass_counts(str(build.build().path))

@@ -8,9 +8,10 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` and read
    their machine code (``cuobjdump -sass``): the bf16 flash and paged-
    prefill kernels must use the tensor cores (HMMA; the flash kernel at
-   D 64, 80 and 128 wgmma's HGMMA) and, at D 64, they and the split
-   paged-decode kernel use no local memory (the flash kernel at D 80
-   neither); the ternary
+   D 64, 80 and 128 and the paged prefill at D 64 and 128 on 16-position
+   pages wgmma's HGMMA) and, at D 64, they and the split paged-decode
+   kernel use no local memory (the flash kernel at D 80 neither); the
+   ternary
    matmul's tensor-core kernel must use the integer tensor cores (IGMMA)
    and no local memory;
 3. hold each kernel against its plain PyTorch version at the shapes its
@@ -19,7 +20,9 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    tolerance for fp / int8 / sc pools, ragged lengths and poisoned trash
    pages; the paged kernels at the serving shapes and at 4096-token
    contexts: 32 decode lanes of 1024-4095 tokens, the last 64-token
-   prefill chunk of a 4096-token prompt), with kernel / plain / library-
+   prefill chunk of a 4096-token prompt, the prefill at qwen3-moe's GQA
+   group of 16 too, logging the kernel each prefill case ran, block_q 16
+   and 32 bit-equal), with kernel / plain / library-
    yardstick times and a roofline bound (the paged kernels' device times
    from torch.profiler beside their times per call with the host; the
    ternary matmul on both sides of its dp4a / tensor-core crossover,
@@ -36,8 +39,9 @@ CUDA card, in phases; any failure ends the run with a non-zero exit:
    through the ternary matmul kernel) and sc_int_approx x sc: every
    kernel on the path must have launched, the batched tokens must equal
    ``sequential_generate``'s, and a tiny float32 config must give the
-   same tokens on the card as on the CPU; one sc_int prefill is profiled
-   by ternary-matmul kernel instance;
+   same tokens on the card as on the CPU; one prefill a pair is profiled
+   by ternary-matmul kernel instance and by paged-prefill kernel (every
+   paged-prefill call must be the wgmma kernel, as in phases 7 and 8);
 5. the SC integer datapath at published width: the paper's TNN
    (784-256-256-10, seeded random QAT parameters) exported and fed a
    batch of 256 through the fused-SI ternary matmul, the exact BSN's
@@ -340,10 +344,12 @@ def kernel_bound(cost):
 
 # the bf16 flash forward at the models' head widths (D 64, 80, 128)
 MMA_KERNEL = "flash_fwd_wgmma_kernel"
+# the bf16 paged prefill at the engine's pages and D 64 / 128 (wgmma)
+PREFILL_WGMMA = "paged_prefill_wgmma_kernel"
 SASS_KERNELS = ("flash_fwd_wgmma_kernel", "flash_fwd_mma_kernel",
                 "flash_fwd_kernel", "bsn_sort_reg_kernel",
                 "paged_decode_split_kernel", "paged_prefill_mma_kernel",
-                "ternary_matmul_mma_kernel")
+                PREFILL_WGMMA, "ternary_matmul_mma_kernel")
 
 
 def read_sass(so_path):
@@ -351,9 +357,11 @@ def read_sass(so_path):
     built library (``cuobjdump -sass``): per kernel instance its tensor-
     core (HMMA / HGMMA; HGMMA alone) and local-memory (LDL / STL)
     instructions.  Each bf16 flash and paged-prefill instance must use the
-    tensor cores, and each wgmma flash instance (D 64, 80, 128) wgmma's
-    HGMMA; at D 64 the flash, paged-prefill and paged-decode kernels, and
-    at D 80 the flash kernel, spill nothing; every int8 ternary-matmul
+    tensor cores, each wgmma flash instance (D 64, 80, 128) and each
+    wgmma paged-prefill instance (D 64, 128 x bf16 / int8 / sc pools)
+    wgmma's HGMMA; at D 64 the flash, both paged-prefill and the paged-
+    decode kernels, and at D 80 the flash kernel, spill nothing; every
+    int8 ternary-matmul
     tensor-core instance uses the integer tensor cores (IGMMA, wgmma's;
     or IMMA, mma.sync's) and no local memory."""
     import re
@@ -401,10 +409,14 @@ def read_sass(so_path):
     if not flash128 or not all(f["hgmma"] > 0 for f in flash128):
         raise AssertionError(f"{MMA_KERNEL} at D 128: wgmma instructions "
                              f"missing: {flash128}")
-    # the routes: wgmma at D 64, 80, 128; mma.sync at D 16, 32
+    # the routes: flash wgmma at D 64, 80, 128, mma.sync at D 16, 32; the
+    # paged prefill wgmma at D 64 and 128 on 16-position pages (3 pool
+    # kinds each), mma.sync at every head dim (D 16, 32; D 64, 128 on
+    # other pages)
     for kernel, count, op in ((MMA_KERNEL, 3, "hgmma"),
                               ("flash_fwd_mma_kernel", 2, "hmma"),
-                              ("paged_prefill_mma_kernel", 12, "hmma")):
+                              ("paged_prefill_mma_kernel", 12, "hmma"),
+                              (PREFILL_WGMMA, 6, "hgmma")):
         inst = [f for f in found if f["kernel"] == kernel]
         if len(inst) != count or not all(f[op] > 0 for f in inst):
             raise AssertionError(f"{kernel}: tensor-core instructions "
@@ -414,7 +426,7 @@ def read_sass(so_path):
                                  for f in inst):
         raise AssertionError(f"ternary_matmul_mma_kernel: IMMA missing or "
                              f"local memory used: {inst}")
-    for kernel in (MMA_KERNEL, "paged_prefill_mma_kernel",
+    for kernel in (MMA_KERNEL, "paged_prefill_mma_kernel", PREFILL_WGMMA,
                    "paged_decode_split_kernel"):
         d64 = [f for f in found if f["kernel"] == kernel and f["d64"]]
         if not d64 or any(f["ldl"] + f["stl"] for f in d64):
@@ -942,13 +954,35 @@ def check_decode(torch, dev, gen, G=4, D=64, shapes=None):
 # 4096-token prompt at the engine's default prefill_chunk.
 PREFILL_SHAPES = (("", 64, 8), ("4096 ", 4032, 256))
 JAMBA_PREFILL_SHAPES = (("jamba D128 ", 64, 8),)
+# qwen3-moe-235b-a22b's attention (phase 7: Hkv 4, Gq 16, D 64), both chunks
+QWEN3_ATTN = dict(G=16, D=64, Hkv=4)
+QWEN3_PREFILL_SHAPES = (("qwen3 Gq16 ", 64, 8), ("qwen3 Gq16 4096 ", 4032,
+                                                 256))
+# the serving chunk on 32-position pages, two table lanes past the chunk:
+# a geometry paged_prefill_mma_kernel keeps (pages other than 16)
+MMA_PREFILL = dict(page=32, shapes=(("page32 ", 64, 6),))
 
 
-def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
+def prefill_kernel_name(torch, q, page, fmt, kv_dtype, block_q, start,
+                        width):
+    """The kernel paged_attn_prefill_launch picks for these operands, by
+    its C geometry (``Geometry::kernel``)."""
+    from repro_torch.kernels import build as kbuild, plan as kplan
+    Gr, C, Hkv, Gq, D = q.shape
+    kind = {"int8": 2, "sc": 3}.get(fmt, 0 if kv_dtype == torch.float32
+                                    else 1)
+    geo = kbuild.geometry("paged_attn_prefill_geometry", Gr, C, Hkv, Gq, D,
+                          page, width, start, block_q,
+                          0 if q.dtype == torch.float32 else 1, kind)
+    return kplan.PAGED_PREFILL_KERNELS[geo["kernel"]]
+
+
+def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES,
+                  Hkv=8, page=16):
     import torch.nn.functional as F
     from repro_torch.kernels.paged_attention import paged_attn_prefill_cuda
     from repro_torch.kernels.ref import paged_attn_prefill_ref
-    Gr, C, Hkv, Gq, page = 4, 64, 8, G, 16
+    Gr, C, Gq = 4, 64, G
     cases = []
     for prefix, start, width in shapes:
         N = Gr * width + 1
@@ -987,6 +1021,13 @@ def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
             if not torch.equal(pois, got):
                 raise AssertionError(f"prefill {label}: poisoned pages "
                                      f"leaked")
+            # a row's result does not depend on block_q
+            if not torch.equal(got, got2):
+                raise AssertionError(f"prefill {label}: block_q 16 and 32 "
+                                     f"differ")
+            kernel = prefill_kernel_name(torch, q, page, fmt,
+                                         pools["k_pages"].dtype, 32, start,
+                                         width)
             kh, vh = _gathered_heads(torch, pools, aux, tables[:, :seen],
                                      fmt, Gq)
             qh = q.reshape(Gr, C, Hkv * Gq, D).permute(0, 2, 1, 3)
@@ -1008,12 +1049,13 @@ def check_prefill(torch, dev, gen, G=4, D=64, shapes=PREFILL_SHAPES):
             b_ms, b_by = kernel_bound(paged_prefill_cost(
                 q_numel=q.numel(), q_itemsize=2, table_numel=tables.numel(),
                 G=Gr, C=C, Hkv=Hkv, Gq=Gq, D=D, start=start, fmt=fmt))
-            cases.append(dict(label=label, G=Gr, C=C, Hkv=Hkv, Gq=Gq, D=D,
-                              page=page, start=start, width=width,
-                              max_abs_err=err, **times, bound_ms=b_ms,
-                              bound_by=b_by))
-            log(f"paged_attn_prefill {label}: start={start} "
-                f"max_abs_err={err:.3g} (block_q 32, 16) poison-invisible "
+            cases.append(dict(label=label, kernel=kernel, G=Gr, C=C, Hkv=Hkv,
+                              Gq=Gq, D=D, page=page, start=start,
+                              width=width, max_abs_err=err, **times,
+                              bound_ms=b_ms, bound_by=b_by))
+            log(f"paged_attn_prefill {label} ({kernel}): start={start} "
+                f"max_abs_err={err:.3g} (block_q 32, 16: equal) "
+                f"poison-invisible "
                 f"device ms={times['ms']:.4f} (per call with the host "
                 f"{times['call_ms']:.4f}) plain_ms={times['plain_ms']:.4f} "
                 f"library_ms(SDPA)={times['library_ms']:.4f} (with the "
@@ -1289,12 +1331,18 @@ def profile_decode_step(torch, eng, label, step_ms):
 def profile_prefill(torch, eng, label):
     """The engine's batched chunked prefill of its queued prompts under
     torch.profiler: device ms and launches of each ``ternary_matmul``
-    kernel instance (by the profiler's kernel names), the batched
-    launches' device ms, the device busy ms and idle share of the whole
-    prefill and the PyTorch ops that take the device time."""
+    kernel instance and of each paged-prefill kernel (by the profiler's
+    kernel names), the batched launches' device ms, the device busy ms
+    and idle share of the whole prefill and the PyTorch ops that take the
+    device time.  The engines serve bf16 at D 64 / 128 on 16-position
+    pages: every paged-prefill call must have run the wgmma kernel (and,
+    past a 1024-key split, its combine) and nothing else."""
     import re
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import build as kbuild
     torch.cuda.synchronize()
+    n0 = kbuild.LAUNCHES["paged_attn_prefill"]
     finish = _time_batched()
     try:
         with profile(activities=[ProfilerActivity.CPU,
@@ -1305,16 +1353,25 @@ def profile_prefill(torch, eng, label):
             wall_ms = (time.perf_counter() - t0) * 1e3
     finally:
         batched_ms = finish()
+    n_calls = kbuild.LAUNCHES["paged_attn_prefill"] - n0
     cuda = torch.autograd.DeviceType.CUDA
     averages = prof.key_averages()
     events = [e for e in averages if e.device_type == cuda]
-    kernels = {}
+    kernels, paged = {}, {}
     for e in events:
-        hit = re.search(r"(ternary_matmul\w*_kernel<[^>]*>)", e.key)
-        if hit:
-            k = kernels.setdefault(hit.group(1), dict(ms=0.0, launches=0))
-            k["ms"] += _dev_us(e) / 1e3
-            k["launches"] += e.count
+        for pattern, into in (
+                (r"(ternary_matmul\w*_kernel<[^>]*>)", kernels),
+                (r"\b((?:paged_prefill_\w+|prefill)_kernel)\b", paged)):
+            hit = re.search(pattern, e.key)
+            if hit:
+                k = into.setdefault(hit.group(1), dict(ms=0.0, launches=0))
+                k["ms"] += _dev_us(e) / 1e3
+                k["launches"] += e.count
+    chunks = sorted(k for k in paged if k != "paged_prefill_combine_kernel")
+    if n_calls and chunks != [PREFILL_WGMMA]:
+        raise AssertionError(f"profile prefill {label}: {n_calls} paged "
+                             f"prefill calls ran {chunks}, not "
+                             f"{PREFILL_WGMMA} alone")
     busy = sum(_dev_us(e) for e in events) / 1e3
     rows = sorted(((_dev_us(e), e.key, e.count) for e in averages
                    if e.device_type != cuda and _dev_us(e) > 0),
@@ -1324,6 +1381,7 @@ def profile_prefill(torch, eng, label):
                ternary_matmul_ms=sum(k["ms"] for k in kernels.values()),
                batched_ternary_matmul_ms=batched_ms,
                ternary_matmul_kernels=kernels,
+               paged_prefill_calls=n_calls, paged_prefill_kernels=paged,
                top=[dict(name=k, ms=us / 1e3, calls=n)
                     for us, k, n in rows[:10]])
     log(f"profile prefill {label}: wall_ms={wall_ms:.1f} device_busy_ms="
@@ -1332,6 +1390,9 @@ def profile_prefill(torch, eng, label):
         f"{res['batched_ternary_matmul_ms']:.3f}) by kernel: "
         + "; ".join(f"{name} {k['ms']:.3f} ms x{k['launches']}"
                     for name, k in sorted(kernels.items()))
+        + f"; paged prefill: {n_calls} calls, by kernel: "
+        + "; ".join(f"{name} {k['ms']:.3f} ms x{k['launches']}"
+                    for name, k in sorted(paged.items()))
         + " top ops: " + "; ".join(f"{t['name']} {t['ms']:.2f} ms "
                                    f"x{t['calls']}" for t in res["top"][:6]))
     return res
@@ -1505,9 +1566,8 @@ def serve(torch, dev, layers):
         eng.step()
         res["profile"] = profile_decode_step(torch, eng, f"{datapath}_{fmt}",
                                              res["decode_ms_per_step"])
-        if datapath == "sc_int":
-            res["profile_prefill"] = profile_prefill(
-                torch, engine(), f"{datapath}_{fmt}")
+        res["profile_prefill"] = profile_prefill(
+            torch, engine(), f"{datapath}_{fmt}")
         del eng
     return results, totals, product_cost(torch, dev, params, cfg)
 
@@ -4871,6 +4931,14 @@ def main() -> int:
     pre = check_prefill(torch, dev, gen)
     pre += check_prefill(torch, dev, gen, shapes=JAMBA_PREFILL_SHAPES,
                          **JAMBA_ATTN)
+    pre += check_prefill(torch, dev, gen, shapes=QWEN3_PREFILL_SHAPES,
+                         **QWEN3_ATTN)
+    mma = check_prefill(torch, dev, gen, **MMA_PREFILL)
+    if {c["kernel"] for c in mma} != {"paged_prefill_mma_kernel"}:
+        raise AssertionError(f"prefill on 32-position pages ran "
+                             f"{sorted({c['kernel'] for c in mma})}, not "
+                             f"paged_prefill_mma_kernel")
+    pre += mma
     tmm = check_ternary_matmul(torch, dev, gen)
     tmb = check_ternary_matmul_batched(torch, dev, gen)
     srt = check_bsn_sort(torch, dev, gen)

@@ -76,9 +76,9 @@ _SIGNATURES = {
     # size the scratch of the split partials)
     "paged_attn_decode_split_tokens": [],
     # q, k, v, k_scale, v_scale, k_resid, v_resid, tables, out, scratch,
-    # G, C, Hkv, Gq, D, page, width, start, block_q, q_dtype, kv_kind,
-    # stream
-    "paged_attn_prefill_launch": [_P] * 10 + [_I] * 11 + [_P],
+    # G, C, Hkv, Gq, D, page, width, start, block_q, n_pages, q_dtype,
+    # kv_kind, stream
+    "paged_attn_prefill_launch": [_P] * 10 + [_I] * 12 + [_P],
     "paged_attn_prefill_split_tokens": [],
     # x, w, thresholds (or null), out, batch, M, N, K, out_bsl, stream
     "ternary_matmul_launch": [_P] * 4 + [_I] * 5 + [_P],

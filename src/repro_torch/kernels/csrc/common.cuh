@@ -1,6 +1,7 @@
 // Shared helpers of the port's CUDA kernels (plain C interface, sm_90a).
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -176,9 +177,23 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi,
   lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
+// split_bf16's numbers in fewer instructions: the hi halves back as
+// float32 by a shift and a mask (a bf16 is the top 16 bits of the float32
+// it stands for).  The wgmma kernels' form; the mma.sync paged prefill
+// kernel keeps split_bf16, with which it uses no local memory at D 64.
+__device__ __forceinline__ void wg_split(float x, float y, uint32_t& hi,
+                                         uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(
+      x - __uint_as_float(hi << 16), y - __uint_as_float(hi & 0xffff0000u));
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
 // ---------------------------------------------------------------------------
-// Hopper's asynchronous units (ternary_matmul.cu, flash_attention.cu):
-// wgmma's ordering, mbarriers, TMA, register rebalancing
+// Hopper's asynchronous units (ternary_matmul.cu, flash_attention.cu,
+// paged_attention.cu): wgmma's ordering, mbarriers, TMA, register
+// rebalancing
 // ---------------------------------------------------------------------------
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -198,6 +213,11 @@ __device__ __forceinline__ void fence_regs(float (&r)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
 // generic-proxy shared-memory writes, made visible to wgmma and TMA
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -211,6 +231,55 @@ __device__ __forceinline__ uint64_t wgmma_desc(uint32_t saddr, uint32_t lbo,
          (static_cast<uint64_t>(lbo >> 4) << 16) |
          (static_cast<uint64_t>(sbo >> 4) << 32) |
          (static_cast<uint64_t>(layout) << 62);
+}
+
+// d (64 x 64 float32, the warpgroup's fragments) (+)= a (64 x 16) *
+// b (16 x 64), both bf16 K-major in shared memory; d is overwritten when
+// `accumulate` is 0
+__device__ __forceinline__ void wgmma_n64_ss(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64 float32) += a (64 x 16 bf16, this thread's A fragment in
+// registers) * b (16 x 64 bf16, MN-major in shared memory: the transpose bit)
+__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(1));
 }
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -275,3 +344,17 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+
+// ---------------------------------------------------------------------------
+// TMA tensor maps, built on the host (tensor_map.cu)
+// ---------------------------------------------------------------------------
+
+// A rank-4 tensor map over `base` (dims and box innermost first, strides
+// in bytes of dims 1..3), zero-filling boxes past the dims, from
+// cuTensorMapEncodeTiled looked up through the CUDA runtime (nothing links
+// against libcuda), encoded anew on every call (a few maps a launch; see
+// tensor_map.cu for its host cost).  Returns 0 or refuses, naming `who`.
+int tensor_map_4d(CUtensorMap* map, const char* who, CUtensorMapDataType type,
+                  const void* base, const cuuint64_t (&dims)[4],
+                  const cuuint64_t (&strides)[3], const cuuint32_t (&box)[4],
+                  CUtensorMapSwizzle swizzle);

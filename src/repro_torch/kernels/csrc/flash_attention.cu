@@ -30,13 +30,14 @@
 //   serializes every wgmma of the kernel (C7520): the loop peels the first
 //   q K^T and the last P V.
 // - Tensor maps are rank 4 over (D, H, S, B), built on the host by
-//   cuTensorMapEncodeTiled (found through cudaGetDriverEntryPoint, so
-//   nothing links against libcuda), passed as __grid_constant__
-//   parameters.  TMA zero-fills rows past S inside each batch, so a ragged
-//   tile reads no other row's data.  A row of a tile lands as 64-column
-//   boxes in 128B swizzle (one at D 64, two at D 128); hubert's D 80 adds
-//   a 16-column box in 32B swizzle, which wgmma reads as a K-major (q, K)
-//   or MN-major (V) operand of its own: no padding, no wasted products.
+//   cuTensorMapEncodeTiled (tensor_map_4d, tensor_map.cu: found through
+//   cudaGetDriverEntryPoint, so nothing links against libcuda), passed as
+//   __grid_constant__ parameters.  TMA zero-fills rows past S inside each
+//   batch, so a ragged tile reads no other row's data.  A row of a tile
+//   lands as 64-column boxes in 128B swizzle (one at D 64, two at D 128);
+//   hubert's D 80 adds a 16-column box in 32B swizzle, which wgmma reads
+//   as a K-major (q, K) or MN-major (V) operand of its own: no padding, no
+//   wasted products.
 // - S = q K^T: wgmma m64n128k16, both operands K-major from shared
 //   memory, float32 sums (products of bf16 values are exact, only the
 //   order of the sums differs from the plain version's).
@@ -163,31 +164,6 @@ __device__ __forceinline__ void wgmma_n128_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 64 float32) += a (64 x 16 bf16, this thread's A fragment in
-// registers) * b (16 x 64 bf16, MN-major in shared memory: the transpose bit)
-__device__ __forceinline__ void wgmma_n64_rs(float (&d)[32],
-                                             const uint32_t (&a)[4],
-                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
-        "r"(1));
-}
-
 // d (64 x 16 float32) += a (64 x 16 bf16, this thread's A fragment in
 // registers) * b (16 x 16 bf16, MN-major in shared memory: the transpose bit)
 __device__ __forceinline__ void wgmma_n16_rs(float (&d)[8],
@@ -248,19 +224,6 @@ __device__ __forceinline__ void wg_weights(float (&s)[64], float (&m_r)[2],
       l_r[e >> 1] += s[4 * j + e];
     }
   }
-}
-
-// split_bf16's numbers in fewer instructions: the hi halves back as
-// float32 by a shift and a mask (a bf16 is the top 16 bits of the float32
-// it stands for).  common.cuh keeps its own form: with this one the paged
-// prefill kernel at D 64 uses local memory.
-__device__ __forceinline__ void wg_split(float x, float y, uint32_t& hi,
-                                         uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  const __nv_bfloat162 l = __floats2bfloat162_rn(
-      x - __uint_as_float(hi << 16), y - __uint_as_float(hi & 0xffff0000u));
-  lo = *reinterpret_cast<const uint32_t*>(&l);
 }
 
 // wg_pack, once the previous P V has landed: O moved to the new base
@@ -558,41 +521,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no link
-// against libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t rc = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (rc == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
 // A bf16 (B, S, H, D) tensor as a rank-4 map over (D, H, S, B): boxes of
 // `cols` columns x `rows` positions of one head, rows past S zero-filled
 int tensor_map(CUtensorMap* map, const void* base, int B, int S, int H,
                int D, int cols, int rows, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr)
-    return refuse("flash_attention: cuTensorMapEncodeTiled not found "
-                  "(cudaGetDriverEntryPoint)");
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(S),
@@ -602,15 +534,9 @@ int tensor_map(CUtensorMap* map, const void* base, int B, int S, int H,
                                  static_cast<cuuint64_t>(S) * H * D * 2};
   const cuuint32_t box[4] = {static_cast<cuuint32_t>(cols), 1,
                              static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t step[4] = {1, 1, 1, 1};
-  const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
-      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (rc != CUDA_SUCCESS)
-    return refuse("flash_attention: cuTensorMapEncodeTiled failed (%d) for "
-                  "B %d S %d H %d D %d", static_cast<int>(rc), B, S, H, D);
-  return 0;
+  return tensor_map_4d(map, "flash_attention",
+                       CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, dims, strides,
+                       box, swizzle);
 }
 
 template <int D>

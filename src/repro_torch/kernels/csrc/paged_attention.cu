@@ -8,9 +8,9 @@
 // All of them read K/V straight through the page tables, dequantize
 // compressed pools (kv_format int8 / sc) on load, and run a float32
 // online softmax (m, l, acc) with the reference's numerics: logits =
-// (q . k) / sqrt(D) (a divide after the dot), positions past the live
-// length / causal horizon masked to -1e30 before the exp and their weight
-// zeroed after it, output acc / max(l, 1e-30) cast to q's dtype.
+// (q . k) / sqrt(D), positions past the live length / causal horizon
+// masked to -1e30 before the exp and their weight zeroed after it, output
+// acc / max(l, 1e-30) cast to q's dtype.
 //
 // What bounds them.  Decode reads every live position of K and V once
 // per KV head and does 4 G D flops per position (G = 4 query rows a KV
@@ -19,17 +19,90 @@
 // bytes and its bf16 products take about the same time at the H100's
 // peaks (fp: bytes; int8: operations).
 //
-// bfloat16 q with bf16 / int8 / sc pools (the serving path) runs two
-// designs on one tensor-core tile routine (attn_tile): S = q k^T and
-// O += P V as mma.sync m16n8k16 (bf16 in, float32 sums), the online
-// softmax on the accumulator fragments, P entering P V as two bf16 terms
-// hi + lo (one term moves O past its 1e-2 tolerance, see
-// flash_attention.cu).  int8 pools: the codes are exact in bf16, the
-// per-key scale multiplies the float32 logit (K) and folds into P (V).
-// sc pools: 16 code and resid are both exact in bf16, so K and V each
-// take two products summed in one float32 accumulator, q . (resid +
-// 16 code), then scaled by scale / 16.  Codes are widened to bf16 in
-// shared memory without I2F (widen16).
+// bfloat16 q with bf16 / int8 / sc pools (the serving path): tensor-core
+// kernels, S = q k^T and O += P V with bf16 operands and float32 sums, P
+// entering P V as two bf16 terms hi + lo (one term moves O past its 1e-2
+// tolerance, see flash_attention.cu).  int8 pools: the codes are exact in
+// bf16, the per-key scale multiplies the float32 logit (K) and folds into
+// P (V).
+//
+// paged_prefill_wgmma_kernel (bf16 q at D 64 and 128 on 16-position
+// pages: granite, qwen3-moe and jamba on every format).  A block owns one
+// (request, KV head, q-block) and all Gq query heads of that KV head,
+// rows position-major (row i = position i / Gq, head i % Gq), so each K /
+// V tile is read once for the whole GQA group.
+// - Warpgroups.  One or two consumer warpgroups of 64 rows (wgmma's M;
+//   128 / Gq positions at most, block_q's rows rounded up to 64) and a
+//   producer warpgroup; setmaxnreg gives the producer's registers to the
+//   consumers (24 / 240 over bf16 pools, 72 / 216 over int8 / sc).
+// - Producer.  It reads the split's table lanes into shared memory once
+//   (a page at or past the chunk's last is never looked up: its lane reads
+//   as the page index N, one past the pool, where TMA reads nothing and
+//   fills zeros), then one thread keeps a ring of key tiles of PF_BK = 64
+//   absolute positions (4 pages) in flight with TMA: rank-4 tensor maps
+//   over the pools as (D, Hkv, page, N), one box a page.  bf16 pools land
+//   in the stage itself, 64-column boxes in 128B swizzle (two a page at D
+//   128), and full / empty mbarriers pass the stages (4 of them).  int8 /
+//   sc pools land raw (codes, residuals: D-byte rows, 3 raw stages); the
+//   whole warpgroup widens each raw tile into the swizzled bf16 stage
+//   wgmma reads (3 of them) without I2F (one PRMT puts a byte in a float's
+//   mantissa), fences the generic proxy's writes for wgmma
+//   (fence.proxy.async) and arrives.  The per-key scales (4 bytes of one
+//   KV head a key: below a TMA box's 16-byte minimum) are plain loads, one
+//   key of K or V a producer thread, issued a tile ahead of their use;
+//   they land beside the stage.  The tensor maps (two; four for sc's
+//   residuals) are encoded on the host at every launch (tensor_map_4d,
+//   tensor_map.cu).
+// - sc's joined operand.  A sc element is (16 code + resid) * scale / 16
+//   (core/kv_quant.kv_dequant).  kv_quant writes every code and residual
+//   clipped to +-SC_COARSE_BSL / 2 = +-8 (core/kv_quant.py:30-33, :73-79;
+//   quantize_levels clamps), so 16 code + resid lies in [-136, 136], and
+//   bf16 holds every integer up to 256 exactly: the producer widens the
+//   joined value itself, bit-identical to the two exact terms the
+//   mma.sync kernel multiplies apart, and sc costs int8's products (one K
+//   product, hi + lo V products, not two and four).  A pool with a code or
+//   residual past +-8 is not one kv_quant writes; there the join rounds
+//   (|value| > 256), which no test or caller feeds (tests/
+//   test_torch_paged_prefill.py holds kv_quant to the range).
+// - Products.  S = q K^T: wgmma m64n64k16, q (loaded once by each
+//   consumer with cp.async into its own swizzled boxes) and K K-major from
+//   shared memory.  The logit x = s (fp) or s times the key's K scale
+//   (int8; times 2^-4 for sc), the online softmax on the accumulator
+//   registers in log2 units, p = 2^(c x - c m), c = log2(e) / sqrt(D): the
+//   divide by sqrt(D) is folded into the exponent's FFMA.  O += P V:
+//   wgmma m64n64k16 a 64-column box, P from registers as bf16 hi + lo
+//   (times the key's V scale), V MN-major through the transpose bit.  Two
+//   consumer warpgroups take turns at the tensor cores (ping-pong over
+//   two named barriers, as flash_attention.cu's): one issues P V of a
+//   tile and q K^T of the next while the other runs its softmax; within a
+//   warpgroup the next tile's q K^T is committed before this tile's P V,
+//   so the next weights are computed while P V runs.  No wgmma sits in a
+//   runtime branch (ptxas would serialize every wgmma of the kernel,
+//   C7520): the loop peels the first q K^T and the last P V.
+// - Bound.  The last 64-token chunk of a 4096-token prompt (G 4, Hkv 8,
+//   Gq 4, D 64) reads 33.6 MB of bf16 K / V (16.8 MB of int8 codes, 33.6
+//   MB of sc codes and residuals, 1 MB of scales) and does 8.5 GFLOP of
+//   bf16 products (12.8 with the lo term): 10.0 / 8.6 / 10.3 us at the
+//   H100's peaks, bytes for fp and sc, operations for int8.
+//
+// paged_prefill_mma_kernel (bf16 q at D 16 / 32, or pages other than 16):
+// the same blocks, 16 rows a warp, at most 128 rows; key tiles of 64
+// absolute positions gathered through the page table by cp.async into a
+// ring of three, keys past the chunk's end zero-filled; the tile routine
+// attn_tile (mma.sync m16n8k16, ldmatrix) with sc's 16 code and resid as
+// two products, codes widened to bf16 in shared memory by the same warps
+// (widen16).
+//
+// Both prefills split the keys by absolute position (PF_SPLIT_KEYS a
+// split, a block each), so that a long cache fills the card; tiles past a
+// block's causal horizon are never loaded and the causal mask is applied
+// only on tiles that reach a warp's first position; a block writes only
+// the rows whose position reaches its split: rows whose position lies in
+// split 0 write their output, the others' splits are merged by
+// paged_prefill_combine_kernel in split order.  A row's result depends on
+// its own position and the tiles before it only, not on block_q, C,
+// start or the other requests; the kernel is chosen by dtype, D and page
+// size alone (wgmma_route).
 //
 // paged_decode_split_kernel: a lane's positions are split by absolute
 // position, split j covering [j SPLIT_TOKENS, (j + 1) SPLIT_TOKENS), so a
@@ -42,28 +115,12 @@
 // 4-byte copies of the scales; rows of pages past the length are zero-
 // filled, their table lanes never read), so two chunks load while one is
 // computed.  The G <= 16 query rows of the KV head are the rows of one
-// mma tile, held as A fragments in registers.  The warps' partials merge
-// in warp order through shared memory; a lane with one split writes its
-// output, otherwise each split writes (acc, m, l) to scratch and
-// paged_decode_combine_kernel merges the splits in split order with the
-// reference's exact log-sum-exp combine (launched only when maxp pages
-// hold more than one split).
-//
-// paged_prefill_mma_kernel: a block owns one (request, KV head, q-block)
-// and all Gq query heads of that KV head, rows ordered position-major
-// (row i = position i / Gq, head i % Gq), 16 rows a warp, at most 128
-// rows, so each K/V tile is read once for the whole GQA group.  Key
-// tiles of 64 absolute positions are gathered through the page table by
-// cp.async into a ring of three; tiles past the block's causal horizon
-// are never loaded and keys past the chunk's end are zero-filled; the
-// causal mask is applied only on tiles that reach a warp's diagonal.
-// The keys are split by absolute position too (PF_SPLIT_KEYS a split, a
-// block each), so that a long cache fills the card; a block writes only
-// the rows whose position reaches its split: rows whose position lies in
-// split 0 write their output, the others' splits are merged by
-// paged_prefill_combine_kernel in split order.  A row's result depends on
-// its own position and the tiles before it only, not on block_q or the
-// chunk around it.
+// mma tile, held as A fragments in registers; the tile routine is
+// attn_tile's.  The warps' partials merge in warp order through shared
+// memory; a lane with one split writes its output, otherwise each split
+// writes (acc, m, l) to scratch and paged_decode_combine_kernel merges the
+// splits in split order with the reference's exact log-sum-exp combine
+// (launched only when maxp pages hold more than one split).
 //
 // float32 q, or float32 pools: the CUDA-core kernels decode_kernel and
 // prefill_kernel (the float32 callers hold the card against the CPU to
@@ -947,10 +1004,549 @@ paged_prefill_mma_kernel(const __nv_bfloat16* __restrict__ q, Pools pools,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16 q at D 64 / 128 on 16-position pages: the wgmma prefill
+// ---------------------------------------------------------------------------
+
+constexpr int PW_PAGE = 16;                        // the page size it takes
+constexpr int PW_CONSUMERS = 2;                    // warpgroups of 64 rows
+constexpr int PW_THREADS = 128 * (PW_CONSUMERS + 1);
+constexpr int PW_TAB = PF_SPLIT_KEYS / PW_PAGE;    // table lanes a split
+
+// Shared memory of paged_prefill_wgmma_kernel, from a 1024-byte aligned
+// base: STAGES bf16 stages, each a K and a V tile of PF_BK keys as D / 64
+// boxes of PF_BK rows x 128 bytes in 128B swizzle (the layout wgmma's
+// descriptors read); for int8 / sc pools RAW_STAGES raw stages (K codes,
+// V codes, then K and V residuals for sc, each PF_BK rows x D bytes as TMA
+// lands them); the consumers' q rows (64 rows a warpgroup, in boxes like
+// K's); the stages' K and V scales; the split's table lanes; the
+// barriers (K full, V full, empty: a stage each; raw full: a raw stage
+// each).  Every box starts 1024-byte aligned, as the swizzle's phase needs.
+template <int D, int KIND>
+struct PwLayout {
+  static_assert(D == 64 || D == 128, "D must be 64 or 128");
+  static constexpr int BOXES = D / 64;
+  static constexpr int TILE = PF_BK * D * 2;            // a bf16 K or V tile
+  static constexpr int STAGES = KIND == KV_BF16 ? 4 : 3;
+  static constexpr int RAW_STAGES = KIND == KV_BF16 ? 0 : 3;
+  static constexpr int RAW_TILE = PF_BK * D;            // one int8 array
+  static constexpr int RAW = Raw<D, KIND>::NARR * RAW_TILE;
+  static constexpr int RAW_OFF = STAGES * 2 * TILE;
+  static constexpr int Q_WG = 64 * D * 2;
+  static constexpr int Q_OFF = RAW_OFF + RAW_STAGES * RAW;
+  static constexpr int SCALE_OFF = Q_OFF + PW_CONSUMERS * Q_WG;
+  static constexpr int TAB_OFF =
+      SCALE_OFF + (Raw<D, KIND>::SCALED ? STAGES * 2 * PF_BK * 4 : 0);
+  static constexpr int BAR_OFF = TAB_OFF + PW_TAB * 4;
+  static constexpr size_t BYTES =
+      1024 + BAR_OFF + 8 * (3 * STAGES + RAW_STAGES);
+  // registers a producer / consumer thread keeps (setmaxnreg): the
+  // launch's 168 a thread (65536 / PW_THREADS, rounded down to 8) given
+  // from the producer to the two consumer warpgroups; a widening producer
+  // keeps enough to have a tile's shared-memory loads in flight at once
+  static constexpr int PRODUCER_REGS = KIND == KV_BF16 ? 24 : 72;
+  static constexpr int CONSUMER_REGS = KIND == KV_BF16 ? 240 : 216;
+};
+
+// 16 int8 codes (and for sc their 16 residuals) as 16 bf16 values: the
+// code (int8), or the joined 16 code + resid (sc), exact in bf16 for every
+// pool kv_quant writes (|16 code + resid| <= 136; see the header).  Each
+// byte b becomes the float 2^23 + (b + 128) by one PRMT (no I2F); the
+// joined value is (c - B) 16 + r - B with B = 2^23 + 128, every step exact.
+template <int KIND>
+__device__ __forceinline__ void widen_joined(uint4 code, uint4 resid,
+                                             uint32_t (&w)[8]) {
+  constexpr float B = 8388736.0f;
+  const uint32_t c[4] = {code.x ^ 0x80808080u, code.y ^ 0x80808080u,
+                         code.z ^ 0x80808080u, code.w ^ 0x80808080u};
+  const uint32_t r[4] = {resid.x ^ 0x80808080u, resid.y ^ 0x80808080u,
+                         resid.z ^ 0x80808080u, resid.w ^ 0x80808080u};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      f[b] = __uint_as_float(__byte_perm(c[i], 0x4B000000u, 0x7440u + b)) -
+             B;
+      if constexpr (KIND == KV_SC)
+        f[b] = fmaf(f[b], static_cast<float>(1 << SC_SHIFT),
+                    __uint_as_float(
+                        __byte_perm(r[i], 0x4B000000u, 0x7440u + b))) -
+               B;
+    }
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(f[0], f[1]);
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(f[2], f[3]);
+    w[2 * i] = *reinterpret_cast<const uint32_t*>(&lo);
+    w[2 * i + 1] = *reinterpret_cast<const uint32_t*>(&hi);
+  }
+}
+
+// The online softmax of one consumer's 64 x PF_BK tile of S: s[4 n + e]
+// is row r_lo (+ 8 for e >= 2), key key0 + 8 n + 2 tq + (e & 1).  x = the
+// logit times the key's K scale (int8, sc; times 2^-SC_SHIFT for sc, as
+// the producer stored it), NEG_BIG where MASK and the key lies past the
+// row's position; the row max over the quad; l moved to the new base by
+// corr = 2^(old - new); the weights p = 2^(c x - base), c = log2(e) /
+// sqrt(D), in place of s and into l (masked weights 0).
+template <int KIND, bool MASK>
+__device__ __forceinline__ void pw_weights(float (&s)[32], float (&m_r)[2],
+                                           float (&l_r)[2], float (&corr)[2],
+                                           const float* ks, float c,
+                                           int key0, const int (&p_row)[2],
+                                           int tq) {
+  float mx[2] = {m_r[0], m_r[1]};
+#pragma unroll
+  for (int n = 0; n < PF_BK / 8; ++n) {
+    float2 k2 = make_float2(1.f, 1.f);
+    if constexpr (KIND != KV_BF16)
+      k2 = *reinterpret_cast<const float2*>(ks + 8 * n + 2 * tq);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * n + e];
+      if constexpr (KIND != KV_BF16) x *= (e & 1) ? k2.y : k2.x;
+      if constexpr (MASK) {
+        if (key0 + 8 * n + 2 * tq + (e & 1) > p_row[e >> 1]) x = NEG_BIG;
+      }
+      s[4 * n + e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  }
+  float base[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    base[i] = __fmul_rn(mx[i], c);
+    corr[i] = ex2(__fmul_rn(m_r[i], c) - base[i]);
+    m_r[i] = mx[i];
+    l_r[i] *= corr[i];
+  }
+#pragma unroll
+  for (int n = 0; n < PF_BK / 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float p = ex2(fmaf(s[4 * n + e], c, -base[e >> 1]));
+      if constexpr (MASK) {
+        if (s[4 * n + e] == NEG_BIG) p = 0.f;
+      }
+      s[4 * n + e] = p;
+      l_r[e >> 1] += p;
+    }
+  }
+}
+
+// Once the previous P V has landed: O moved to the new base (only when
+// some row max of the warp moved), and the weights, times the keys' V
+// scales (int8, sc), as bf16 hi + lo A fragments of 16 keys each (the C
+// layout of S is the A layout of its 16-key slices).
+template <int D, int KIND>
+__device__ __forceinline__ void pw_pack(const float (&s)[32],
+                                        const float (&corr)[2],
+                                        float (&o)[D / 64][32],
+                                        uint32_t (&p_hi)[PF_BK / 16][4],
+                                        uint32_t (&p_lo)[PF_BK / 16][4],
+                                        const float* vs, int tq) {
+  if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+    for (int cc = 0; cc < D / 64; ++cc)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[cc][e] *= corr[(e >> 1) & 1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < PF_BK / 16; ++kk) {
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int n = 2 * kk + hh;
+      float p[4] = {s[4 * n], s[4 * n + 1], s[4 * n + 2], s[4 * n + 3]};
+      if constexpr (KIND != KV_BF16) {
+        const float2 v2 = *reinterpret_cast<const float2*>(vs + 8 * n +
+                                                           2 * tq);
+        p[0] *= v2.x;
+        p[1] *= v2.y;
+        p[2] *= v2.x;
+        p[3] *= v2.y;
+      }
+      wg_split(p[0], p[1], p_hi[kk][2 * hh], p_lo[kk][2 * hh]);
+      wg_split(p[2], p[3], p_hi[kk][2 * hh + 1], p_lo[kk][2 * hh + 1]);
+    }
+  }
+}
+
+// q (G, C, Hkv, Gq, D); grid (G Hkv, ceil(C / bq), key splits) as
+// paged_prefill_mma_kernel's, 128 (nc + 1) threads for nc = ceil(bq Gq /
+// 64) consumer warpgroups: block rows position-major (row i = position
+// row0 + i / Gq, head i % Gq), 64 a consumer.  Maps over the pools as
+// (D, Hkv, page, N): k_map / v_map the bf16 values (64-column boxes of a
+// page, 128B swizzle) or the int8 codes (D-byte rows of a page), kr_map /
+// vr_map the sc residuals (int8, sc only; otherwise copies nothing
+// reads).  A page past the chunk's last is read as page n_pages, past the
+// pool: TMA fills it with zeros and reads nothing.  Outputs, partials and
+// their merge as paged_prefill_mma_kernel's, m of a partial in log2 units
+// (paged_prefill_combine_kernel<D, true>).
+template <int D, int KIND>
+__global__ void __launch_bounds__(PW_THREADS, 1)
+paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map,
+                           const __grid_constant__ CUtensorMap kr_map,
+                           const __grid_constant__ CUtensorMap vr_map,
+                           const __nv_bfloat16* __restrict__ q,
+                           const float* __restrict__ k_scale,
+                           const float* __restrict__ v_scale,
+                           const int* __restrict__ tables,
+                           __nv_bfloat16* __restrict__ out,
+                           float* __restrict__ part, int C, int Hkv, int Gq,
+                           int width, int start, int bq, int n_pages) {
+  using L = PwLayout<D, KIND>;
+  constexpr int TPS = PF_SPLIT_KEYS / PF_BK;         // tiles a split
+  constexpr float SCL = KIND == KV_SC ? 1.0f / (1 << SC_SHIFT) : 1.0f;
+  constexpr float CL = LOG2E / sqrt_d<D>();          // logits -> log2 units
+  extern __shared__ __align__(1024) unsigned char pw_smem[];
+  const uint32_t base = (smem_u32(pw_smem) + 1023) & ~1023u;
+  unsigned char* const sm = pw_smem + (base - smem_u32(pw_smem));
+  const uint32_t k_full = base + L::BAR_OFF;
+  const uint32_t v_full = k_full + 8 * L::STAGES;
+  const uint32_t empty = v_full + 8 * L::STAGES;
+  const uint32_t raw_full = empty + 8 * L::STAGES;
+  int* const tab_s = reinterpret_cast<int*>(sm + L::TAB_OFF);
+  // stage st's K scales at scale_s + 2 st PF_BK, its V scales after them
+  float* const scale_s = reinterpret_cast<float*>(sm + L::SCALE_OFF);
+
+  const int g = blockIdx.x / Hkv, h = blockIdx.x - g * Hkv;
+  const int row0 = blockIdx.y * bq;                  // first position
+  const int n_rows = min(bq, C - row0) * Gq;         // real rows
+  const int hi_pos = start + row0 + (n_rows - 1) / Gq;
+  const int j = blockIdx.z, NS = gridDim.z;
+  const int t0 = j * TPS;
+  if (t0 * PF_BK > hi_pos) return;                   // wholly in the future
+  const int n_tiles = min(hi_pos / PF_BK + 1, t0 + TPS) - t0;
+  const int live_pages = (start + C) / PW_PAGE;      // pages holding keys
+  const int nc = blockDim.x / 128 - 1;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(k_full + 8 * s, KIND == KV_BF16 ? 1 : 128);
+      mbar_init(v_full + 8 * s, KIND == KV_BF16 ? 1 : 128);
+      mbar_init(empty + 8 * s, 128 * nc);
+    }
+    for (int s = 0; s < L::RAW_STAGES; ++s) mbar_init(raw_full + 8 * s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == nc) {
+    // the producer warpgroup
+    setmaxnreg_dec<L::PRODUCER_REGS>();
+    const int pt = threadIdx.x - 128 * nc;
+    // the block's table lanes; past the chunk's last page, n_pages
+    const int* tab = tables + static_cast<size_t>(g) * width;
+    for (int i = pt; i < 4 * n_tiles; i += 128) {
+      const int pg = (PF_BK / PW_PAGE) * t0 + i;
+      tab_s[i] = pg < live_pages ? tab[pg] : n_pages;
+    }
+    named_sync(1, 128);
+    if constexpr (KIND == KV_BF16) {
+      // one thread loads each tile's pages straight into a stage
+      if (pt == 0) {
+        for (int t = 0; t < n_tiles; ++t) {
+          const int st = t % L::STAGES;
+          if (t >= L::STAGES)
+            mbar_wait(empty + 8 * st, (t / L::STAGES - 1) & 1);
+          const uint32_t kd = base + st * 2 * L::TILE;
+          mbar_expect_tx(k_full + 8 * st, L::TILE);
+#pragma unroll
+          for (int p = 0; p < PF_BK / PW_PAGE; ++p)
+#pragma unroll
+            for (int c = 0; c < L::BOXES; ++c)
+              tma_load_4d(kd + c * PF_BK * 128 + p * PW_PAGE * 128, &k_map,
+                          k_full + 8 * st, 64 * c, h, 0, tab_s[4 * t + p]);
+          mbar_expect_tx(v_full + 8 * st, L::TILE);
+#pragma unroll
+          for (int p = 0; p < PF_BK / PW_PAGE; ++p)
+#pragma unroll
+            for (int c = 0; c < L::BOXES; ++c)
+              tma_load_4d(kd + L::TILE + c * PF_BK * 128 + p * PW_PAGE * 128,
+                          &v_map, v_full + 8 * st, 64 * c, h, 0,
+                          tab_s[4 * t + p]);
+        }
+      }
+    } else {
+      // one thread keeps the raw ring full; the warpgroup widens each raw
+      // tile into a stage and loads the tile's scales (thread pt: key
+      // pt % PF_BK, of K below PF_BK, of V from it)
+      auto issue_raw = [&](int t) {
+        const int rs = t % L::RAW_STAGES;
+        const uint32_t rd = base + L::RAW_OFF + rs * L::RAW;
+        const uint32_t bar = raw_full + 8 * rs;
+        mbar_expect_tx(bar, L::RAW);
+#pragma unroll
+        for (int p = 0; p < PF_BK / PW_PAGE; ++p) {
+          const int phys = tab_s[4 * t + p];
+          const uint32_t off = p * PW_PAGE * D;
+          tma_load_4d(rd + off, &k_map, bar, 0, h, 0, phys);
+          tma_load_4d(rd + L::RAW_TILE + off, &v_map, bar, 0, h, 0, phys);
+          if constexpr (KIND == KV_SC) {
+            tma_load_4d(rd + 2 * L::RAW_TILE + off, &kr_map, bar, 0, h, 0,
+                        phys);
+            tma_load_4d(rd + 3 * L::RAW_TILE + off, &vr_map, bar, 0, h, 0,
+                        phys);
+          }
+        }
+      };
+      if (pt == 0)
+        for (int t = 0; t < L::RAW_STAGES - 1 && t < n_tiles; ++t)
+          issue_raw(t);
+      const float* scales = pt < PF_BK ? k_scale : v_scale;
+      const int key = pt % PF_BK;
+      // this thread's scale of tile t (0 past the chunk's last page),
+      // loaded a tile ahead of its use
+      auto scale_of = [&](int t) {
+        const int phys = tab_s[4 * t + key / PW_PAGE];
+        return phys < n_pages
+                   ? scales[(static_cast<size_t>(phys) * PW_PAGE +
+                             key % PW_PAGE) * Hkv + h] * SCL
+                   : 0.f;
+      };
+      constexpr int UNITS = PF_BK * D / 16;          // 16 codes a unit
+      static_assert(UNITS % 128 == 0, "whole units a producer thread");
+      float sc_next = scale_of(0);
+      for (int t = 0; t < n_tiles; ++t) {
+        // raw stage (t - 1) % RAW_STAGES was read by every thread
+        if (pt == 0 && t + L::RAW_STAGES - 1 < n_tiles)
+          issue_raw(t + L::RAW_STAGES - 1);
+        const float sc = sc_next;
+        if (t + 1 < n_tiles) sc_next = scale_of(t + 1);
+        const int st = t % L::STAGES;
+        if (t >= L::STAGES) mbar_wait(empty + 8 * st, (t / L::STAGES - 1) & 1);
+        mbar_wait(raw_full + 8 * (t % L::RAW_STAGES),
+                  (t / L::RAW_STAGES) & 1);
+        const unsigned char* raw =
+            sm + L::RAW_OFF + (t % L::RAW_STAGES) * L::RAW;
+        unsigned char* tile = sm + st * 2 * L::TILE;
+#pragma unroll
+        for (int kv = 0; kv < 2; ++kv) {             // K, then V
+#pragma unroll
+          for (int i = 0; i < UNITS / 128; ++i) {
+            const int u = pt + 128 * i;
+            const int r = u / (D / 16), cu = u % (D / 16);
+            const uint4 code = *reinterpret_cast<const uint4*>(
+                raw + kv * L::RAW_TILE + r * D + cu * 16);
+            uint4 resid = make_uint4(0, 0, 0, 0);
+            if constexpr (KIND == KV_SC)
+              resid = *reinterpret_cast<const uint4*>(
+                  raw + (2 + kv) * L::RAW_TILE + r * D + cu * 16);
+            uint32_t w[8];
+            widen_joined<KIND>(code, resid, w);
+            // columns 16 cu .. + 15: chunks 2 (cu % 4) and + 1 of box cu / 4
+            unsigned char* row = tile + kv * L::TILE +
+                                 (cu / 4) * PF_BK * 128 + r * 128;
+            const int c0 = 2 * (cu % 4);
+            *reinterpret_cast<uint4*>(row + ((c0 ^ (r & 7)) << 4)) =
+                make_uint4(w[0], w[1], w[2], w[3]);
+            *reinterpret_cast<uint4*>(row + (((c0 + 1) ^ (r & 7)) << 4)) =
+                make_uint4(w[4], w[5], w[6], w[7]);
+          }
+          if ((pt >= PF_BK) == (kv == 1))
+            scale_s[(2 * st + kv) * PF_BK + key] = sc;
+          fence_async_smem();                        // for wgmma's reads
+          mbar_arrive((kv == 0 ? k_full : v_full) + 8 * st);
+        }
+        named_sync(1, 128);
+      }
+    }
+  } else {
+    // a consumer: 64 rows, 16 a warp
+    setmaxnreg_inc<L::CONSUMER_REGS>();
+    const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
+    const int tq = lane & 3;
+    // this warpgroup's q rows into its boxes (rows past the block zero)
+    const uint32_t qs = base + L::Q_OFF + wg * L::Q_WG;
+    for (int e = tid; e < 64 * (D / 8); e += 128) {
+      const int i = e / (D / 8), k = e % (D / 8);
+      const int bi = 64 * wg + i;
+      const bool in = bi < n_rows;
+      const size_t src =
+          in ? ((((static_cast<size_t>(g) * C + row0 + bi / Gq) * Hkv + h) *
+                     Gq + bi % Gq) * D + 8 * k)
+             : 0;
+      cp_async16(qs + (k / 8) * 64 * 128 + i * 128 + (((k % 8) ^ (i & 7)) << 4),
+                 q + src, in);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_async_smem();
+    named_sync(2 + wg, 128);
+
+    const int r_lo = 64 * wg + 16 * warp + (lane >> 2);   // and r_lo + 8
+    const int p_row[2] = {start + row0 + r_lo / Gq,
+                          start + row0 + (r_lo + 8) / Gq};
+    const int w_pos_lo = start + row0 + (64 * wg + 16 * warp) / Gq;
+    float o[L::BOXES][32];
+#pragma unroll
+    for (int cc = 0; cc < L::BOXES; ++cc)
+#pragma unroll
+      for (int e = 0; e < 32; ++e) o[cc][e] = 0.f;
+    float m_r[2] = {NEG_BIG, NEG_BIG};
+    float l_r[2] = {0.f, 0.f};
+    float s[32];                                     // S of the tile
+    float corr[2];
+    uint32_t p_hi[PF_BK / 16][4], p_lo[PF_BK / 16][4];
+
+    // descriptors, built once: q's boxes, stage 0's K boxes (K-major: 8-row
+    // groups 1024 bytes apart) and V boxes (MN-major through the
+    // transpose bit), moved by adding byte offsets / 16
+    const uint64_t dq = wgmma_desc(qs, 16, 1024, 1);
+    const uint64_t dk = wgmma_desc(base, 16, 1024, 1);
+    const uint64_t dv = wgmma_desc(base + L::TILE, 1024, 1024, 1);
+    auto issue_qk = [&](int t) {
+      const uint32_t st = ((t % L::STAGES) * 2 * L::TILE) >> 4;
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks) {
+        const uint32_t off = 32 * (ks % 4);
+        wgmma_n64_ss(s, dq + (((ks / 4) * 64 * 128 + off) >> 4),
+                     dk + st + (((ks / 4) * PF_BK * 128 + off) >> 4),
+                     ks > 0);
+      }
+    };
+    // O += P V of tile t, the hi products then the lo ones
+    auto issue_pv = [&](int t) {
+      const uint32_t st = ((t % L::STAGES) * 2 * L::TILE) >> 4;
+#pragma unroll
+      for (int kk = 0; kk < PF_BK / 16; ++kk)
+#pragma unroll
+        for (int cc = 0; cc < L::BOXES; ++cc)
+          wgmma_n64_rs(o[cc], p_hi[kk],
+                       dv + st + ((cc * PF_BK * 128 + kk * 16 * 128) >> 4));
+#pragma unroll
+      for (int kk = 0; kk < PF_BK / 16; ++kk)
+#pragma unroll
+        for (int cc = 0; cc < L::BOXES; ++cc)
+          wgmma_n64_rs(o[cc], p_lo[kk],
+                       dv + st + ((cc * PF_BK * 128 + kk * 16 * 128) >> 4));
+    };
+    // after a wait: the accumulators hold the products' sums, and P's
+    // registers, which P V reads as they run, stayed live until here
+    auto landed = [&]() {
+      fence_regs(s);
+#pragma unroll
+      for (int cc = 0; cc < L::BOXES; ++cc) fence_regs(o[cc]);
+#pragma unroll
+      for (int kk = 0; kk < PF_BK / 16; ++kk) {
+        fence_regs(p_hi[kk]);
+        fence_regs(p_lo[kk]);
+      }
+    };
+    // the weights of tile t (its K scales landed with k_full); the mask
+    // only on a tile that reaches this warp's first position
+    auto weights = [&](int t) {
+      const int key0 = (t0 + t) * PF_BK;
+      const float* ks = scale_s + 2 * (t % L::STAGES) * PF_BK;
+      if (key0 + PF_BK - 1 > w_pos_lo)
+        pw_weights<KIND, true>(s, m_r, l_r, corr, ks, CL, key0, p_row, tq);
+      else
+        pw_weights<KIND, false>(s, m_r, l_r, corr, ks, CL, key0, p_row, tq);
+    };
+    auto pack = [&](int t) {
+      pw_pack<D, KIND>(s, corr, o, p_hi, p_lo,
+                       scale_s + (2 * (t % L::STAGES) + 1) * PF_BK, tq);
+    };
+
+    // Two consumer warpgroups take turns at the tensor cores (named
+    // barriers 4 and 5): one issues P V of tile t and q K^T of tile t + 1
+    // while the other runs its softmax.  Warpgroup 1 lets warpgroup 0 go
+    // first; a warpgroup hands the turn on after each of its issues but
+    // its last.  No wgmma sits in a branch (ptxas would serialize them
+    // all): the first q K^T and the last P V have steps of their own.
+    const bool pp = nc == 2;
+    const int turn = 4 + wg, other = 5 - wg;
+    if (pp && wg == 1) named_arrive(other, 256);
+    mbar_wait(k_full, 0);
+    if (pp) named_sync(turn, 256);
+    wgmma_fence();
+    issue_qk(0);
+    wgmma_commit();
+    if (pp) named_arrive(other, 256);
+    wgmma_wait<0>();
+    fence_regs(s);
+    weights(0);
+    for (int t = 0; t < n_tiles - 1; ++t) {
+      const int st = t % L::STAGES;
+      mbar_wait(v_full + 8 * st, (t / L::STAGES) & 1);
+      pack(t);
+      mbar_wait(k_full + 8 * ((t + 1) % L::STAGES),
+                ((t + 1) / L::STAGES) & 1);
+      if (pp) named_sync(turn, 256);
+      wgmma_fence();
+      issue_qk(t + 1);
+      wgmma_commit();
+      issue_pv(t);
+      wgmma_commit();
+      if (pp) named_arrive(other, 256);
+      // tile t + 1's weights while its P V runs: they read S alone
+      wgmma_wait<1>();
+      fence_regs(s);
+      weights(t + 1);
+      wgmma_wait<0>();
+      landed();
+      mbar_arrive(empty + 8 * st);                   // stage st is read
+    }
+    const int last = n_tiles - 1;
+    mbar_wait(v_full + 8 * (last % L::STAGES), (last / L::STAGES) & 1);
+    pack(last);
+    if (pp) named_sync(turn, 256);
+    wgmma_fence();
+    issue_pv(last);
+    wgmma_commit();
+    if (pp && wg == 0) named_arrive(other, 256);
+    wgmma_wait<0>();
+    landed();
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 1);
+      l_r[i] += __shfl_xor_sync(0xffffffffu, l_r[i], 2);
+      const int row = r_lo + 8 * i;
+      // a row writes only from the splits up to its own position's
+      if (row >= n_rows || j > p_row[i] / PF_SPLIT_KEYS) continue;
+      const size_t rid =
+          ((static_cast<size_t>(g) * C + row0 + row / Gq) * Hkv + h) * Gq +
+          row % Gq;
+      if (p_row[i] < PF_SPLIT_KEYS) {                // one split: done
+        const float lc = fmaxf(l_r[i], 1e-30f);
+        __nv_bfloat16* op = out + rid * D + 2 * tq;
+#pragma unroll
+        for (int cc = 0; cc < L::BOXES; ++cc)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(op + 64 * cc + 8 * n) =
+                __floats2bfloat162_rn(o[cc][4 * n + 2 * i] / lc,
+                                      o[cc][4 * n + 2 * i + 1] / lc);
+      } else {
+        const size_t pr = rid * NS + j;
+        float* ap = part + pr * D + 2 * tq;
+#pragma unroll
+        for (int cc = 0; cc < L::BOXES; ++cc)
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            *reinterpret_cast<float2*>(ap + 64 * cc + 8 * n) =
+                make_float2(o[cc][4 * n + 2 * i], o[cc][4 * n + 2 * i + 1]);
+        if (tq == 0) {
+          const size_t n_part =
+              static_cast<size_t>(gridDim.x) * C * Gq * NS;   // rows x NS
+          part[n_part * D + pr] = __fmul_rn(m_r[i], CL);      // base
+          part[n_part * (D + 1) + pr] = l_r[i];
+        }
+      }
+    }
+  }
+}
+
 // The log-sum-exp merge of a prefill row's key splits, in split order;
 // rows in split 0 are done.  One thread per (row, dim), rows in q's
-// (G, C, Hkv, Gq) order.
-template <int D>
+// (G, C, Hkv, Gq) order.  A split's m is a logit (LOG2 false:
+// paged_prefill_mma_kernel's) or its weights' base in log2 units (LOG2:
+// paged_prefill_wgmma_kernel's).
+template <int D, bool LOG2>
 __global__ void __launch_bounds__(256) paged_prefill_combine_kernel(
     const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
     int rows, int C, int HG, int start, int NS) {
@@ -967,7 +1563,8 @@ __global__ void __launch_bounds__(256) paged_prefill_combine_kernel(
   for (int j = 0; j < n_split; ++j) ms = fmaxf(ms, part[n_part * D + r0 + j]);
   float L = 0.f, A = 0.f;
   for (int j = 0; j < n_split; ++j) {
-    const float a = expf(part[n_part * D + r0 + j] - ms);
+    const float x = part[n_part * D + r0 + j] - ms;
+    const float a = LOG2 ? exp2f(x) : expf(x);
     L += part[n_part * (D + 1) + r0 + j] * a;
     A += part[(r0 + j) * D + d] * a;
   }
@@ -980,9 +1577,10 @@ __global__ void __launch_bounds__(256) paged_prefill_combine_kernel(
 // ---------------------------------------------------------------------------
 
 // Geometry::kernel of the paged launchers: the CUDA-core kernel
-// (decode_kernel / prefill_kernel) or the tensor-core one
-// (paged_decode_split_kernel / paged_prefill_mma_kernel)
-enum PagedKernel { PG_F32 = 0, PG_MMA = 1 };
+// (decode_kernel / prefill_kernel), the mma.sync one
+// (paged_decode_split_kernel / paged_prefill_mma_kernel) or the wgmma
+// prefill (paged_prefill_wgmma_kernel)
+enum PagedKernel { PG_F32 = 0, PG_MMA = 1, PG_WGMMA = 2 };
 
 template <int V>
 using Int = std::integral_constant<int, V>;
@@ -998,6 +1596,17 @@ int with_d(int D, const char* name, F f) {
     default:
       return refuse("%s: head dim %d is not one of 16, 32, 64, 128", name,
                     D);
+  }
+}
+// the wgmma prefill's head dims
+template <typename F>
+int with_wgmma_d(int D, F f) {
+  switch (D) {
+    case 64: return f(Int<64>{});
+    case 128: return f(Int<128>{});
+    default:
+      return refuse("paged_attn_prefill: the wgmma kernel takes head dim 64 "
+                    "or 128, got %d", D);
   }
 }
 template <typename F>
@@ -1036,6 +1645,13 @@ int bf16_route_check(const char* name, const void* q, const Pools& p,
 // float32 q or float32 pools run the CUDA-core kernels
 bool f32_route(int q_dtype, int kv_kind) {
   return q_dtype == Q_F32 || kv_kind == KV_F32;
+}
+
+// bf16 q over bf16 / int8 / sc pools at head dim 64 or 128 on the
+// engine's 16-position pages runs the wgmma prefill; other head dims and
+// page sizes the mma.sync one.  Never chosen by block_q, C or start.
+bool wgmma_route(int D, int page) {
+  return (D == 64 || D == 128) && page == PW_PAGE;
 }
 
 // The decode launch's geometry, after the checks of its sizes and codes.
@@ -1125,24 +1741,39 @@ int prefill_geometry(int G, int C, int Hkv, int Gq, int D, int page,
   int bq = block_q;
   if (bq > C) bq = C;
   if (bq > PF_MAX_ROWS / Gq) bq = PF_MAX_ROWS / Gq;
-  const int warps = (bq * Gq + 15) / 16;
-  int rc = with_d(D, "paged_attn_prefill", [&](auto d) {
-    return with_kind(kv_kind, [&](auto k) {
-      g.smem = static_cast<long long>(
-          PfLayout<decltype(d)::value, decltype(k)::value>::bytes(16 *
-                                                                   warps));
-      return 0;
+  int rc;
+  if (wgmma_route(D, page)) {
+    // a producer warpgroup and a consumer warpgroup each 64 rows
+    const int consumers = (bq * Gq + 63) / 64;
+    rc = with_wgmma_d(D, [&](auto d) {
+      return with_kind(kv_kind, [&](auto k) {
+        g.smem = static_cast<long long>(
+            PwLayout<decltype(d)::value, decltype(k)::value>::BYTES);
+        return 0;
+      });
     });
-  });
+    g.kernel = PG_WGMMA;
+    g.threads = 128 * (consumers + 1);
+  } else {
+    const int warps = (bq * Gq + 15) / 16;
+    rc = with_d(D, "paged_attn_prefill", [&](auto d) {
+      return with_kind(kv_kind, [&](auto k) {
+        g.smem = static_cast<long long>(
+            PfLayout<decltype(d)::value, decltype(k)::value>::bytes(16 *
+                                                                     warps));
+        return 0;
+      });
+    });
+    g.kernel = PG_MMA;
+    g.threads = 32 * warps;
+  }
   if (rc) return rc;
   // grid (G Hkv, ceil(C / bq), NS): block (request and KV head, q-block,
   // key split)
   const int NS = (start + C + PF_SPLIT_KEYS - 1) / PF_SPLIT_KEYS;
-  g.kernel = PG_MMA;
   g.grid[0] = G * Hkv;
   g.grid[1] = (C + bq - 1) / bq;
   g.grid[2] = NS;
-  g.threads = 32 * warps;
   g.splits = NS;
   g.block = bq;
   if (NS > 1) {
@@ -1273,7 +1904,63 @@ int prefill_mma(const Geometry& g, const void* q, const Pools& pools,
   rc = static_cast<int>(cudaGetLastError());
   if (rc || g.combine_grid == 0) return rc;
   const int rows = G * C * Hkv * Gq;
-  paged_prefill_combine_kernel<D>
+  paged_prefill_combine_kernel<D, false>
+      <<<static_cast<unsigned>(g.combine_grid),
+         static_cast<int>(g.combine_threads), 0, stream>>>(
+          part, o, rows, C, Hkv * Gq, start, NS);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, int KIND>
+int prefill_wgmma(const Geometry& g, const void* q, const Pools& pools,
+                  const void* tables, void* out, void* scratch, int G, int C,
+                  int Hkv, int Gq, int width, int start, int n_pages,
+                  cudaStream_t stream) {
+  // the pools as (D, Hkv, page, N): bf16 values in 64-column boxes of a
+  // page, 128B swizzle; int8 codes and residuals in D-byte rows of a page
+  constexpr bool BF = KIND == KV_BF16;
+  constexpr cuuint64_t ISZ = BF ? 2 : 1;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(Hkv), PW_PAGE,
+                              static_cast<cuuint64_t>(n_pages)};
+  const cuuint64_t strides[3] = {D * ISZ, Hkv * D * ISZ,
+                                 PW_PAGE * Hkv * D * ISZ};
+  const cuuint32_t box[4] = {BF ? 64u : static_cast<cuuint32_t>(D), 1,
+                             PW_PAGE, 1};
+  CUtensorMap maps[4];
+  for (int a = 0; a < 4; ++a) {
+    if (a >= Raw<D, KIND>::NARR) {                 // read by no one
+      maps[a] = maps[a - 2];
+      continue;
+    }
+    if (int rc = tensor_map_4d(
+            &maps[a], "paged_attn_prefill",
+            BF ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+               : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+            pools.arr[a], dims, strides, box,
+            BF ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE))
+      return rc;
+  }
+  const size_t smem = static_cast<size_t>(g.smem);
+  int rc = prepare_smem(paged_prefill_wgmma_kernel<D, KIND>, smem,
+                        "paged_attn_prefill");
+  if (rc) return rc;
+  const int NS = static_cast<int>(g.splits);
+  auto* o = static_cast<__nv_bfloat16*>(out);
+  auto* part = static_cast<float*>(scratch);
+  paged_prefill_wgmma_kernel<D, KIND>
+      <<<dim3(static_cast<unsigned>(g.grid[0]),
+              static_cast<unsigned>(g.grid[1]),
+              static_cast<unsigned>(g.grid[2])),
+         static_cast<int>(g.threads), smem, stream>>>(
+          maps[0], maps[1], maps[2], maps[3],
+          static_cast<const __nv_bfloat16*>(q), pools.scale[0],
+          pools.scale[1], static_cast<const int*>(tables), o, part, C, Hkv,
+          Gq, width, start, static_cast<int>(g.block), n_pages);
+  rc = static_cast<int>(cudaGetLastError());
+  if (rc || g.combine_grid == 0) return rc;
+  const int rows = G * C * Hkv * Gq;
+  paged_prefill_combine_kernel<D, true>
       <<<static_cast<unsigned>(g.combine_grid),
          static_cast<int>(g.combine_threads), 0, stream>>>(
           part, o, rows, C, Hkv * Gq, start, NS);
@@ -1353,12 +2040,13 @@ extern "C" int paged_attn_decode_launch(
 // scratch: float32, G C Hkv Gq NS (D + 2) floats when the chunk's keys
 // span NS > 1 prefill splits (NS = ceil((start + C) / PF_SPLIT_KEYS);
 // used by bf16 q over bf16 / int8 / sc pools), else may be null.
+// n_pages: the pools' N (the wgmma kernel's tensor maps span them).
 extern "C" int paged_attn_prefill_launch(
     const void* q, const void* k_pages, const void* v_pages,
     const void* k_scale, const void* v_scale, const void* k_resid,
     const void* v_resid, const void* tables, void* out, void* scratch,
     int G, int C, int Hkv, int Gq, int D, int page, int width, int start,
-    int block_q, int q_dtype, int kv_kind, void* stream) {
+    int block_q, int n_pages, int q_dtype, int kv_kind, void* stream) {
   Geometry g;
   if (int rc = prefill_geometry(G, C, Hkv, Gq, D, page, width, start,
                                 block_q, q_dtype, kv_kind, g))
@@ -1374,6 +2062,17 @@ extern "C" int paged_attn_prefill_launch(
                      static_cast<const float*>(v_scale)}};
   if (int rc = bf16_route_check("paged_attn_prefill", q, pools, kv_kind))
     return rc;
+  if (g.kernel == PG_WGMMA) {
+    if (n_pages < 1)
+      return refuse("paged_attn_prefill: the pools hold %d pages", n_pages);
+    return with_wgmma_d(D, [&](auto d) {
+      return with_kind(kv_kind, [&](auto k) {
+        return prefill_wgmma<decltype(d)::value, decltype(k)::value>(
+            g, q, pools, tables, out, scratch, G, C, Hkv, Gq, width, start,
+            n_pages, st);
+      });
+    });
+  }
   const int ps = page_shift(page);
   return with_d(D, "paged_attn_prefill", [&](auto d) {
     return with_kind(kv_kind, [&](auto k) {

@@ -186,13 +186,16 @@ def _decode_cases() -> list:
 def _prefill_cases() -> list:
     """Phase 3's prefill chunks (the second chunk of a 128-token prompt,
     at block_q 32 and 16; the last 64-token chunk of a 4096-token
-    prompt; jamba's head dim 128), the engines' second 64-token chunk of
-    phase 4's 128-token prompt, and the tiny float32 engines' chunk."""
+    prompt; jamba's head dim 128; qwen3-moe's GQA group of 16 at both
+    chunks), the engines' second 64-token chunk of phase 4's 128-token
+    prompt, and the tiny float32 engines' chunk."""
     q = _arch("qwen3-moe-235b-a22b")
     shapes = [("serving", 4, 8, 4, 64, 64, 8, 32),
               ("serving bq16", 4, 8, 4, 64, 64, 8, 16),
               ("4096", 4, 8, 4, 64, 4032, 256, 32),
               ("jamba D128", 4, 8, 8, 128, 64, 8, 32),
+              ("qwen3 Gq16", 4, 4, 16, 64, 64, 8, 32),
+              ("qwen3 Gq16 4096", 4, 4, 16, 64, 4032, 256, 32),
               ("granite engine", 4, 8, 4, 64, 64, 16, 32),
               ("qwen3 engine", 4, q.n_kv_heads, q.n_heads // q.n_kv_heads,
                q.head_dim, 64, 16, 32)]

@@ -4,10 +4,11 @@ Port of ``repro.kernels.paged_attention``.  The kernels
 (``csrc/paged_attention.cu``) read K/V pages straight through the page
 tables and dequantize int8 / sc pools on load; their plain versions are
 ``kernels/ref.py``'s ``paged_attn_decode_ref`` / ``paged_attn_prefill_ref``.
-bf16 q over bf16 / int8 / sc pools runs the tensor-core kernels, whose
-positions are split by absolute position (the splits' partials go to a
-scratch buffer the wrapper allocates); float32 q or pools run the
-CUDA-core kernels.
+bf16 q over bf16 / int8 / sc pools runs the tensor-core kernels (the
+prefill at D 64 / 128 on 16-position pages the ``wgmma`` one, elsewhere
+``mma.sync``), whose positions are split by absolute position (the
+splits' partials go to a scratch buffer the wrapper allocates); float32
+q or pools run the CUDA-core kernels.
 Layouts are the reference's: q (S, Hkv, G, D) for decode and
 (G, C, Hkv, Gq, D) for prefill, pools (N, page, Hkv, D), scales
 (N, page, Hkv), int32 tables and lengths.
@@ -155,9 +156,16 @@ def paged_attn_prefill_cuda(q: torch.Tensor, k_pages: torch.Tensor,
     ``start`` are multiples of the page size; the pools already hold the
     chunk's K/V; page_tables (G, width) int32 with width >= (start+C)/page.
     Causal mask ``k_pos <= start + row``.  bf16 q over bf16 / int8 / sc
-    pools runs the tensor-core kernel: a block holds ``block_q`` positions
-    (at most 128 / Gq) of all Gq heads of one KV head, and a row's result
-    does not depend on ``block_q``.  Returns q's shape and dtype.
+    pools runs a tensor-core kernel, chosen by head dim and page size
+    only: at D 64 and 128 on 16-position pages (the engine's)
+    ``paged_prefill_wgmma_kernel`` (a TMA producer warpgroup, ``wgmma``
+    consumer warpgroups of 64 rows; int8 / sc codes widened on the card,
+    sc's code and residual joined into one bf16 operand), at other head
+    dims and pages ``paged_prefill_mma_kernel`` (``mma.sync``).  A block
+    holds ``block_q`` positions (at most 128 / Gq) of all Gq heads of one
+    KV head, and a row's result does not depend on ``block_q``, C,
+    ``start`` or the other requests.  float32 q or pools run the CUDA-core
+    ``prefill_kernel``.  Returns q's shape and dtype.
     """
     kind = _pools(q, kv_format, k_pages, v_pages, k_scale, v_scale,
                   k_resid, v_resid)
@@ -202,6 +210,6 @@ def _prefill_op(q: torch.Tensor, k_pages: torch.Tensor,
            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
            _ptr(k_scale), _ptr(v_scale), _ptr(k_resid), _ptr(v_resid),
            page_tables.data_ptr(), out.data_ptr(), _ptr(scratch), G, C, Hkv,
-           Gq, D, page, width, start, bq, _Q_DTYPES[q.dtype], kind,
-           stream_of(q))
+           Gq, D, page, width, start, bq, k_pages.shape[0],
+           _Q_DTYPES[q.dtype], kind, stream_of(q))
     return out

@@ -316,6 +316,88 @@ def test_prefill_bf16_kernel_head_geometries(cuda, fmt, D, Gq, page):
     torch.testing.assert_close(got.float(), want.float(), **BF16_O)
 
 
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+@pytest.mark.parametrize("Gq,D,C,start", [
+    (16, 64, 16, 64), (16, 64, 48, 992), (16, 128, 32, 2064),
+    (8, 128, 16, 0), (4, 128, 48, 1024)])
+def test_prefill_bf16_wgmma_chunk_ends_off_the_tile(cuda, fmt, Gq, D, C,
+                                                    start):
+    """The wgmma kernel at qwen3-moe's GQA group (16) and at D 128, the
+    chunk ending inside a 64-key tile (its last pages past the chunk read
+    as zeros, never looked up): against the plain version, and bit for bit
+    with every page past the chunk and the trash page poisoned."""
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 3, C, start,
+                                               Hkv=2, Gq=Gq, D=D,
+                                               seed=Gq + D + start)
+    args = (q, pools["k_pages"], pools["v_pages"], tables)
+    got = paged_attn_prefill_cuda(*args, start=start, kv_format=fmt, **aux)
+    want = paged_attn_prefill_ref(*args, start, kv_format=fmt, kv_aux=aux)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **BF16_O)
+    seen = (start + C) // 16
+    tab = tables.tolist()
+    dead = {0} | {tab[g][j] for g in range(3)
+                  for j in range(seen, tables.shape[1])}
+    pp = _poisoned(pools, dead)
+    paux = {k: v for k, v in pp.items() if not k.endswith("_pages")}
+    pois = paged_attn_prefill_cuda(q, pp["k_pages"], pp["v_pages"], tables,
+                                   start=start, kv_format=fmt, **paux)
+    assert torch.equal(got, pois)
+
+
+@pytest.mark.parametrize("fmt,kind", [("fp", 1), ("int8", 2), ("sc", 3)])
+def test_prefill_bf16_route_by_head_dim_and_page(cuda, fmt, kind):
+    """bf16 q at D 64 and 128 on 16-position pages reaches the wgmma
+    kernel (the launch's C geometry, and the profiler's kernel name), at
+    every block_q; other head dims and pages the mma.sync kernel, float32
+    q the CUDA-core one; the plan's route agrees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import plan as kp
+    for D, page, q_dtype, code in ((64, 16, 1, 2), (128, 16, 1, 2),
+                                   (64, 32, 1, 1), (128, 8, 1, 1),
+                                   (32, 16, 1, 1), (16, 16, 1, 1),
+                                   (64, 16, 0, 0)):
+        for block_q in (1, 8, 32, 64):
+            geo = build.geometry("paged_attn_prefill_geometry", 2, 64, 2, 4,
+                                 D, page, 256 // page, 128, block_q,
+                                 q_dtype, kind)
+            assert geo["kernel"] == code, (D, page, q_dtype, block_q, geo)
+            assert kp.paged_prefill_kernel_code(D, page, kind,
+                                                q_dtype) == code
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 2, 64, 64)
+    args = (q, pools["k_pages"], pools["v_pages"], tables)
+    paged_attn_prefill_cuda(*args, start=64, kv_format=fmt, **aux)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            paged_attn_prefill_cuda(*args, start=64, kv_format=fmt, **aux)
+        torch.cuda.synchronize()
+    names = {re.search(r"(\w+_kernel)\b", e.key).group(1)
+             for e in prof.key_averages() if "prefill" in e.key}
+    assert names == {"paged_prefill_wgmma_kernel"}, names
+
+
+@pytest.mark.parametrize("fmt", ["fp", "int8", "sc"])
+@pytest.mark.parametrize("block_q", [4, 8, 16, 24, 32, 64])
+def test_prefill_bf16_request_alone_equals_beside_others(cuda, fmt,
+                                                         block_q):
+    """Bit for bit, at every block_q: a request's rows prefilled alone
+    (its own table row, cut to its pages) equal its rows among three
+    requests, over a chunk that crosses a 1024-key split."""
+    q, pools, aux, tables = _bf16_prefill_case(cuda, fmt, 3, 128, 960,
+                                               Hkv=2, Gq=4, seed=block_q)
+    kv = (pools["k_pages"], pools["v_pages"])
+    batch = paged_attn_prefill_cuda(q, *kv, tables, start=960,
+                                    block_q=block_q, kv_format=fmt, **aux)
+    for g in range(3):
+        alone = paged_attn_prefill_cuda(
+            q[g:g + 1].contiguous(), *kv,
+            tables[g:g + 1, :(960 + 128) // 16].contiguous(), start=960,
+            block_q=block_q, kv_format=fmt, **aux)
+        assert torch.equal(alone[0], batch[g]), g
+
+
 def _poisoned(pools, pages):
     out = {k: v.clone() for k, v in pools.items()}
     idx = torch.as_tensor(sorted(pages), device=next(iter(pools.values()))
@@ -373,11 +455,11 @@ def test_bf16_q_over_float32_pools_matches_plain(cuda):
 
 def test_paged_kernels_by_dtype_and_one_launch_per_call(cuda):
     """By the profiler's kernel names: bf16 q runs the split decode (and
-    its combine when a lane has several splits) and the tensor-core
-    prefill (and its combine when the keys span several splits); float32
-    q the CUDA-core kernels.  Each call counts one launch.  The calls run
-    three times under the profiler, which now and then drops a session's
-    first kernel records."""
+    its combine when a lane has several splits) and the wgmma prefill at
+    D 64 on 16-position pages (and its combine when the keys span several
+    splits); float32 q the CUDA-core kernels.  Each call counts one
+    launch.  The calls run three times under the profiler, which now and
+    then drops a session's first kernel records."""
     from torch.profiler import ProfilerActivity, profile
     reps = 3
     build.reset_launches()
@@ -403,7 +485,7 @@ def test_paged_kernels_by_dtype_and_one_launch_per_call(cuda):
                                if "decode" in e.key or "prefill" in e.key})
     assert names[torch.bfloat16] == [
         "paged_decode_combine_kernel", "paged_decode_split_kernel",
-        "paged_prefill_combine_kernel", "paged_prefill_mma_kernel"]
+        "paged_prefill_combine_kernel", "paged_prefill_wgmma_kernel"]
     assert names[torch.float32] == ["decode_kernel", "prefill_kernel"]
     assert build.LAUNCHES["paged_attn_decode"] == 2 * reps
     assert build.LAUNCHES["paged_attn_prefill"] == 2 * reps

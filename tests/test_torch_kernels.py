@@ -230,7 +230,7 @@ def test_build_flags_target_sm90a_with_a_plain_c_interface():
     srcs = sorted(p.name for p in build.CSRC.glob("*.cu"))
     assert srcs == ["approx_bsn.cu", "bsn_sort.cu", "errors.cu",
                     "flash_attention.cu", "paged_attention.cu",
-                    "ternary_matmul.cu"]
+                    "tensor_map.cu", "ternary_matmul.cu"]
     for p in build.CSRC.glob("*.cu*"):
         assert "torch/extension.h" not in p.read_text()
 
